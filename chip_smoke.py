@@ -1,0 +1,582 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the GeoLayer store once on one NVIDIA GPU.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run with a nonzero exit:
+
+1. Device: CUDA must be present; prints the card's name and power limit.
+2. Build: compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (sm_90a).
+3. Main path at full size, with every kernel's launch count set to 0 just
+   before and read just after: a 530,175-item store (community graph of
+   26,000 vertices, the paper's five-DC environment, 160 five-hop patterns,
+   ``PlacementConfig()`` defaults) is built on the card, serves batches of
+   64, 256 and 1024 requests, and runs ``maintain()``.  Every batch must be
+   request-identical to the numpy router, and every kernel must have run.
+4. Kernels against their plain PyTorch versions on the card: route
+   expansion on the store's own batches (and the sweep cases plus a 31-DC
+   case), DHD on the inputs of the 8th step (or the last) of each kind the
+   main path ran (placement arenas with per-field vals, pre-caching,
+   ``maintain``), recorded during phase 3: integer outputs exact, DHD floats
+   within atol 1e-5 / rtol 1e-4.
+5. A CPU build of the same store: replica rows that differ from the card's.
+
+Prints the kernel table as one JSON line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.  Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+DHD_TOL = dict(atol=1e-5, rtol=1e-4)
+BATCHES = (64, 256, 1024)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def request_stream(store, n: int, seed: int):
+    """Sampled pattern requests with a 65% home / 35% remote origin mix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pats = [p for p in store.workload.patterns if len(p.items)]
+    reqs = []
+    for _ in range(n):
+        p = pats[int(rng.integers(0, len(pats)))]
+        home = int(np.argmax(p.r_py))
+        origin = home if rng.random() < 0.65 else int(rng.integers(0, store.env.n_dcs))
+        reqs.append((p.items, origin))
+    return reqs
+
+
+def same_results(got, want) -> bool:
+    import numpy as np
+
+    return len(got) == len(want) and all(
+        np.array_equal(x.served_by, y.served_by)
+        and x.latency_s == y.latency_s
+        and x.per_dc_latency == y.per_dc_latency
+        for x, y in zip(got, want)
+    )
+
+
+def build_inputs():
+    from repro_torch.core.graph import build_csr
+    from repro_torch.core.latency import make_paper_env
+    from repro_torch.core.patterns import Workload, generate_khop_patterns
+    from repro_torch.data.synthetic import community_graph
+
+    g = community_graph(26_000, n_communities=20, p_in=0.02, p_out=0.0005, seed=0, n_dcs=5)
+    env = make_paper_env()
+    csr = build_csr(g.n_nodes, g.src, g.dst, symmetrize=True)
+    pats = generate_khop_patterns(
+        g, csr, 160, hops=5, branch=2, seed=1, n_dcs=env.n_dcs, n_hot_sources=64
+    )
+    return g, env, Workload.from_patterns(pats, g.n_items, env.n_dcs)
+
+
+class DHDRecorder:
+    """Keeps the inputs of the main path's DHD steps, one call per kind.
+
+    Installed over ``kernels.ops.dhd_ell_step_batch`` (the name
+    ``diffuse_batch`` calls) for the main path's run, it passes every call
+    on unchanged and keeps, for each (phase, fields, shared or per-field
+    vals), the tensors of its ``KEEP_AT``-th call, or of its last when the
+    loop is shorter.  The step loop never writes into its inputs, so
+    references suffice.
+
+    ``KEEP_AT`` is 8 because the placement arenas' fields diverge, in the
+    JAX package as here: their super-node weights (graph-edge counts, up to
+    636 on this store) break Theorem 1's bound, the heat grows about 300x a
+    step and overflows f32 after about 17 of its 32 steps.  A check of 4
+    chained steps from call 8 stays finite."""
+
+    KEEP_AT = 8
+
+    def __init__(self, ops) -> None:
+        self.ops = ops
+        self.step = ops.dhd_ell_step_batch
+        self.phase = "build"
+        self.calls: dict = {}
+        self.kept: dict = {}
+
+    def __call__(self, heat, cols, vals, q, alpha=0.5, gamma=0.1, beta=0.3):
+        key = (self.phase, int(heat.shape[0]), vals.dim() == 3)
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if n <= self.KEEP_AT:
+            self.kept[key] = (heat, cols, vals, q, (alpha, gamma, beta))
+        return self.step(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+
+    def __enter__(self) -> "DHDRecorder":
+        self.ops.dhd_ell_step_batch = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ops.dhd_ell_step_batch = self.step
+
+
+def main_path(report: dict):
+    """Phase 3: build, serve and maintain on the card, with the DHD steps'
+    inputs recorded; returns the store, the inputs, the built replica sets,
+    the launch counts and the recorder."""
+    from repro_torch.kernels import ops
+
+    inputs = build_inputs()
+    with DHDRecorder(ops) as rec:
+        return (*_drive_main_path(report, inputs, rec), rec)
+
+
+def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.placement import PlacementConfig
+    from repro_torch.core.routing import route_online_batch
+    from repro_torch.core.store import GeoGraphStore
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+
+    def counts():
+        return {k: c.n for k, c in launch_counters().items()}
+
+    g, env, wl = inputs
+    reset_launch_counters()
+    t0 = time.perf_counter()
+    store = GeoGraphStore(g, env, wl, config=PlacementConfig(), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built_delta = store.state.delta.copy()  # maintain() evicts from it later
+    launches = {"build": counts()}
+    print(f"store: {store.g.n_items} items, {store.lg.n_layers} layers, "
+          f"built on the card in {build_s:.3f} s", flush=True)
+    serve = []
+    for bs in BATCHES:
+        reqs = request_stream(store, bs, seed=bs)
+        before = counts()
+        got = store.serve_batch(reqs, observe=False)
+        launches[f"serve_{bs}"] = {k: v - before[k] for k, v in counts().items()}
+        want = route_online_batch(store.lg, store.state, reqs, fast=False)
+        if not same_results(got, want):
+            fail(f"serve_batch({bs}) on the card differs from the numpy router")
+        times, numpy_times = [], []
+        for _ in range(5):
+            t = time.perf_counter()
+            store.serve_batch(reqs, observe=False)
+            times.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            route_online_batch(store.lg, store.state, reqs, fast=False)
+            numpy_times.append(time.perf_counter() - t)
+        med = float(np.median(times))
+        med_np = float(np.median(numpy_times))
+        store.serve_batch(reqs, observe=True)  # deposit the batch's heat once
+        items = int(sum(len(it) for it, _ in reqs))
+        serve.append({"batch": bs, "items": items, "median_s": med, "rps": bs / med,
+                      "times_s": times, "numpy_median_s": med_np,
+                      "numpy_rps": bs / med_np})
+        print(f"serve_batch({bs}): {items} items, median {med * 1e3:.3f} ms, "
+              f"{bs / med:.1f} routed requests/s, identical to the numpy router "
+              f"(numpy router alone: {med_np * 1e3:.3f} ms, {bs / med_np:.1f}/s)",
+              flush=True)
+    before = counts()
+    rec.phase = "maintain"
+    t = time.perf_counter()
+    m = store.maintain()
+    torch.cuda.synchronize()
+    maintain_s = time.perf_counter() - t
+    launches["maintain"] = {k: v - before[k] for k, v in counts().items()}
+    total = counts()
+    print(f"maintain: evicted {m['evicted']} replicas in {maintain_s:.3f} s", flush=True)
+    print(f"launches on the main path: {total} (per phase: {launches})", flush=True)
+    for name, n in total.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    report["main_path"] = {
+        "n_items": int(store.g.n_items), "n_layers": int(store.lg.n_layers),
+        "build_s": build_s, "serve": serve, "maintain_s": maintain_s,
+        "evicted": int(m["evicted"]), "launches": total, "launches_by_phase": launches,
+    }
+    return store, inputs, built_delta, total
+
+
+def device_busy(store, report: dict) -> None:
+    """Device time per call of serve_batch(1024) and maintain(), from the
+    profiler's CUDA events (kernels and copies), beside the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = request_stream(store, BATCHES[-1], seed=BATCHES[-1])
+    out = {}
+    for name, fn, reps in (
+        ("serve_batch_1024", lambda: store.serve_batch(reqs, observe=False), 5),
+        ("maintain_no_evict", lambda: store.maintain(evict=False), 2),
+    ):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / reps
+        busy_us = 0.0
+        by_kind = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us:
+                busy_us += us
+                by_kind[e.key[:60]] = us / reps / 1e3
+        busy_ms = busy_us / reps / 1e3
+        out[name] = {"device_ms": busy_ms, "wall_ms_profiled": wall_ms,
+                     "device_share": busy_ms / wall_ms, "by_kind_ms": by_kind}
+        print(f"{name}: device busy {busy_ms:.4f} ms of {wall_ms:.3f} ms "
+              f"(profiled wall), share {busy_ms / wall_ms:.4f}; "
+              + ", ".join(f"{k.strip()} {v:.4f}" for k, v in by_kind.items()), flush=True)
+    report["device_busy"] = out
+
+
+def rand_route_problem(rng, R, k_lo, k_hi, D, L, p_rep=0.35, all_ties=False,
+                       single_origin=False, empty_layers=False):
+    import numpy as np
+
+    lens = rng.integers(k_lo, k_hi + 1, R)
+    K = int(lens.max())
+    bits = np.zeros((R, K), np.int32)
+    sizes = np.zeros((R, K), np.float32)
+    pow2 = 1 << np.arange(D, dtype=np.int64)
+    for r in range(R):
+        k = int(lens[r])
+        rep = np.ones((k, D), bool) if all_ties else rng.random((k, D)) < p_rep
+        bits[r, :k] = (rep * pow2).sum(axis=1)
+        sizes[r, :k] = (rng.random(k) + 0.25).astype(np.float32)
+    origin = np.zeros(R, np.int64) if single_origin else rng.integers(0, D, R)
+    comp = np.zeros((L + 1, D), np.int64)
+    comp[0] = np.arange(D)
+    prev = np.arange(D)
+    for layer in range(1, L + 1):
+        if empty_layers and layer == 1:
+            comp[layer] = prev
+            continue
+        groups = max(1, D // (layer + 1))
+        prev = rng.integers(0, groups, int(prev.max()) + 1)[prev]
+        comp[layer] = prev
+    rtt = rng.random((D, D)).astype(np.float32) * 0.2
+    rtt = rtt + rtt.T
+    np.fill_diagonal(rtt, 0.0)
+    ibw = (1.0 / (rng.random((D, D)) * 1e9 + 1e8)).astype(np.float32)
+    np.fill_diagonal(ibw, 0.0)
+    return (bits, sizes, lens.astype(np.int32), origin.astype(np.int32),
+            comp.astype(np.int32), rtt, ibw)
+
+
+SWEEP = [
+    # R, k_lo, k_hi, D, L, p_rep, all_ties, single_origin, empty_layers
+    (8, 1, 24, 5, 3, 0.35, False, False, False),
+    (16, 2, 40, 4, 1, 0.5, False, False, False),
+    (8, 1, 16, 8, 5, 0.2, False, False, False),
+    (8, 4, 20, 5, 3, 0.0, True, False, False),
+    (8, 1, 24, 5, 3, 0.35, False, True, False),
+    (8, 1, 24, 6, 4, 0.3, False, False, True),
+    (4, 1, 8, 5, 2, 0.05, False, False, False),
+    (4, 496, 500, 5, 3, 0.35, False, False, False),
+    (4, 596, 600, 5, 3, 0.35, False, False, False),
+    (256, 1, 160, 31, 4, 0.1, False, False, False),  # 31 DCs: every mask bit
+]
+
+
+def check_route_expand(name, prob, timed: bool) -> dict:
+    """Kernel vs plain version on the card; integer outputs must be equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ref import route_expand_ref
+    from repro_torch.kernels.route_expand import route_expand
+
+    args = tuple(torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in prob)
+    got = route_expand(*args)
+    want = route_expand_ref(*args)
+    torch.cuda.synchronize()
+    for i, label in ((0, "served"), (2, "layers_used"), (3, "miss_after")):
+        if not torch.equal(got[i], want[i]):
+            fail(f"route_expand {name}: {label} differs from the plain version")
+    err = 0.0
+    for i, (rtol, atol) in ((1, (1e-5, 1e-4)), (4, (1e-5, 1e-7)), (5, (1e-5, 1e-4))):
+        if not torch.allclose(got[i], want[i], rtol=rtol, atol=atol):
+            fail(f"route_expand {name}: output {i} outside rtol {rtol} / atol {atol}")
+        err = max(err, float((got[i] - want[i]).abs().max()))
+    out = {"case": name, "max_abs_err": err}
+    if timed:
+        from repro_torch.kernels.cuda_lib import library, stream_ptr
+        from repro_torch.kernels.route_expand import BLOCK_R
+
+        bits, sizes, lens, origin, comp, rtt, ibw = prob
+        R, K = bits.shape
+        D, L = comp.shape[1], comp.shape[0] - 1
+        nbytes = (int(lens.sum()) * 8 + R * 8 + comp.size * 4 + 2 * D * D * 4
+                  + R * K * 4 + R * (D + L + 1 + 3) * 4)
+        lib = library().get()
+        ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in got]
+        stream = stream_ptr(args[0].device)
+
+        # the C entry point straight, into the outputs above: the kernel's
+        # own time, without the wrapper's checks and allocations
+        def launch():
+            lib.route_expand_launch(*ptrs, R, K, D, L, BLOCK_R, stream)
+
+        out.update(
+            shape=[R, K, D, L], items=int(lens.sum()),
+            ms=cuda_ms(launch),
+            wrapper_ms=cuda_ms(lambda: route_expand(*args)),
+            plain_ms=cuda_ms(lambda: route_expand_ref(*args), warmup=1, iters=5),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        )
+    return out
+
+
+def check_dhd(name, heat, cols, vals, q, params) -> dict:
+    """Count and flow kernels vs their plain versions on the card, one
+    step from the same input at a time over 4 chained steps; ``params`` is
+    the step's ``(alpha, gamma, beta)``."""
+    import torch
+
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+    from repro_torch.kernels.dhd_spmv import dhd_ell_step_batch
+    from repro_torch.kernels.ref import (
+        dhd_ell_count_ref,
+        dhd_ell_flow_ref,
+        dhd_ell_ref_batch,
+    )
+
+    lib = library().get()
+    B, n = heat.shape
+    kmax = cols.shape[1]
+    per_field = int(vals.dim() == 3)
+    alpha, gamma, beta = (float(x) for x in params)
+    p = dict(alpha=alpha, gamma=gamma, beta=beta)
+    stream = stream_ptr(heat.device)
+    nout = torch.empty_like(heat)
+    out = torch.empty_like(heat)
+
+    # the two C entry points straight, so each kernel is checked and timed
+    # on its own (these launches are outside the main path's counts)
+    def count(h):
+        lib.dhd_count_batch(h.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                            nout.data_ptr(), B, n, kmax, per_field, stream)
+
+    def flow(h):
+        lib.dhd_flow_batch(h.data_ptr(), nout.data_ptr(), cols.data_ptr(),
+                           vals.data_ptr(), q.data_ptr(), out.data_ptr(), B, n, kmax,
+                           per_field, alpha, 1.0 - gamma, beta, stream)
+
+    err_count = err_flow = 0.0
+    for _ in range(4):
+        count(heat)
+        want_n = dhd_ell_count_ref(heat, cols, vals)
+        flow(heat)
+        want = dhd_ell_flow_ref(heat, want_n, cols, vals, q, **p)
+        step = dhd_ell_step_batch(heat, cols, vals, q, **p)
+        full = dhd_ell_ref_batch(heat, cols, vals, q, **p)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(want).all()):
+            fail(f"dhd {name}: the plain version overflowed; check an earlier step")
+        if not torch.equal(nout, want_n):
+            fail(f"dhd count kernel {name}: |N_out| differs from the plain version")
+        for got in (out, step):
+            if not torch.allclose(got, want, **DHD_TOL):
+                fail(f"dhd flow kernel {name}: outside atol 1e-5 / rtol 1e-4")
+        if not torch.allclose(step, full, **DHD_TOL):
+            fail(f"dhd step {name}: outside atol 1e-5 / rtol 1e-4")
+        err_count = max(err_count, float((nout - want_n).abs().max()))
+        err_flow = max(err_flow, float((out - want).abs().max()))
+        heat = want  # next step from the plain version's field
+    count(heat)
+    vbytes = vals.numel() * 4
+    cbytes = cols.numel() * 4
+    field = B * n * 4
+    count_bytes = field + cbytes + vbytes + field
+    flow_bytes = 3 * field + cbytes + vbytes + field
+    return {
+        "case": name, "shape": [B, n, kmax], "per_field_vals": bool(per_field),
+        "count": {
+            "max_abs_err": err_count, "ms": cuda_ms(lambda: count(heat)),
+            "plain_ms": cuda_ms(lambda: dhd_ell_count_ref(heat, cols, vals)),
+            "bytes": count_bytes, "bound_ms": count_bytes / HBM_BYTES_PER_S * 1e3,
+        },
+        "flow": {
+            "max_abs_err": err_flow, "ms": cuda_ms(lambda: flow(heat)),
+            "plain_ms": cuda_ms(lambda: dhd_ell_flow_ref(heat, nout, cols, vals, q, **p)),
+            "bytes": flow_bytes, "bound_ms": flow_bytes / HBM_BYTES_PER_S * 1e3,
+        },
+    }
+
+
+def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
+    """Phase 4; returns the kernel table rows by name.  The DHD kernels are
+    checked on the inputs the main path gave them (``rec``)."""
+    import numpy as np
+
+    from repro_torch.core.routing import pack_request_tiles
+
+    routes = []
+    for bs in BATCHES:
+        prob = pack_request_tiles(store.lg, store.state, request_stream(store, bs, seed=bs))
+        routes.append(check_route_expand(f"store batch {bs}", prob, timed=True))
+        r = routes[-1]
+        print(f"route_expand {r['case']} {r['shape']}: exact, max abs err "
+              f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms (through the "
+              f"wrapper {r['wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms", flush=True)
+    for i, case in enumerate(SWEEP):
+        rng = np.random.default_rng(1000 + i)
+        prob = rand_route_problem(rng, *case[:6], all_ties=case[6],
+                                  single_origin=case[7], empty_layers=case[8])
+        routes.append(check_route_expand(f"sweep {case}", prob, timed=False))
+    print(f"route_expand: {len(SWEEP)} sweep cases (31 DCs included) exact", flush=True)
+
+    if not any(per_field for _, _, per_field in rec.kept):
+        fail("the main path ran no DHD step with per-field vals (placement arena)")
+    if ("maintain", 5, False) not in rec.kept:
+        fail("maintain() ran no DHD step over the 5 per-DC heat fields")
+    dhds = []
+    for key in sorted(rec.kept, key=lambda k: (k[0] != "maintain", k)):
+        phase, B, per_field = key
+        heat, cols, vals, q, params = rec.kept[key]
+        name = (f"{phase}, call {min(rec.calls[key], rec.KEEP_AT)} of "
+                f"{rec.calls[key]}: {B} field(s), "
+                f"{'per-field' if per_field else 'shared'} vals")
+        d = check_dhd(name, heat, cols, vals, q, params)
+        dhds.append(d)
+        print(f"dhd {name} {d['shape']}: count kernel {d['count']['ms']:.4f} ms "
+              f"(plain {d['count']['plain_ms']:.4f}, bound {d['count']['bound_ms']:.5f}), "
+              f"flow kernel {d['flow']['ms']:.4f} ms (plain {d['flow']['plain_ms']:.4f}, "
+              f"bound {d['flow']['bound_ms']:.5f}), max abs err "
+              f"{d['flow']['max_abs_err']:.3g}", flush=True)
+    report["route_expand_checks"] = routes
+    report["dhd_checks"] = dhds
+    return {"route": routes[len(BATCHES) - 1], "dhd": dhds[0]}
+
+
+def cpu_build_diff(inputs, built_delta, report: dict) -> None:
+    """Phase 5: the same store built with the plain versions on the host
+    (edge-form DHD), against the card's replica sets as built."""
+    from repro_torch.core.placement import PlacementConfig
+    from repro_torch.core.store import GeoGraphStore
+
+    g, env, wl = inputs
+    t = time.perf_counter()
+    cpu = GeoGraphStore(g, env, wl, config=PlacementConfig(), device="cpu")
+    cpu_s = time.perf_counter() - t
+    rows = (cpu.state.delta != built_delta).any(axis=1)
+    diff = int(rows.sum())
+    report["cpu_build"] = {"build_s": cpu_s, "delta_rows_differing": diff,
+                           "replicas_card": int(built_delta.sum()),
+                           "replicas_cpu": int(cpu.state.delta.sum())}
+    print(f"CPU build of the same store: {cpu_s:.3f} s, {diff} state.delta rows "
+          f"differ from the card's build", flush=True)
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"PyTorch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels.cuda_lib import library
+    except ImportError as e:
+        fail(f"the repro_torch package is missing next to chip_smoke.py ({e})")
+    card = gpu_line()
+    print(card, flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+
+    lib = library()
+    t = time.perf_counter()
+    lib.get()
+    print(f"kernels built in {time.perf_counter() - t:.2f} s -> {lib.path.name}", flush=True)
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas: " + line.strip().split("ptxas info    : ")[-1], flush=True)
+
+    report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                    "build_s": lib.build_s}
+    store, inputs, built_delta, launches, rec = main_path(report)
+    device_busy(store, report)
+    rows = kernel_checks(store, rec, report)
+    cpu_build_diff(inputs, built_delta, report)
+
+    route, dhd = rows["route"], rows["dhd"]
+    table = [
+        {"name": "dhd_count", "route": "cuda", "source": "src/repro_torch/csrc/dhd_spmv.cu",
+         "replaces": "src/repro/kernels/dhd_spmv.py:159", "launches": launches["dhd_count"],
+         "max_abs_err": dhd["count"]["max_abs_err"], "ms": dhd["count"]["ms"],
+         "plain_ms": dhd["count"]["plain_ms"], "bound_ms": dhd["count"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "dhd_flow", "route": "cuda", "source": "src/repro_torch/csrc/dhd_spmv.cu",
+         "replaces": "src/repro/kernels/dhd_spmv.py:173", "launches": launches["dhd_flow"],
+         "max_abs_err": dhd["flow"]["max_abs_err"], "ms": dhd["flow"]["ms"],
+         "plain_ms": dhd["flow"]["plain_ms"], "bound_ms": dhd["flow"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "route_expand", "route": "cuda",
+         "source": "src/repro_torch/csrc/route_expand.cu",
+         "replaces": "src/repro/kernels/route_expand.py:48",
+         "launches": launches["route_expand"], "max_abs_err": route["max_abs_err"],
+         "ms": route["ms"], "plain_ms": route["plain_ms"], "bound_ms": route["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+    ]
+    report["kernels"] = table
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
+    print(json.dumps({"kernels": table}), flush=True)
+    print(gpu_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    main()

@@ -1,0 +1,94 @@
+"""Carry a store's state across as plain numpy arrays.
+
+:func:`store_arrays` reads a built store — of this package or of any
+package with the same attribute layout — into a dict of numpy arrays and
+scalars.  :func:`store_from_numpy` builds a port store from such a dict
+without running placement: it adopts ``state.delta``, rebuilds the layered
+graph, route index and demand plane around it, and checks that the carried
+``state.route`` equals the rebuilt nearest-replica table.  Two stores made
+this way serve the same placement, so serving parity does not depend on
+placement parity.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from .core.cost import PlacementState
+from .core.graph import Graph
+from .core.latency import GeoEnvironment
+from .core.patterns import Pattern, Workload
+from .core.placement import PlacementConfig
+from .device import DeviceLike
+
+__all__ = ["ENV_FIELDS", "GRAPH_FIELDS", "store_arrays", "store_from_numpy"]
+
+GRAPH_FIELDS = ("src", "dst", "node_size", "edge_size", "partition")
+ENV_FIELDS = ("rtt_s", "bw_Bps", "c_store", "c_read", "c_write", "c_net")
+
+
+def store_arrays(store) -> Dict[str, object]:
+    """The arrays :func:`store_from_numpy` needs, copied out of ``store``."""
+    g, env, wl = store.g, store.env, store.workload
+    out: Dict[str, object] = {"n_nodes": int(g.n_nodes), "n_dcs": int(env.n_dcs)}
+    for f in GRAPH_FIELDS:
+        out[f"graph.{f}"] = np.array(getattr(g, f))
+    out["env.names"] = list(env.names)
+    for f in ENV_FIELDS:
+        out[f"env.{f}"] = np.array(getattr(env, f))
+    out["workload.r_xy"] = np.array(wl.r_xy)
+    out["workload.w_xy"] = np.array(wl.w_xy)
+    pats = wl.patterns
+    out["patterns.pid"] = np.array([p.pid for p in pats], dtype=np.int64)
+    out["patterns.eta"] = np.array([p.eta for p in pats], dtype=np.float64)
+    out["patterns.r_py"] = np.array([np.asarray(p.r_py) for p in pats])
+    out["patterns.w_py"] = np.array([np.asarray(p.w_py) for p in pats])
+    out["patterns.items"] = [np.array(p.items) for p in pats]
+    out["state.delta"] = np.array(store.state.delta)
+    out["state.route"] = np.array(store.state.route)
+    return out
+
+
+def store_from_numpy(
+    arrays: Dict[str, object],
+    config: Optional[PlacementConfig] = None,
+    device: DeviceLike = None,
+    latency_interval_s: float = 0.100,
+):
+    """A port :class:`~repro_torch.core.store.GeoGraphStore` serving the
+    placement in ``arrays`` (see :func:`store_arrays` for the keys);
+    ``latency_interval_s`` must be the one the source store was built with."""
+    from .core.store import GeoGraphStore
+
+    g = Graph(
+        n_nodes=int(arrays["n_nodes"]),
+        **{f: np.array(arrays[f"graph.{f}"]) for f in GRAPH_FIELDS},
+    )
+    env = GeoEnvironment(
+        names=list(arrays["env.names"]),
+        **{f: np.array(arrays[f"env.{f}"]) for f in ENV_FIELDS},
+    )
+    pats = [
+        Pattern(
+            pid=int(pid), items=np.array(items), r_py=np.array(r), w_py=np.array(w),
+            eta=float(eta),
+        )
+        for pid, items, r, w, eta in zip(
+            arrays["patterns.pid"], arrays["patterns.items"],
+            arrays["patterns.r_py"], arrays["patterns.w_py"], arrays["patterns.eta"],
+        )
+    ]
+    wl = Workload(
+        patterns=pats, n_items=g.n_items, n_dcs=env.n_dcs,
+        r_xy=np.array(arrays["workload.r_xy"]), w_xy=np.array(arrays["workload.w_xy"]),
+    )
+    route = np.array(arrays["state.route"])
+    state = PlacementState(delta=np.array(arrays["state.delta"], dtype=bool), route=route)
+    store = GeoGraphStore(
+        g, env, wl, config=config, device=device, state=state,
+        latency_interval_s=latency_interval_s,
+    )
+    if not np.array_equal(store.route_index.nearest, route):
+        raise ValueError("carried state.route is not the nearest-replica table of state.delta")
+    return store

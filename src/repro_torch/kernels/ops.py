@@ -1,0 +1,421 @@
+"""Public kernel API: dispatch between the CUDA kernels and their plain versions.
+
+Policy: for tensors on a CUDA device the hand-written kernels run (the
+wrappers in :mod:`.dhd_spmv` and :mod:`.route_expand` launch them or raise),
+and asking for any other form there raises; on the CPU the plain PyTorch
+versions in :mod:`.ref` and the edge form of :mod:`repro_torch.core.dhd` run.
+On the CPU ``use_kernel`` picks between the kernel wrapper's plain version and
+the edge form (tests pin both).  Entry points that take numpy arrays take an
+explicit ``device`` (``None`` = the card, see :mod:`repro_torch.device`).
+"""
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, on_cuda, resolve_device
+from ..obs import get_registry
+from .dhd_spmv import dhd_ell_step_batch
+from .route_expand import route_expand as _route_expand_kernel
+
+__all__ = [
+    "dhd_step_batch",
+    "diffuse_batch",
+    "edge_cache_stats",
+    "route_expand_batch",
+    "route_expand_candidates",
+    "route_expand_subsets",
+]
+
+
+# ------------------------------------------------------- dispatch telemetry
+def _obs_t0() -> Optional[float]:
+    """perf_counter() when telemetry is on, else None (zero-cost gate)."""
+    return time.perf_counter() if get_registry().enabled else None
+
+
+def _obs_dispatch(op: str, path: str, t0: Optional[float]) -> None:
+    if t0 is None:
+        return
+    reg = get_registry()
+    reg.counter("kernels.dispatch", op=op, path=path).inc()
+    reg.histogram("kernels.op_time_s", op=op).observe(time.perf_counter() - t0)
+
+
+# --------------------------------------------------- COO-tail edge recovery
+# Rebuilding + deduping the full undirected edge list from (ELL, tail) is a
+# host-side O(nnz log nnz) pass; callers that step the SAME adjacency every
+# sweep hit a cache keyed on the *identity* of the inputs.  Entries hold
+# strong references to their keys' tensors, so a live entry's ids can never
+# be reused by a new object.  CONTRACT: adjacency tensors passed to
+# dhd_step_batch with a tail must not be mutated in place afterwards, or the
+# identity key would serve the pre-mutation edge list.
+_EDGE_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_EDGE_CACHE_MAX = 8
+
+
+def reset_kernel_caches() -> None:
+    """Drop the identity-keyed edge cache and the subset-mask table
+    (test isolation hook; both rebuild lazily on next use)."""
+    _EDGE_CACHE.clear()
+    _SUBSET_HAS_CACHE.clear()
+
+
+def edge_cache_stats() -> dict:
+    """Edge-cache hit/miss counts from the process-default registry
+    (a disabled registry reports zeros)."""
+    reg = get_registry()
+    hits = reg.counter("kernels.edge_cache", event="hit").value
+    misses = reg.counter("kernels.edge_cache", event="miss").value
+    hits = 0.0 if hits != hits else hits  # NaN from the no-op singleton
+    misses = 0.0 if misses != misses else misses
+    total = hits + misses
+    return {
+        "hits": int(hits),
+        "misses": int(misses),
+        "hit_rate": hits / total if total else 0.0,
+    }
+
+
+def _tail_edges(
+    n: int, cols, vals, tail_src, tail_dst, tail_val
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact undirected (a, b, w) covering ELL rows + COO tail, deduped on
+    the canonical (min, max) key (an edge may sit in one endpoint's ELL row
+    while overflowing the other's); on the device of ``cols``."""
+    key = (n, id(cols), id(vals), id(tail_src), id(tail_dst), id(tail_val))
+    hit = _EDGE_CACHE.get(key)
+    if hit is not None:
+        _EDGE_CACHE.move_to_end(key)
+        get_registry().counter("kernels.edge_cache", event="hit").inc()
+        return hit[1]
+    cols_np, vals_np = cols.cpu().numpy(), vals.cpu().numpy()
+    iu, ik = np.nonzero(vals_np > 0)
+    e_src = np.concatenate([iu, tail_src.cpu().numpy()])
+    e_dst = np.concatenate([cols_np[iu, ik], tail_dst.cpu().numpy()])
+    e_w = np.concatenate([vals_np[iu, ik], tail_val.cpu().numpy()])
+    a = np.minimum(e_src, e_dst)
+    b = np.maximum(e_src, e_dst)
+    _, first = np.unique(a.astype(np.int64) * n + b, return_index=True)
+    dev = cols.device
+    out = (
+        torch.as_tensor(a[first], dtype=torch.int64, device=dev),
+        torch.as_tensor(b[first], dtype=torch.int64, device=dev),
+        torch.as_tensor(e_w[first], dtype=torch.float32, device=dev),
+    )
+    _EDGE_CACHE[key] = ((cols, vals, tail_src, tail_dst, tail_val), out)
+    get_registry().counter("kernels.edge_cache", event="miss").inc()
+    while len(_EDGE_CACHE) > _EDGE_CACHE_MAX:
+        _EDGE_CACHE.popitem(last=False)
+    return out
+
+
+def dhd_step_batch(
+    heat: torch.Tensor,  # [B, n]
+    cols: torch.Tensor,  # [n, kmax]
+    vals: torch.Tensor,  # [n, kmax] shared or [B, n, kmax] per-batch
+    q: torch.Tensor,  # [B, n]
+    tail_src: Optional[torch.Tensor] = None,
+    tail_dst: Optional[torch.Tensor] = None,
+    tail_val: Optional[torch.Tensor] = None,
+    alpha: float = 0.5,
+    gamma: float = 0.1,
+    beta: float = 0.3,
+) -> torch.Tensor:
+    """DHD update for B heat fields over ELL (+ optional COO tail).
+
+    Without a tail, :func:`dhd_ell_step_batch` (the CUDA ELL kernels on the
+    card, their plain version on the CPU).  With a COO tail, the exact
+    batched edge form on the CPU (shared ``vals`` only — tail edges change
+    ``|N_u^out|`` globally, so the ELL pass cannot be patched additively);
+    the edge form has no kernel, so a tail on the card raises."""
+    t0 = _obs_t0()
+    if tail_src is not None and tail_src.numel() > 0:
+        if heat.device.type != "cpu":
+            raise ValueError(
+                "a COO tail takes the edge form, which has no kernel: "
+                "pack a tail-free ELL (kmax = max degree) for the card"
+            )
+        if vals.dim() == 3:
+            raise ValueError("COO-tail batching requires shared [n, kmax] vals")
+        n = heat.shape[1]
+        a, b, w = _tail_edges(n, cols, vals, tail_src, tail_dst, tail_val)
+        from ..core.dhd import dhd_step_edges_batch
+
+        out = dhd_step_edges_batch(
+            heat, a, b, w, q, n, alpha=alpha, gamma=gamma, beta=beta
+        )
+        _obs_dispatch("dhd_step_batch", "tail_edges", t0)
+        return out
+    out = dhd_ell_step_batch(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+    _obs_dispatch("dhd_step_batch", "ell", t0)
+    return out
+
+
+# --------------------------------------------------- batched diffusion loop
+def _ell_pack_batch(
+    n: int, src: np.ndarray, dst: np.ndarray, weight: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack an undirected edge list into tail-free symmetric ELL, vectorized.
+
+    ``weight`` may be [m] (shared) or [B, m] (per-seed); the column structure
+    is shared so per-seed variants differ only in ``vals``.  ``kmax`` is the
+    maximum degree, so a power-law graph's hubs blow the table up: callers
+    confine this to bounded-degree graphs (region graphs, clusters)."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    uu = np.concatenate([src, dst])
+    vv = np.concatenate([dst, src])
+    w = np.asarray(weight, np.float32)
+    wb = np.concatenate([w, w], axis=-1)  # [..., 2m]
+    order = np.argsort(uu, kind="stable")
+    uu, vv, wb = uu[order], vv[order], wb[..., order]
+    counts = np.bincount(uu, minlength=n)
+    kmax = max(int(counts.max(initial=1)), 1)
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(len(uu)) - starts[uu]
+    cols = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None], (n, kmax)).copy()
+    cols[uu, pos] = vv.astype(np.int32)
+    if w.ndim == 2:
+        vals = np.zeros((w.shape[0], n, kmax), np.float32)
+        vals[:, uu, pos] = wb
+    else:
+        vals = np.zeros((n, kmax), np.float32)
+        vals[uu, pos] = wb
+    return cols, vals
+
+
+def diffuse_batch(
+    n_nodes: int,
+    src: np.ndarray,
+    dst: np.ndarray,
+    weight: np.ndarray,  # [m] shared or [B, m] per-seed
+    seeds: np.ndarray,  # [B, n]
+    base_heat: Optional[np.ndarray] = None,
+    params=None,
+    n_steps: int = 32,
+    use_kernel: Optional[bool] = None,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Backend for :func:`repro_torch.core.dhd.diffuse_affinity_batch`.
+
+    Runs the decaying-source loop as a host loop of device steps: on the
+    card, the CUDA ELL kernels (edge list packed tail-free once per call);
+    on the CPU, the batched edge form with ``index_add_``, or with
+    ``use_kernel=True`` the ELL kernels' plain version.  ``use_kernel=False``
+    on the card raises: the edge form has no kernel."""
+    from ..core.dhd import DHDParams, dhd_step_edges_batch, source_heat
+
+    p = params or DHDParams()
+    dev = resolve_device(device)
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    elif not use_kernel and dev.type != "cpu":
+        raise ValueError("diffuse_batch on the card runs the ELL kernels only")
+    seeds_t = torch.as_tensor(np.asarray(seeds, np.float32), device=dev)
+    if base_heat is None:
+        h = seeds_t
+    else:
+        base = np.atleast_2d(np.asarray(base_heat, np.float32))
+        h = seeds_t + torch.as_tensor(base, device=dev)
+    half_life = max(n_steps / 4.0, 1.0)
+    t0 = _obs_t0()
+    if use_kernel:
+        cols, vals = _ell_pack_batch(n_nodes, src, dst, weight)
+        cols_t = torch.as_tensor(cols, device=dev)
+        vals_t = torch.as_tensor(vals, device=dev)
+        for k in range(n_steps):
+            q = source_heat(seeds_t, k, half_life=half_life)
+            h = dhd_ell_step_batch(
+                h, cols_t, vals_t, q, alpha=p.alpha, gamma=p.gamma, beta=p.beta
+            )
+        _obs_dispatch("diffuse_batch", "kernel", t0)
+    else:
+        src_t = torch.as_tensor(np.asarray(src, np.int64), device=dev)
+        dst_t = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
+        w_t = torch.as_tensor(np.asarray(weight, np.float32), device=dev)
+        for k in range(n_steps):
+            q = source_heat(seeds_t, k, half_life=half_life)
+            h = dhd_step_edges_batch(
+                h, src_t, dst_t, w_t, q, n_nodes,
+                alpha=p.alpha, gamma=p.gamma, beta=p.beta,
+            )
+        _obs_dispatch("diffuse_batch", "ref", t0)
+    return h.cpu().numpy()
+
+
+# ------------------------------------------------------ fused route expansion
+# precomputed tag keys: the route dispatch sits inside the 5% serving
+# telemetry budget, so it books two plain counters (count + cumulative
+# seconds) instead of the P² histogram _obs_dispatch feeds
+_ROUTE_OBS_KEYS = {
+    path: ((("op", "route_expand"), ("path", path)),)
+    for path in ("kernel", "ref", "subsets")
+}
+
+
+def _route_obs(path: str, t0: Optional[float]) -> None:
+    if t0 is None:
+        return
+    reg = get_registry()
+    # handle pair memoized per registry (dropped with the instruments by
+    # MetricsRegistry.clear()): two dict gets instead of two keyed lookups
+    cache_key = "kernels.route:" + path
+    pair = reg._handle_cache.get(cache_key)
+    if pair is None:
+        (key,) = _ROUTE_OBS_KEYS[path]
+        pair = (
+            reg.counter_keyed("kernels.dispatch", key),
+            reg.counter_keyed("kernels.route_expand_time_s", key),
+        )
+        reg._handle_cache[cache_key] = pair
+    pair[0].inc()
+    pair[1].inc(time.perf_counter() - t0)
+
+
+def route_expand_candidates(
+    backend: Optional[str] = None, n_dcs: Optional[int] = None
+) -> list:
+    """Autotuner candidate configs for ``route_expand`` on ``backend``.
+
+    CUDA has one: the kernel (the card runs nothing else).  CPU pits the
+    tile path's plain version against the subset-histogram router, offered
+    only when the DC count keeps its ``2**D`` histogram small (``n_dcs``
+    unknown counts as eligible — dispatch re-checks)."""
+    if backend is None:
+        backend = "cuda" if on_cuda() else "cpu"
+    if backend == "cuda":
+        return [{"impl": "kernel"}]
+    cands = [{"impl": "ref"}]
+    if n_dcs is None or n_dcs <= SUBSET_MAX_DCS:
+        cands.append({"impl": "subsets"})
+    return cands
+
+
+def _as_device(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
+
+
+def route_expand_batch(
+    bits: np.ndarray,  # [R, K] i32 per-item replica bitmask (bit d = DC d)
+    sizes: np.ndarray,  # [R, K] f32 item bytes (0 where padded)
+    lens: np.ndarray,  # [R] real item count per request
+    origin: np.ndarray,  # [R] origin DC per request
+    comp,  # [hier + 1, D] layer component ids (numpy or a device tensor)
+    rtt,  # [D, D] env RTT matrix
+    ibw,  # [D, D] elementwise 1 / bandwidth matrix
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, ...]:
+    """Fused stepwise layered expansion + Eq. 1 fold for a packed batch, on
+    ``device``: the CUDA kernel on the card, its plain version on the CPU —
+    both produce the oracle's exact greedy picks.  Returns numpy
+    ``(served, bytes_rd, layers_used, miss_after, straggler_s, wan_bytes)``.
+    """
+    dev = resolve_device(device)
+    D = comp.shape[1]
+    t0 = _obs_t0()
+    origin_np = np.asarray(origin)
+    if len(origin_np) and not (0 <= origin_np.min() and origin_np.max() < D):
+        raise ValueError(f"origin DCs must lie in [0, {D})")
+    args = (
+        _as_device(bits, torch.int32, dev),
+        _as_device(sizes, torch.float32, dev),
+        _as_device(lens, torch.int32, dev),
+        _as_device(origin_np, torch.int32, dev),
+        _as_device(comp, torch.int32, dev),
+        _as_device(rtt, torch.float32, dev),
+        _as_device(ibw, torch.float32, dev),
+    )
+    out = tuple(o.cpu().numpy() for o in _route_expand_kernel(*args))
+    _route_obs("kernel" if dev.type == "cuda" else "ref", t0)
+    return out
+
+
+# subset-histogram router: with D data centers an item's routing behaviour is
+# fully determined by its replica bitmask, so a batch collapses to at most
+# 2**D distinct item classes per request.  Histogramming the flat item stream
+# over (request, bitmask) turns every greedy pass into [R, 2**D]-sized work —
+# independent of the item count — which on CPU beats the plain tile version
+# by a wide margin for small D.
+SUBSET_MAX_DCS = 8
+
+_SUBSET_HAS_CACHE: dict = {}
+
+
+def _subset_has(n_dc: int) -> Tuple[np.ndarray, np.ndarray]:
+    hit = _SUBSET_HAS_CACHE.get(n_dc)
+    if hit is None:
+        s = np.arange(1 << n_dc, dtype=np.int64)
+        has = ((s[:, None] >> np.arange(n_dc)) & 1).astype(bool)  # [S, D]
+        hit = (has, has.astype(np.float64))
+        _SUBSET_HAS_CACHE.clear()
+        _SUBSET_HAS_CACHE[n_dc] = hit
+    return hit
+
+
+def route_expand_subsets(
+    bits_flat: np.ndarray,  # [K] i32/i64 per-item replica bitmask, flat stream
+    req_id: np.ndarray,  # [K] request id per flat item (sorted by request)
+    n_requests: int,
+    origin: np.ndarray,  # [R] origin DC per request
+    comp: np.ndarray,  # [hier + 1, D] layer component ids
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stepwise layered expansion over per-request replica-subset histograms.
+
+    Runs the exact greedy of ``route_online`` (same coverage counts — an
+    item contributes to a DC's coverage iff its bitmask holds that DC's bit —
+    same lowest-DC-id argmax tie-break, same layer escalation) but on
+    ``[R, 2**D]`` subset counts, then scatters each subset's serving DC back
+    to its items with one gather.  Returns
+    ``(served [K] i64, layers_used [R] i64, miss_after [R, hier + 1] i64)``;
+    the byte/latency fold is left to the caller's exact host epilogue.
+    """
+    t0 = _obs_t0()
+    R = int(n_requests)
+    L = comp.shape[0] - 1
+    D = comp.shape[1]
+    S = 1 << D
+    has, has_f = _subset_has(D)
+    # [R, S] item count per (request, replica subset); exact as f64 (< 2^53)
+    cnt = np.bincount(
+        req_id * S + bits_flat.astype(np.int64), minlength=R * S
+    ).reshape(R, S).astype(np.float64)
+    origin_in = has[:, origin].T  # [R, S] subset holds the origin's bit
+    serve = np.where(origin_in, origin[:, None], -1)  # [R, S] per-subset DC
+    missing = ~origin_in
+    miss_cnt = (cnt * missing).sum(axis=1)
+    miss_after = np.zeros((R, L + 1), dtype=np.int64)
+    miss_after[:, 0] = miss_cnt
+    ar_R = np.arange(R)
+    layers_used = np.zeros(R, dtype=np.int64)
+    for layer in range(1, L + 1):
+        if not miss_cnt.any():
+            break  # untouched miss_after columns stay 0 == fully resolved
+        cl = comp[layer]
+        allowed = cl[origin][:, None] == cl[None, :]  # [R, D]
+        allowed[ar_R, origin] = False
+        layers_used = np.where(
+            (miss_cnt > 0) & allowed.any(axis=1), layer, layers_used
+        )
+        while True:
+            cover = (cnt * missing) @ has_f  # [R, D] exact integer counts
+            cover[~allowed] = 0.0
+            best = cover.argmax(axis=1)  # first max == lowest DC id
+            progressed = cover[ar_R, best] > 0
+            if not progressed.any():
+                break
+            hit = missing & has[:, best].T & progressed[:, None]
+            serve = np.where(hit, best[:, None], serve)
+            missing &= ~hit
+            miss_cnt = (cnt * missing).sum(axis=1)
+        miss_after[:, layer] = miss_cnt
+    served = serve[req_id, bits_flat]
+    _route_obs("subsets", t0)
+    return served, layers_used, miss_after

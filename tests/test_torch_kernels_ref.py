@@ -1,0 +1,235 @@
+"""The port's plain kernel versions and kernel wrappers vs the JAX package.
+
+Same seeded numpy inputs through ``repro_torch.kernels`` (CPU tensors) and
+through the JAX oracles and Pallas kernels (interpret mode, as the JAX
+package's own tests run them).  DHD tolerances are those of
+``tests/test_kernels.py`` (atol 1e-5, rtol 1e-4: summation order differs);
+route expansion integer outputs must be exactly equal, its floats use the
+tolerances of ``tests/test_route_kernel.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.graph import build_csr, build_ell
+from repro.kernels import ref as jref
+from repro.kernels.dhd_spmv import dhd_ell_step_batch as jax_dhd_kernel
+from repro.kernels.route_expand import route_expand as jax_route_kernel
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+from repro_torch.kernels.dhd_spmv import dhd_ell_step_batch as torch_dhd_wrapper
+from repro_torch.kernels.route_expand import route_expand as torch_route_wrapper
+
+DHD_TOL = dict(atol=1e-5, rtol=1e-4)
+
+DHD_CASES = [
+    # n, kmax, B, per-field vals (the cases of tests/test_kernels.py)
+    (64, 8, 4, False),
+    (57, 6, 3, True),
+    (128, 4, 2, True),
+]
+
+
+def _dhd_problem(n, kmax, B, per_field):
+    rng = np.random.default_rng(6)
+    m = n * kmax // 4
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = src != dst
+    a, b = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+    _, i = np.unique(a.astype(np.int64) * n + b, return_index=True)
+    a, b = a[i], b[i]
+    w = (rng.random(len(a)) + 0.1).astype(np.float32)
+    csr = build_csr(n, a, b, weights=w, symmetrize=True)
+    ell = build_ell(csr, max_degree=int(csr.degree().max()))
+    heat = rng.random((B, n)).astype(np.float32)
+    q = (rng.random((B, n)) * 0.1).astype(np.float32)
+    vals = ell.vals.astype(np.float32)
+    if per_field:
+        vals = np.repeat(vals[None], B, axis=0)
+        vals *= rng.random(vals.shape) > 0.2  # drop edges per field
+    return heat, np.asarray(ell.cols, np.int32), vals.astype(np.float32), q
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("n,kmax,B,per_field", DHD_CASES)
+def test_dhd_ref_batch_matches_jax(n, kmax, B, per_field):
+    heat, cols, vals, q = _dhd_problem(n, kmax, B, per_field)
+    got = tref.dhd_ell_ref_batch(_t(heat), _t(cols), _t(vals), _t(q)).numpy()
+    want_ref = jref.dhd_ell_ref_batch(
+        jnp.asarray(heat), jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(q)
+    )
+    want_kernel = jax_dhd_kernel(
+        jnp.asarray(heat), jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(q),
+        block_n=16, interpret=True,
+    )
+    np.testing.assert_allclose(got, np.asarray(want_ref), **DHD_TOL)
+    np.testing.assert_allclose(got, np.asarray(want_kernel), **DHD_TOL)
+    # single-field form == row b of the batch
+    for k in range(B):
+        vk = vals[k] if per_field else vals
+        single = tref.dhd_ell_ref(_t(heat[k]), _t(cols), _t(vk), _t(q[k])).numpy()
+        np.testing.assert_allclose(single, got[k], **DHD_TOL)
+
+
+@pytest.mark.parametrize("n,kmax,B,per_field", DHD_CASES)
+def test_dhd_count_pass_is_exact(n, kmax, B, per_field):
+    """The count pass (the CUDA count kernel's plain version) is exact:
+    |N_u^out| from numpy loops."""
+    heat, cols, vals, _ = _dhd_problem(n, kmax, B, per_field)
+    got = tref.dhd_ell_count_ref(_t(heat), _t(cols), _t(vals)).numpy()
+    vb = vals if per_field else np.broadcast_to(vals, (B, n, kmax))
+    want = ((vb > 0) & (heat[:, :, None] > heat[:, cols])).sum(axis=-1)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+# ------------------------------------------------------------ route expansion
+def _rand_problem(rng, R, k_lo, k_hi, D, L, p_rep=0.35, all_ties=False,
+                  single_origin=False, empty_layers=False):
+    """Random packed batch + layer hierarchy (as tests/test_route_kernel.py)."""
+    lens = rng.integers(k_lo, k_hi + 1, R)
+    K = int(lens.max())
+    bits = np.zeros((R, K), np.int32)
+    sizes = np.zeros((R, K), np.float32)
+    pow2 = 1 << np.arange(D)
+    for r in range(R):
+        k = int(lens[r])
+        rep = np.ones((k, D), bool) if all_ties else rng.random((k, D)) < p_rep
+        bits[r, :k] = (rep * pow2).sum(axis=1)
+        sizes[r, :k] = (rng.random(k) + 0.25).astype(np.float32)
+    origin = np.zeros(R, np.int64) if single_origin else rng.integers(0, D, R)
+    comp = np.zeros((L + 1, D), np.int64)
+    comp[0] = np.arange(D)
+    prev = np.arange(D)
+    for layer in range(1, L + 1):
+        if empty_layers and layer == 1:
+            comp[layer] = prev
+            continue
+        groups = max(1, D // (layer + 1))
+        prev = rng.integers(0, groups, int(prev.max()) + 1)[prev]
+        comp[layer] = prev
+    rtt = rng.random((D, D)).astype(np.float32) * 0.2
+    rtt = rtt + rtt.T
+    np.fill_diagonal(rtt, 0.0)
+    ibw = (1.0 / (rng.random((D, D)) * 1e9 + 1e8)).astype(np.float32)
+    np.fill_diagonal(ibw, 0.0)
+    return (bits, sizes, lens.astype(np.int32), origin.astype(np.int32),
+            comp.astype(np.int32), rtt, ibw)
+
+
+def _assert_route_match(got, want, lens):
+    served_g, bytes_g, layers_g, miss_g, strag_g, wan_g = got
+    served_w, bytes_w, layers_w, miss_w, strag_w, wan_w = (np.asarray(w) for w in want)
+    for r, k in enumerate(lens):
+        np.testing.assert_array_equal(served_g[r, :k], served_w[r, :k])
+    np.testing.assert_array_equal(layers_g, layers_w)
+    np.testing.assert_array_equal(miss_g, miss_w)
+    np.testing.assert_allclose(bytes_g, bytes_w, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(strag_g, strag_w, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(wan_g, wan_w, rtol=1e-5, atol=1e-4)
+
+
+SWEEP = [
+    # R, k_lo, k_hi, D, L, p_rep, all_ties, single_origin, empty_layers
+    (8, 1, 24, 5, 3, 0.35, False, False, False),
+    (16, 2, 40, 4, 1, 0.5, False, False, False),
+    (8, 1, 16, 8, 5, 0.2, False, False, False),
+    (8, 4, 20, 5, 3, 0.0, True, False, False),  # all ties -> lowest DC id
+    (8, 1, 24, 5, 3, 0.35, False, True, False),  # single-origin batch
+    (8, 1, 24, 6, 4, 0.3, False, False, True),  # empty first layer
+    (4, 1, 8, 5, 2, 0.05, False, False, False),  # mostly-unresolvable items
+]
+
+
+def _route_both(prob):
+    got = tuple(o.numpy() for o in tref.route_expand_ref(*(_t(x) for x in prob)))
+    want_ref = jref.route_expand_ref(*(jnp.asarray(x) for x in prob))
+    want_kernel = jax_route_kernel(*(jnp.asarray(x) for x in prob), block_r=8,
+                                   interpret=True)
+    return got, want_ref, want_kernel
+
+
+@pytest.mark.parametrize("R,k_lo,k_hi,D,L,p_rep,ties,single,empty", SWEEP)
+def test_route_expand_ref_matches_jax(R, k_lo, k_hi, D, L, p_rep, ties, single, empty):
+    rng = np.random.default_rng(R * 1000 + D * 10 + L)
+    prob = _rand_problem(rng, R, k_lo, k_hi, D, L, p_rep, all_ties=ties,
+                         single_origin=single, empty_layers=empty)
+    got, want_ref, want_kernel = _route_both(prob)
+    _assert_route_match(got, want_ref, prob[2])
+    _assert_route_match(got, want_kernel, prob[2])
+
+
+@pytest.mark.parametrize("k_hi", [500, 600])
+def test_route_expand_field_word_boundary(k_hi):
+    """K around the JAX kernel's 512-slot field-word gate."""
+    rng = np.random.default_rng(99 + k_hi)
+    prob = _rand_problem(rng, 4, k_hi - 4, k_hi, 5, 3)
+    got, want_ref, want_kernel = _route_both(prob)
+    _assert_route_match(got, want_ref, prob[2])
+    _assert_route_match(got, want_kernel, prob[2])
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """On CPU tensors the kernel wrappers return the plain versions' results
+    and launch nothing."""
+    reset_launch_counters()
+    heat, cols, vals, q = _dhd_problem(57, 6, 3, True)
+    got = torch_dhd_wrapper(_t(heat), _t(cols), _t(vals), _t(q))
+    want = tref.dhd_ell_ref_batch(_t(heat), _t(cols), _t(vals), _t(q))
+    assert torch.equal(got, want)
+    prob = _rand_problem(np.random.default_rng(3), 8, 1, 24, 5, 3)
+    got_r = torch_route_wrapper(*(_t(x) for x in prob))
+    want_r = tref.route_expand_ref(*(_t(x) for x in prob))
+    for a, b in zip(got_r, want_r):
+        assert torch.equal(a, b)
+    counts = {k: c.n for k, c in launch_counters().items()}
+    assert set(counts) == {"dhd_count", "dhd_flow", "route_expand"}
+    assert all(n == 0 for n in counts.values()), counts
+
+
+def test_dhd_step_batch_dispatch_matches_jax():
+    """``ops.dhd_step_batch``: the exact edge form over ELL + COO tail, and
+    the ELL path (kernel wrapper's plain version on CPU) without a tail."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+
+    rng = np.random.default_rng(8)
+    n, B = 48, 3
+    src, dst = rng.integers(0, n, 300), rng.integers(0, n, 300)
+    keep = src != dst
+    a, b = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+    _, i = np.unique(a.astype(np.int64) * n + b, return_index=True)
+    a, b = a[i], b[i]
+    w = (rng.random(len(a)) + 0.1).astype(np.float32)
+    csr = build_csr(n, a, b, weights=w, symmetrize=True)
+    heat = rng.random((B, n)).astype(np.float32)
+    q = (rng.random((B, n)) * 0.1).astype(np.float32)
+    for max_degree in (3, int(csr.degree().max())):
+        ell = build_ell(csr, max_degree=max_degree)
+        tail = (ell.tail_src, ell.tail_dst, ell.tail_val)
+        assert (len(ell.tail_src) > 0) == (max_degree == 3)
+        want = jops.dhd_step_batch(
+            jnp.asarray(heat), jnp.asarray(ell.cols), jnp.asarray(ell.vals),
+            jnp.asarray(q), *(jnp.asarray(t) for t in tail),
+        )
+        got = tops.dhd_step_batch(
+            _t(heat), _t(np.asarray(ell.cols, np.int32)),
+            _t(np.asarray(ell.vals, np.float32)), _t(q), *(_t(t) for t in tail),
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **DHD_TOL)
+
+
+def test_route_expand_candidates_and_device_kind():
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels.autotune import Autotuner
+
+    assert tops.route_expand_candidates("cuda", n_dcs=5) == [{"impl": "kernel"}]
+    assert tops.route_expand_candidates("cpu", n_dcs=5) == [
+        {"impl": "ref"}, {"impl": "subsets"}
+    ]
+    assert tops.route_expand_candidates("cpu", n_dcs=12) == [{"impl": "ref"}]
+    kind = Autotuner.device_kind()
+    assert kind.startswith("cuda:") if torch.cuda.is_available() else kind == "cpu:cpu"
