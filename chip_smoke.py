@@ -14,14 +14,27 @@ Phases, each of which fails the run with a nonzero exit:
    26,000 vertices, the paper's five-DC environment, 160 five-hop patterns,
    ``PlacementConfig()`` defaults) is built on the card, serves batches of
    64, 256 and 1024 requests, and runs ``maintain()``.  Every batch must be
-   request-identical to the numpy router, and every kernel must have run.
+   request-identical to the numpy router, and every kernel of that path
+   (batched DHD count + flow, route expansion) must have run.
 4. Kernels against their plain PyTorch versions on the card: route
    expansion on the store's own batches (and the sweep cases plus a 31-DC
    case), DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
    ``maintain``), recorded during phase 3: integer outputs exact, DHD floats
    within atol 1e-5 / rtol 1e-4.
-5. A CPU build of the same store: replica rows that differ from the card's.
+5. Streaming updates on the same store, counts set to 0 just before and
+   read just after: two churn batches at rate 0.01 (global warm-DHD sweeps)
+   and two at 2e-5 (a trickle whose frontier takes the pre-solve), each
+   also applied to a CPU mirror of the store; then a migration flush on
+   both, and on the card ``maintain()``, ``compact()`` and a served batch of
+   1024 requests.  Report integers, replica sets and routes must equal the
+   mirror's, heat within atol 1e-5 / rtol 1e-4; the served batch must be
+   request-identical to the numpy router; at least one batch must take the
+   pre-solve and both single-field DHD kernels must have run.  Flush plans
+   may differ from the mirror's on heat near-ties: counted, not failed.
+6. The single-field DHD kernels against their plain versions on the card,
+   on the inputs of real sweeps recorded in phase 5 (global and pre-solve).
+7. A CPU build of the same store: replica rows that differ from the card's.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -40,6 +53,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 DHD_TOL = dict(atol=1e-5, rtol=1e-4)
 BATCHES = (64, 256, 1024)
+# (rate, batches): bench_streaming's churn rate, then a trickle of single
+# edits whose touched frontier stays under the pre-solve's 20% gate
+CHURN = ((0.01, 2), (2e-5, 2))
+# the kernels slice A's path (build, serve, maintain) launches
+MAIN_KERNELS = ("dhd_count", "dhd_flow", "route_expand")
+SINGLE_KERNELS = ("dhd_count_single", "dhd_flow_single")
 
 
 def fail(msg: str) -> None:
@@ -132,27 +151,61 @@ class DHDRecorder:
     chained steps from call 8 stays finite."""
 
     KEEP_AT = 8
+    ATTR = "dhd_ell_step_batch"
 
     def __init__(self, ops) -> None:
         self.ops = ops
-        self.step = ops.dhd_ell_step_batch
+        self.step = getattr(ops, self.ATTR)
         self.phase = "build"
         self.calls: dict = {}
         self.kept: dict = {}
 
+    def key(self, heat, cols, vals) -> tuple:
+        return (self.phase, int(heat.shape[0]), vals.dim() == 3)
+
+    def keep(self, heat, cols, vals, q) -> tuple:
+        return heat, cols, vals, q
+
     def __call__(self, heat, cols, vals, q, alpha=0.5, gamma=0.1, beta=0.3):
-        key = (self.phase, int(heat.shape[0]), vals.dim() == 3)
+        key = self.key(heat, cols, vals)
         n = self.calls[key] = self.calls.get(key, 0) + 1
         if n <= self.KEEP_AT:
-            self.kept[key] = (heat, cols, vals, q, (alpha, gamma, beta))
+            self.kept[key] = (*self.keep(heat, cols, vals, q), (alpha, gamma, beta))
         return self.step(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
 
     def __enter__(self) -> "DHDRecorder":
-        self.ops.dhd_ell_step_batch = self
+        setattr(self.ops, self.ATTR, self)
         return self
 
     def __exit__(self, *exc) -> None:
-        self.ops.dhd_ell_step_batch = self.step
+        setattr(self.ops, self.ATTR, self.step)
+
+
+class SweepRecorder(DHDRecorder):
+    """The same over ``kernels.ops.dhd_ell_step`` (one heat field: the warm
+    DHD sweeps of ``store``'s ``StreamingHeat``), keyed by (phase, global
+    or pre-solve sweep, rows): a global sweep runs over the field's own
+    device adjacency, a pre-solve sweep over a sub-ELL of the frontier.  It
+    keeps copies of ``cols`` and ``vals``: a later batch patches the
+    field's device adjacency in place (``index_copy_``)."""
+
+    ATTR = "dhd_ell_step"
+
+    def __init__(self, ops, store) -> None:
+        super().__init__(ops)
+        self.store = store
+
+    def key(self, heat, cols, vals) -> tuple:
+        sweep = "global" if cols is self.store._heat._cols_j else "pre-solve"
+        return (self.phase, sweep, int(heat.shape[0]))
+
+    def __call__(self, heat, cols, vals, q, alpha=0.5, gamma=0.1, beta=0.3):
+        if heat.device.type != self.store.device.type:  # the host mirror's sweeps
+            return self.step(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+        return super().__call__(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+
+    def keep(self, heat, cols, vals, q) -> tuple:
+        return heat, cols.clone(), vals.clone(), q
 
 
 def main_path(report: dict):
@@ -226,8 +279,8 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
     total = counts()
     print(f"maintain: evicted {m['evicted']} replicas in {maintain_s:.3f} s", flush=True)
     print(f"launches on the main path: {total} (per phase: {launches})", flush=True)
-    for name, n in total.items():
-        if n <= 0:
+    for name in MAIN_KERNELS:
+        if total[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     report["main_path"] = {
         "n_items": int(store.g.n_items), "n_layers": int(store.lg.n_layers),
@@ -237,11 +290,35 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
     return store, inputs, built_delta, total
 
 
+def profiled(fn, reps: int = 1):
+    """``(wall ms, device busy ms, device ms by kernel or copy, fn's last
+    result)`` per call of ``fn`` over ``reps`` calls under the profiler
+    (CUDA events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    busy_us = 0.0
+    by_kind = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            busy_us += us
+            by_kind[e.key[:60]] = us / reps / 1e3
+    return wall_ms, busy_us / reps / 1e3, by_kind, out
+
+
 def device_busy(store, report: dict) -> None:
     """Device time per call of serve_batch(1024) and maintain(), from the
     profiler's CUDA events (kernels and copies), beside the host clock."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     reqs = request_stream(store, BATCHES[-1], seed=BATCHES[-1])
     out = {}
@@ -251,22 +328,7 @@ def device_busy(store, report: dict) -> None:
     ):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3 / reps
-        busy_us = 0.0
-        by_kind = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            if us:
-                busy_us += us
-                by_kind[e.key[:60]] = us / reps / 1e3
-        busy_ms = busy_us / reps / 1e3
+        wall_ms, busy_ms, by_kind, _ = profiled(fn, reps)
         out[name] = {"device_ms": busy_ms, "wall_ms_profiled": wall_ms,
                      "device_share": busy_ms / wall_ms, "by_kind_ms": by_kind}
         print(f"{name}: device busy {busy_ms:.4f} ms of {wall_ms:.3f} ms "
@@ -496,6 +558,263 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
     return {"route": routes[len(BATCHES) - 1], "dhd": dhds[0]}
 
 
+def streaming_phase(store, report: dict):
+    """Phase 5; returns the streaming launch counts and the sweep recorder."""
+    from repro_torch.kernels import ops
+
+    with SweepRecorder(ops, store) as rec:
+        return _drive_streaming(store, report, rec), rec
+
+
+def _drive_streaming(store, report: dict, rec: SweepRecorder) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import store_arrays, store_from_numpy
+    from repro_torch.core.routing import route_online_batch
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.obs import Tracer
+    from repro_torch.streaming import DeltaGraph, random_churn_batch
+
+    def counts():
+        return {k: c.n for k, c in launch_counters().items()}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items() if v - before[k]}
+
+    t = time.perf_counter()
+    mirror = store_from_numpy(store_arrays(store), device="cpu")
+    print(f"streaming: CPU mirror of the store built in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    store.tracer = Tracer(enabled=True)  # spans split apply_updates' host work
+    store._delta_graph = DeltaGraph(store.g)
+    mirror._delta_graph = DeltaGraph(mirror.g)
+    rng = np.random.default_rng(7)
+    ints = ("n_add_vertices", "n_del_vertices", "n_add_edges", "n_del_edges",
+            "n_touched_vertices", "compacted")
+    warm_ints = ("frontier_size", "halo_size", "local_iters", "global_iters")
+    out: dict = {"batches": []}
+    reset_launch_counters()
+    for rate, n_batches in CHURN:
+        for i in range(n_batches):
+            rec.phase = f"apply {rate:g}"
+            batch = random_churn_batch(store._delta_graph, rate, rng)
+            before = counts()
+            store.tracer.reset()
+            if i == n_batches - 1:  # the warm batch of each rate, profiled
+                wall_ms, busy_ms, by_kind, r = profiled(lambda: store.apply_updates(batch))
+                wall_s, prof = wall_ms / 1e3, {"wall_ms": wall_ms, "device_ms": busy_ms,
+                                               "device_share": busy_ms / wall_ms,
+                                               "by_kind_ms": by_kind}
+            else:
+                t = time.perf_counter()
+                r = store.apply_updates(batch)
+                torch.cuda.synchronize()
+                wall_s, prof = time.perf_counter() - t, None
+            launches = since(before)
+            spans = {sp.name: sp.dur_s for sp in store.tracer.records}
+            t = time.perf_counter()
+            m = mirror.apply_updates(batch)
+            mirror_s = time.perf_counter() - t
+            if [getattr(r, f) for f in ints] != [getattr(m, f) for f in ints]:
+                fail(f"apply_updates({rate:g}) report differs from the CPU mirror's")
+            if [getattr(r.heat, f) for f in warm_ints[:2]] != [
+                getattr(m.heat, f) for f in warm_ints[:2]
+            ]:
+                fail(f"apply_updates({rate:g}): warm-DHD frontier differs from the mirror's")
+            if not (np.array_equal(store.state.delta, mirror.state.delta)
+                    and np.array_equal(store.route_index.nearest, mirror.route_index.nearest)):
+                fail(f"apply_updates({rate:g}): replica sets or routes differ from the mirror's")
+            heat_err = float(np.abs(store._heat.heat - mirror._heat.heat).max())
+            if not np.allclose(store._heat.heat, mirror._heat.heat, **DHD_TOL):
+                fail(f"apply_updates({rate:g}): heat outside atol 1e-5 / rtol 1e-4 of the "
+                     f"mirror's (max abs err {heat_err:.3g})")
+            row = {
+                "rate": rate, "n_ops": int(batch.n_ops), "apply_s": wall_s,
+                "mirror_apply_s": mirror_s, "spans_s": spans, "profiled": prof,
+                "report": {f: int(getattr(r, f)) for f in ints},
+                "warm": {f: int(getattr(r.heat, f)) for f in warm_ints},
+                "mirror_warm": {f: int(getattr(m.heat, f)) for f in warm_ints},
+                "residual": r.heat_residual, "heat_max_abs_err": heat_err,
+                "n_rows": int(store._heat.cols.shape[0]),
+                "kmax": int(store._heat.cols.shape[1]), "launches": launches,
+            }
+            out["batches"].append(row)
+            w = row["warm"]
+            print(f"apply_updates(rate {rate:g}, {batch.n_ops} ops): "
+                  f"{wall_s:.3f} s{' (profiled)' if prof else ''}, mirror {mirror_s:.3f} s; "
+                  f"touched {r.n_touched_vertices}, frontier {w['frontier_size']}, "
+                  f"halo {w['halo_size']}, local iters {w['local_iters']}, global iters "
+                  f"{w['global_iters']} (mirror {row['mirror_warm']['global_iters']}), "
+                  f"residual {r.heat_residual:.3g}, heat max abs err {heat_err:.3g}; "
+                  f"ELL {row['n_rows']} x {row['kmax']}; launches {launches}; spans "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()), flush=True)
+            if prof:
+                print(f"  device busy {busy_ms:.4f} ms of {wall_ms:.3f} ms, share "
+                      f"{busy_ms / wall_ms:.5f}; "
+                      + ", ".join(f"{k.strip()} {v:.4f}" for k, v in by_kind.items()),
+                      flush=True)
+    if not any(b["warm"]["local_iters"] > 0 for b in out["batches"]):
+        fail("no streaming batch took the frontier pre-solve")
+
+    rec.phase = "flush"
+    before = counts()
+    t = time.perf_counter()
+    plan = store.flush_migrations()
+    flush_s = time.perf_counter() - t
+    flush_launches = since(before)
+    t = time.perf_counter()
+    mplan = mirror.flush_migrations()
+    mirror_flush_s = time.perf_counter() - t
+    moves = {(x.item, x.dc, x.kind) for x in plan.moves}
+    mmoves = {(x.item, x.dc, x.kind) for x in mplan.moves}
+    rows = int((store.state.delta != mirror.state.delta).any(axis=1).sum())
+    out["flush"] = {"moves": len(plan.moves), "adds": plan.n_adds,
+                    "waves": plan.schedule.n_waves, "flush_s": flush_s,
+                    "mirror_flush_s": mirror_flush_s, "moves_differing": len(moves ^ mmoves),
+                    "delta_rows_differing": rows, "launches": flush_launches}
+    print(f"flush_migrations: {len(plan.moves)} moves ({plan.n_adds} adds) in "
+          f"{plan.schedule.n_waves} waves, {flush_s:.3f} s (mirror {mirror_flush_s:.3f} s); "
+          f"{len(moves ^ mmoves)} moves and {rows} state.delta rows differ from the "
+          f"mirror's; launches {flush_launches}", flush=True)
+
+    for phase, fn in (("maintain", store.maintain), ("compact", store.compact)):
+        rec.phase = phase
+        before = counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[phase] = {"s": time.perf_counter() - t, "launches": since(before),
+                      "result": res}
+        print(f"{phase}: {res} in {out[phase]['s']:.3f} s, launches "
+              f"{out[phase]['launches']}", flush=True)
+    if store._heat.n_nodes != store.g.n_nodes or store.tombstone_ratio() != 0.0:
+        fail("compact() left tombstones or a stale heat field")
+
+    reqs = request_stream(store, BATCHES[-1], seed=BATCHES[-1])
+    got = store.serve_batch(reqs, observe=False)
+    want = route_online_batch(store.lg, store.state, reqs, fast=False)
+    if not same_results(got, want):
+        fail("serve_batch(1024) after churn differs from the numpy router")
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        store.serve_batch(reqs, observe=False)
+        times.append(time.perf_counter() - t)
+    med = float(np.median(times))
+    out["serve_1024"] = {"median_s": med, "rps": BATCHES[-1] / med, "times_s": times,
+                         "n_items": int(store.g.n_items)}
+    total = counts()
+    out["launches"] = total
+    print(f"serve_batch(1024) after churn, flush and compaction ({store.g.n_items} "
+          f"items): identical to the numpy router, median {med * 1e3:.3f} ms, "
+          f"{BATCHES[-1] / med:.1f} routed requests/s", flush=True)
+    print(f"launches on the streaming path: {total}", flush=True)
+    for name in SINGLE_KERNELS:
+        if total[name] <= 0:
+            fail(f"kernel {name} was not launched on the streaming path")
+    report["streaming"] = out
+    return total
+
+
+def check_dhd_single(name, heat, cols, vals, q, params) -> dict:
+    """The single-field count and flow kernels vs their plain versions on
+    the card, over 4 chained steps from a recorded sweep input."""
+    import torch
+
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+    from repro_torch.kernels.dhd_spmv import dhd_ell_step
+    from repro_torch.kernels.ref import dhd_ell_count_ref, dhd_ell_flow_ref, dhd_ell_ref
+
+    lib = library().get()
+    n, kmax = cols.shape
+    alpha, gamma, beta = (float(x) for x in params)
+    p = dict(alpha=alpha, gamma=gamma, beta=beta)
+    stream = stream_ptr(heat.device)
+    nout = torch.empty_like(heat)
+    out = torch.empty_like(heat)
+
+    def count(h):
+        lib.dhd_count_single(h.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                             nout.data_ptr(), n, kmax, stream)
+
+    def flow(h):
+        lib.dhd_flow_single(h.data_ptr(), nout.data_ptr(), cols.data_ptr(),
+                            vals.data_ptr(), q.data_ptr(), out.data_ptr(), n, kmax,
+                            alpha, 1.0 - gamma, beta, stream)
+
+    def count_ref(h):
+        return dhd_ell_count_ref(h[None], cols, vals)[0]
+
+    def flow_ref(h, n_out):
+        return dhd_ell_flow_ref(h[None], n_out[None], cols, vals, q[None], **p)[0]
+
+    err_count = err_flow = 0.0
+    for _ in range(4):
+        count(heat)
+        want_n = count_ref(heat)
+        flow(heat)
+        want = flow_ref(heat, want_n)
+        step = dhd_ell_step(heat, cols, vals, q, **p)
+        full = dhd_ell_ref(heat, cols, vals, q, **p)
+        torch.cuda.synchronize()
+        if not torch.equal(nout, want_n):
+            fail(f"dhd_count_single {name}: |N_out| differs from the plain version")
+        for got in (out, step):
+            if not torch.allclose(got, want, **DHD_TOL):
+                fail(f"dhd_flow_single {name}: outside atol 1e-5 / rtol 1e-4")
+        if not torch.allclose(step, full, **DHD_TOL):
+            fail(f"dhd_ell_step {name}: outside atol 1e-5 / rtol 1e-4")
+        err_count = max(err_count, float((nout - want_n).abs().max()))
+        err_flow = max(err_flow, float((out - want).abs().max()))
+        heat = want
+    count(heat)
+    ell = cols.numel() * 4 + vals.numel() * 4
+    count_bytes = ell + 2 * n * 4  # heat in, |N_out| out
+    flow_bytes = ell + 4 * n * 4  # heat, |N_out|, q in, heat out
+    return {
+        "case": name, "shape": [n, kmax],
+        "count": {
+            "max_abs_err": err_count, "ms": cuda_ms(lambda: count(heat)),
+            "plain_ms": cuda_ms(lambda: count_ref(heat)),
+            "bytes": count_bytes, "bound_ms": count_bytes / HBM_BYTES_PER_S * 1e3,
+        },
+        "flow": {
+            "max_abs_err": err_flow, "ms": cuda_ms(lambda: flow(heat)),
+            "plain_ms": cuda_ms(lambda: flow_ref(heat, nout)),
+            "bytes": flow_bytes, "bound_ms": flow_bytes / HBM_BYTES_PER_S * 1e3,
+        },
+    }
+
+
+def streaming_kernel_checks(rec: SweepRecorder, report: dict) -> dict:
+    """Phase 6; returns the single-field kernels' rows: the last recorded
+    global sweep of the 0.01 batches (``"global"``) and the first pre-solve
+    sweep (``"presolve"``).  Every recorded kind is checked."""
+    glob = sorted(k for k in rec.kept if k[:2] == (f"apply {CHURN[0][0]:g}", "global"))
+    pre = sorted(k for k in rec.kept if k[1] == "pre-solve")
+    if not glob or not pre:
+        fail(f"a global or a pre-solve sweep was not recorded: {sorted(rec.kept)}")
+    checks, rows = [], {}
+    for key in sorted(rec.kept):
+        heat, cols, vals, q, params = rec.kept[key]
+        name = (f"{key[0]}, {key[1]} sweep, call {min(rec.calls[key], rec.KEEP_AT)} "
+                f"of {rec.calls[key]}: {key[2]} rows")
+        d = check_dhd_single(name, heat, cols, vals, q, params)
+        checks.append(d)
+        if key == glob[-1]:
+            rows["global"] = d
+        if key == pre[0]:
+            rows["presolve"] = d
+        print(f"dhd single {name} {d['shape']}: count kernel {d['count']['ms']:.4f} ms "
+              f"(plain {d['count']['plain_ms']:.4f}, bound {d['count']['bound_ms']:.5f}), "
+              f"flow kernel {d['flow']['ms']:.4f} ms (plain {d['flow']['plain_ms']:.4f}, "
+              f"bound {d['flow']['bound_ms']:.5f}), max abs err "
+              f"{d['flow']['max_abs_err']:.3g}", flush=True)
+    report["dhd_single_checks"] = checks
+    return rows
+
+
 def cpu_build_diff(inputs, built_delta, report: dict) -> None:
     """Phase 5: the same store built with the plain versions on the host
     (edge-form DHD), against the card's replica sets as built."""
@@ -545,6 +864,8 @@ def main() -> None:
     store, inputs, built_delta, launches, rec = main_path(report)
     device_busy(store, report)
     rows = kernel_checks(store, rec, report)
+    stream_launches, sweep_rec = streaming_phase(store, report)
+    single = streaming_kernel_checks(sweep_rec, report)["global"]
     cpu_build_diff(inputs, built_delta, report)
 
     route, dhd = rows["route"], rows["dhd"]
@@ -565,6 +886,15 @@ def main() -> None:
          "launches": launches["route_expand"], "max_abs_err": route["max_abs_err"],
          "ms": route["ms"], "plain_ms": route["plain_ms"], "bound_ms": route["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+    ] + [
+        {"name": f"dhd_{part}_single", "route": "cuda",
+         "source": "src/repro_torch/csrc/dhd_spmv.cu",
+         "replaces": f"src/repro/kernels/dhd_spmv.py:{line}",
+         "launches": stream_launches[f"dhd_{part}_single"],
+         "max_abs_err": single[part]["max_abs_err"], "ms": single[part]["ms"],
+         "plain_ms": single[part]["plain_ms"], "bound_ms": single[part]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
+        for part, line in (("count", 70), ("flow", 82))
     ]
     report["kernels"] = table
     out_dir = ROOT / "chiprun_out"

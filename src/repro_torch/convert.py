@@ -8,6 +8,10 @@ graph, route index and demand plane around it, and checks that the carried
 ``state.route`` equals the rebuilt nearest-replica table.  Two stores made
 this way serve the same placement, so serving parity does not depend on
 placement parity.
+
+:func:`streaming_heat_arrays` and :func:`streaming_heat_from_numpy` do the
+same for a warm DHD field (``StreamingHeat``), so both packages' warm
+updates can start from one field.
 """
 from __future__ import annotations
 
@@ -22,10 +26,19 @@ from .core.patterns import Pattern, Workload
 from .core.placement import PlacementConfig
 from .device import DeviceLike
 
-__all__ = ["ENV_FIELDS", "GRAPH_FIELDS", "store_arrays", "store_from_numpy"]
+__all__ = [
+    "ENV_FIELDS",
+    "GRAPH_FIELDS",
+    "HEAT_FIELDS",
+    "store_arrays",
+    "store_from_numpy",
+    "streaming_heat_arrays",
+    "streaming_heat_from_numpy",
+]
 
 GRAPH_FIELDS = ("src", "dst", "node_size", "edge_size", "partition")
 ENV_FIELDS = ("rtt_s", "bw_Bps", "c_store", "c_read", "c_write", "c_net")
+HEAT_FIELDS = ("cols", "vals", "heat", "q")
 
 
 def store_arrays(store) -> Dict[str, object]:
@@ -92,3 +105,32 @@ def store_from_numpy(
     if not np.array_equal(store.route_index.nearest, route):
         raise ValueError("carried state.route is not the nearest-replica table of state.delta")
     return store
+
+
+def streaming_heat_arrays(sh) -> Dict[str, object]:
+    """The state of a built ``StreamingHeat`` (of this package or of any
+    package with the same attribute layout) as numpy arrays and scalars."""
+    out: Dict[str, object] = {f: np.array(getattr(sh, f)) for f in HEAT_FIELDS}
+    out["alpha"] = float(sh.alpha)
+    out["n_nodes"] = int(sh.n_nodes)
+    out["params"] = tuple(float(x) for x in sh.params)
+    out["max_iters"] = int(sh.max_iters)
+    out["tol"] = float(sh.tol)
+    return out
+
+
+def streaming_heat_from_numpy(arrays: Dict[str, object], device: DeviceLike = None):
+    """A port ``StreamingHeat`` holding the field in ``arrays`` (see
+    :func:`streaming_heat_arrays`), its adjacency uploaded to ``device``."""
+    from .core.dhd import DHDParams
+    from .streaming.delta_dhd import StreamingHeat
+
+    sh = StreamingHeat(
+        params=DHDParams(*arrays["params"]), max_iters=int(arrays["max_iters"]),
+        tol=float(arrays["tol"]), device=device,
+    )
+    sh.adopt(
+        *(arrays[f] for f in HEAT_FIELDS), alpha=float(arrays["alpha"]),
+        n_nodes=int(arrays["n_nodes"]),
+    )
+    return sh

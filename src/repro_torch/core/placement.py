@@ -25,6 +25,7 @@ Flow (level-synchronous rendering of Algorithms 1+2):
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -50,6 +51,7 @@ __all__ = [
     "PlacementConfig",
     "replication_gain",
     "CompetitionArena",
+    "PlacementJournal",
     "overlap_centric_placement",
     "precache_hot_regions",
     "HeatCache",
@@ -239,12 +241,13 @@ class CompetitionArena:
         params: dhd.DHDParams,
         n_steps: int,
         device: DeviceLike = None,
+        heat_valid: Optional[Tuple[Optional[np.ndarray], np.ndarray]] = None,
     ) -> None:
         self.candidates = candidates
         self.n_regions = len(regions)
-        self.heat, self.valid = self._build(
-            regions, g, candidates, params, n_steps, device=device
-        )
+        if heat_valid is None:
+            heat_valid = self._build(regions, g, candidates, params, n_steps, device)
+        self.heat, self.valid = heat_valid
 
     @staticmethod
     def _build(
@@ -338,20 +341,135 @@ class CompetitionArena:
         return int(np.asarray(freq).argmax())
 
 
+# ------------------------------------------------------- placement journal
+def _digest(*arrays: np.ndarray) -> bytes:
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        b = np.ascontiguousarray(a)
+        h.update(str(b.dtype).encode())
+        h.update(str(b.shape).encode())
+        h.update(b.tobytes())
+    return h.digest()
+
+
+def _unit_fp(u: PlacedUnit, uid: Optional[np.ndarray] = None) -> Tuple:
+    items = uid[u.items] if uid is not None else u.items
+    return (u.key, float(u.eta), _digest(items, u.r_py, u.w_py))
+
+
+def _cand_fp(
+    cand: List[Tuple[int, np.ndarray, List[np.ndarray]]],
+    uid: Optional[np.ndarray] = None,
+) -> Tuple:
+    return tuple(
+        (cid, _digest(dcs),
+         tuple(_digest(uid[h] if uid is not None else h) for h in held))
+        for (cid, dcs, held) in cand
+    )
+
+
+class PlacementJournal:
+    """Memo of placement intermediates keyed on their *exact* inputs.
+
+    Algorithms 1+2 are deterministic, so any intermediate whose inputs are
+    unchanged between two runs can be replayed from the journal instead of
+    recomputed.  :meth:`GeoGraphStore.insert_patterns_incremental` exploits
+    this: re-running placement over the extended workload only pays for the
+    pools the new patterns actually touch (decomposition, region adjacency
+    and the batched DHD heat table are all journal hits elsewhere), which is
+    what makes the result provably identical to a full re-place.
+
+    Keys fingerprint unit items/frequencies and candidate holdings with
+    BLAKE2 digests.  When ``item_uid`` is set (the store maintains one
+    monotonically-assigned uid per item row), digests run over *uids* rather
+    than raw row indices — raw rows renumber on compaction, uids never do —
+    which makes every key **fingerprint-stable across**
+    ``GeoGraphStore._compact_in_place``: the store calls :meth:`remap` to
+    rewrite the row-indexed memo *values* (region item arrays) onto the
+    compacted id space and every key keeps matching.  Topology changes
+    (mutation batches) still discard the journal: region adjacency and heat
+    tables depend on the edge set itself, not just the pool's items.  Each
+    memo table is FIFO-bounded (``max_entries``) so repeated incremental
+    inserts — which retire old fingerprints every round — cannot grow it
+    without bound; evicted entries simply recompute on next use.
+    """
+
+    def __init__(self, max_entries: int = 4096) -> None:
+        self.max_entries = max_entries
+        self.regions: Dict[Tuple, List[OverlapRegion]] = {}
+        self.heat: Dict[Tuple, Tuple[Optional[np.ndarray], np.ndarray]] = {}
+        self.gain: Dict[Tuple, float] = {}
+        self.hits = 0
+        self.misses = 0
+        # [n_items] content-stable uid per item row; owned by the store
+        self.item_uid: Optional[np.ndarray] = None
+
+    def stats(self) -> Dict[str, int]:
+        return dict(hits=self.hits, misses=self.misses,
+                    pools=len(self.regions), heats=len(self.heat))
+
+    def unit_fp(self, u: PlacedUnit) -> Tuple:
+        return _unit_fp(u, self.item_uid)
+
+    def cand_fp(self, cand: List[Tuple[int, np.ndarray, List[np.ndarray]]]) -> Tuple:
+        return _cand_fp(cand, self.item_uid)
+
+    def remap(self, imap: np.ndarray, item_uid: np.ndarray) -> None:
+        """Re-key row-indexed memo values onto a compacted id space.
+
+        ``imap[old_row] -> new_row`` (-1 = dropped).  Keys are uid-digests
+        and survive untouched; only region item arrays store raw rows
+        (compaction renumbers monotonically, so remapped arrays stay sorted
+        — the decompose invariant).  Gains are scalars over sizes/prices
+        that compaction preserves and survive too.  Heat tables do NOT:
+        ``region_adjacency`` runs over the raw edge arrays, which before
+        compaction still contain tombstoned edges — a post-compaction
+        recompute would exclude them, so memoized tables are cleared rather
+        than replayed stale."""
+        for regions in self.regions.values():
+            for r in regions:
+                it = imap[r.items]
+                r.items = it[it >= 0]
+        self.heat.clear()
+        self.item_uid = item_uid
+
+    def memo(self, cache: Dict, key: Tuple, compute):
+        hit = cache.get(key)
+        if hit is not None:
+            self.hits += 1
+            return hit
+        self.misses += 1
+        out = compute()
+        cache[key] = out
+        while len(cache) > self.max_entries:  # FIFO: dicts keep insert order
+            cache.pop(next(iter(cache)))
+        return out
+
+
 # ------------------------------------------------------- main placement flow
 def overlap_centric_placement(
     lg: LayeredGraph,
     workload: Workload,
     config: Optional[PlacementConfig] = None,
     device: DeviceLike = None,
+    journal: Optional[PlacementJournal] = None,
+    route: bool = True,
 ) -> Tuple[PlacementState, Dict[str, object]]:
     """Algorithms 1 + 2 end-to-end.  Returns (placement state, stats);
-    ``device`` is where the DHD diffusions run."""
+    ``device`` is where the DHD diffusions run.
+
+    ``journal`` memoizes pool decompositions, replication gains and DHD heat
+    tables across runs (see :class:`PlacementJournal`); ``route=False`` skips
+    the final nearest-replica table derivation for callers that patch an
+    existing :class:`~repro_torch.core.route_index.RouteIndex` instead."""
     cfg = config or PlacementConfig()
     g, env = lg.g, lg.env
     sizes = g.item_size()
     D = env.n_dcs
     state = PlacementState.empty(g.n_items, D)
+    # journal counters persist across placements; track this run's delta
+    j_hits0 = journal.hits if journal is not None else 0
+    j_miss0 = journal.misses if journal is not None else 0
 
     # primary copies: each vertex at its partition DC, each edge at src's DC
     state.delta[np.arange(g.n_nodes), g.partition] = True
@@ -403,9 +521,18 @@ def overlap_centric_placement(
                     to_layer = k - 1
                 if not child_ids:
                     continue
-                gain = replication_gain(
-                    unit, b.dcs, child_dcs, sizes, env, cfg.lambda1, primary
-                )
+                if journal is not None:
+                    gkey = (journal.unit_fp(unit), bs_id, tuple(child_ids), to_layer)
+                    gain = journal.memo(
+                        journal.gain, gkey,
+                        lambda: replication_gain(
+                            unit, b.dcs, child_dcs, sizes, env, cfg.lambda1, primary
+                        ),
+                    )
+                else:
+                    gain = replication_gain(
+                        unit, b.dcs, child_dcs, sizes, env, cfg.lambda1, primary
+                    )
                 if gain >= 0:
                     stats["replicated"] += 1
                     for cid in child_ids:
@@ -418,11 +545,20 @@ def overlap_centric_placement(
         # Phase 2: overlap-region allocation within each cluster
         for comp, entries in list(pools[k].items()):
             units = [u for (_, u) in entries]
-            pseudo = [
-                Pattern(pid=i, items=u.items, r_py=u.r_py, w_py=u.w_py, eta=u.eta)
-                for i, u in enumerate(units)
-            ]
-            regions = decompose_overlap_regions(pseudo, g.n_items)
+            pool_fp = (
+                (k, comp, tuple((bs, journal.unit_fp(u)) for (bs, u) in entries))
+                if journal is not None else None
+            )
+            def _decompose():
+                pseudo = [
+                    Pattern(pid=i, items=u.items, r_py=u.r_py, w_py=u.w_py, eta=u.eta)
+                    for i, u in enumerate(units)
+                ]
+                return decompose_overlap_regions(pseudo, g.n_items)
+            if journal is not None:
+                regions = journal.memo(journal.regions, pool_fp, _decompose)
+            else:
+                regions = _decompose()
             stats["regions"] += len(regions)
             b_holder = next(bb for bb in lg.layers[k] if bb.comp == comp)
             children = lg.bs_children(b_holder)
@@ -445,8 +581,17 @@ def overlap_centric_placement(
             def _get_arena() -> CompetitionArena:
                 nonlocal arena
                 if arena is None:
+                    hv = None
+                    if journal is not None:
+                        hv = journal.memo(
+                            journal.heat, (pool_fp, journal.cand_fp(cand)),
+                            lambda: CompetitionArena._build(
+                                regions, g, cand, cfg.dhd, cfg.dhd_steps, device
+                            ),
+                        )
                     arena = CompetitionArena(
-                        regions, g, cand, cfg.dhd, cfg.dhd_steps, device=device
+                        regions, g, cand, cfg.dhd, cfg.dhd_steps, device=device,
+                        heat_valid=hv,
                     )
                 return arena
 
@@ -466,10 +611,23 @@ def overlap_centric_placement(
                 if not req_idx:
                     continue
                 req = [cand[i] for i in req_idx]
-                gain = replication_gain(
-                    runit, b_holder.dcs, [d for (_, d, _) in req], sizes, env,
-                    cfg.lambda1, primary,
-                )
+                if journal is not None:
+                    gkey = (
+                        journal.unit_fp(runit), b_holder.bs_id,
+                        tuple(cand[i][0] for i in req_idx), to_layer,
+                    )
+                    gain = journal.memo(
+                        journal.gain, gkey,
+                        lambda: replication_gain(
+                            runit, b_holder.dcs, [d for (_, d, _) in req],
+                            sizes, env, cfg.lambda1, primary,
+                        ),
+                    )
+                else:
+                    gain = replication_gain(
+                        runit, b_holder.dcs, [d for (_, d, _) in req], sizes, env,
+                        cfg.lambda1, primary,
+                    )
                 if gain > 0:
                     stats["replicated"] += 1
                     targets = [cid for (cid, _, _) in req]
@@ -499,7 +657,14 @@ def overlap_centric_placement(
             max_per_dc=cfg.precache_max_per_dc, device=device,
         )
 
-    state.route_nearest(env)
+    if journal is not None:
+        stats["journal"] = journal.stats()
+        reg = get_registry()
+        if reg.enabled:
+            reg.counter("placement.journal_hits").inc(journal.hits - j_hits0)
+            reg.counter("placement.journal_misses").inc(journal.misses - j_miss0)
+    if route:
+        state.route_nearest(env)
     return state, stats
 
 

@@ -1,5 +1,7 @@
-// Directed-Heat-Diffusion step over symmetric ELL adjacency (paper Eqs. 7-8)
-// for B heat fields that share one column structure.
+// Directed-Heat-Diffusion step over symmetric ELL adjacency (paper Eqs. 7-8):
+// for B heat fields that share one column structure (dhd_count_batch /
+// dhd_flow_batch), and for one heat field (dhd_count_single /
+// dhd_flow_single, at the end of this file).
 //
 // Replaces the Pallas kernels _count_kernel_batch / _flow_kernel_batch of
 // repro/kernels/dhd_spmv.py.  The TPU version keeps each field's whole heat
@@ -107,6 +109,91 @@ inline dim3 grid_for(int64_t rows) {
   return dim3((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
 }
 
+// ---------------------------------------------------------------- one field
+// Replaces the Pallas kernels _count_kernel / _flow_kernel of
+// repro/kernels/dhd_spmv.py, the step that warm DHD (streaming/delta_dhd.py)
+// sweeps to its steady state over one heat field.  Its ELL has
+// kmax = round8(max degree + 8) slots a row: 80 on the 26,000-vertex serving
+// lane, where a whole warp per row would leave lanes 16-31 idle on the third
+// pass.  So a row gets half a warp (kRowLanes lanes, two rows a warp): each
+// lane walks kmax / 16 slots and the row sum is a 4-step xor shuffle inside
+// the half.  Bound on an H100: memory, as for the batched pair (cols + vals,
+// n * kmax * 8 bytes, read once per pass).
+//
+// A warp's two halves may hold a live and a dead row at the ragged edge, so
+// dead rows skip their loads but still take part in the shuffles (no early
+// return before a full-mask shuffle).
+constexpr int kRowLanes = 16;
+constexpr int kSingleThreads = 256;
+
+template <typename T>
+__device__ __forceinline__ T row_sum(T v) {
+#pragma unroll
+  for (int o = kRowLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__global__ void dhd_count_single_kernel(const float* __restrict__ heat,  // [n]
+                                        const int* __restrict__ cols,    // [n, kmax]
+                                        const float* __restrict__ vals,  // [n, kmax]
+                                        float* __restrict__ nout,        // [n]
+                                        int n, int kmax) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kRowLanes;
+  const int lane = threadIdx.x % kRowLanes;
+  const bool live = row < n;
+  int cnt = 0;
+  if (live) {
+    const int* crow = cols + row * kmax;
+    const float* vrow = vals + row * kmax;
+    const float hu = heat[row];
+    for (int j = lane; j < kmax; j += kRowLanes) {
+      const float v = __ldg(vrow + j);
+      if (v > 0.f) cnt += hu > __ldg(heat + __ldg(crow + j)) ? 1 : 0;
+    }
+  }
+  cnt = row_sum(cnt);
+  if (live && lane == 0) nout[row] = (float)cnt;
+}
+
+__global__ void dhd_flow_single_kernel(const float* __restrict__ heat,  // [n]
+                                       const float* __restrict__ nout,  // [n]
+                                       const int* __restrict__ cols,    // [n, kmax]
+                                       const float* __restrict__ vals,  // [n, kmax]
+                                       const float* __restrict__ q,     // [n]
+                                       float* __restrict__ out,         // [n]
+                                       int n, int kmax, float alpha,
+                                       float one_minus_gamma, float beta) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kRowLanes;
+  const int lane = threadIdx.x % kRowLanes;
+  const bool live = row < n;
+  float inflow = 0.f, outflow = 0.f, hu = 0.f;
+  if (live) {
+    const int* crow = cols + row * kmax;
+    const float* vrow = vals + row * kmax;
+    hu = heat[row];
+    const float a_u = alpha / fmaxf(nout[row], 1.f);
+    for (int j = lane; j < kmax; j += kRowLanes) {
+      const float v = __ldg(vrow + j);
+      if (v > 0.f) {
+        const int c = __ldg(crow + j);
+        const float hn = __ldg(heat + c);
+        if (hu > hn) {
+          outflow += a_u * v * (hu - hn);
+        } else if (hn > hu) {
+          inflow += alpha / fmaxf(__ldg(nout + c), 1.f) * v * (hn - hu);
+        }
+      }
+    }
+  }
+  const float delta = row_sum(inflow) - row_sum(outflow);
+  if (live && lane == 0) out[row] = one_minus_gamma * (hu + delta) + beta * q[row];
+}
+
+inline dim3 single_grid(int n) {
+  const int64_t threads = (int64_t)n * kRowLanes;
+  return dim3((unsigned)((threads + kSingleThreads - 1) / kSingleThreads));
+}
+
 }  // namespace
 
 extern "C" int dhd_count_batch(const float* heat, const int* cols, const float* vals,
@@ -129,5 +216,23 @@ extern "C" int dhd_flow_batch(const float* heat, const float* nout, const int* c
   const int64_t vstride = vals_per_field ? (int64_t)n * kmax : 0;
   dhd_flow_kernel<<<grid_for(rows), kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(
       heat, nout, cols, vals, q, out, B, n, kmax, vstride, alpha, one_minus_gamma, beta);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dhd_count_single(const float* heat, const int* cols, const float* vals,
+                                float* nout, int n, int kmax, void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  dhd_count_single_kernel<<<single_grid(n), kSingleThreads, 0, (cudaStream_t)stream>>>(
+      heat, cols, vals, nout, n, kmax);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dhd_flow_single(const float* heat, const float* nout, const int* cols,
+                               const float* vals, const float* q, float* out, int n,
+                               int kmax, float alpha, float one_minus_gamma, float beta,
+                               void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  dhd_flow_single_kernel<<<single_grid(n), kSingleThreads, 0, (cudaStream_t)stream>>>(
+      heat, nout, cols, vals, q, out, n, kmax, alpha, one_minus_gamma, beta);
   return (int)cudaGetLastError();
 }

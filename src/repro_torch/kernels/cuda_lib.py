@@ -49,6 +49,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dhd_count_batch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dhd_flow_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    "dhd_count_single": (_P, _P, _P, _P, _I, _I, _P),
+    "dhd_flow_single": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     "route_expand_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _P,

@@ -1,17 +1,28 @@
-"""Batched DHD step over symmetric ELL adjacency: CUDA kernels for Hopper.
+"""DHD step over symmetric ELL adjacency: CUDA kernels for Hopper.
 
-Replaces ``_count_kernel_batch`` and ``_flow_kernel_batch`` of the JAX
-package's ``kernels/dhd_spmv.py`` (Pallas, TPU).  The kernels live in
-``csrc/dhd_spmv.cu``: one warp per (field, row), two launches per step
-because the flow pass reads the neighbours' ``|N^out|``.  The step is bound
-by memory on an H100: each pass reads ``cols`` and ``vals`` once (``n * kmax
-* 8`` bytes with shared ``vals``, plus ``B * n * kmax * 4`` per-field) at
-3.35 TB/s, with a few flops per slot; lanes read consecutive slots of a row
-so the loads coalesce, and the heat gather hits L2.
+:func:`dhd_ell_step_batch` replaces ``_count_kernel_batch`` and
+``_flow_kernel_batch`` of the JAX package's ``kernels/dhd_spmv.py`` (Pallas,
+TPU): B heat fields over one column structure, one warp per (field, row).
+:func:`dhd_ell_step` replaces ``_count_kernel`` and ``_flow_kernel`` of the
+same file (``dhd_spmv.py:70``, ``:82``): one heat field, half a warp per row
+(the warm-DHD ELL has 80 slots a row on the serving lane).  The kernels live
+in ``csrc/dhd_spmv.cu``; a step is two launches because the flow pass reads
+the neighbours' ``|N^out|``.
 
-For tensors on the CPU :func:`dhd_ell_step_batch` takes the plain version,
-:func:`repro_torch.kernels.ref.dhd_ell_ref_batch`; for CUDA tensors it
-launches the kernels or raises.
+The step is bound by memory on an H100: each pass reads ``cols`` and
+``vals`` once (``n * kmax * 8`` bytes with shared ``vals``, plus
+``B * n * kmax * 4`` per-field) at 3.35 TB/s, with a few flops per slot;
+lanes read consecutive slots of a row so the loads coalesce, and the heat
+gather hits L2.  At warm DHD's streaming shape (the lane graph's 26,112
+padded rows x 80 slots) a pass moves 16.7 MB of cols and vals plus 0.2 MB
+(count: heat in, ``|N^out|`` out) or 0.4 MB (flow: heat, ``|N^out|``, ``q``
+in, heat out): 34.1 MB a step, a bound of 10.2 us (27,136 x 80 after two
+churn batches at 0.01: 35.4 MB, 10.6 us).
+
+For tensors on the CPU both wrappers take the plain versions
+(:func:`repro_torch.kernels.ref.dhd_ell_ref_batch`,
+:func:`repro_torch.kernels.ref.dhd_ell_ref`); for CUDA tensors they launch
+the kernels or raise.
 """
 from __future__ import annotations
 
@@ -20,25 +31,35 @@ import torch
 from . import ref
 from .cuda_lib import check, library, register_counter, stream_ptr
 
-__all__ = ["COUNT_LAUNCHES", "FLOW_LAUNCHES", "dhd_ell_step_batch"]
+__all__ = [
+    "COUNT_LAUNCHES",
+    "COUNT_SINGLE_LAUNCHES",
+    "FLOW_LAUNCHES",
+    "FLOW_SINGLE_LAUNCHES",
+    "dhd_ell_step",
+    "dhd_ell_step_batch",
+]
 
 COUNT_LAUNCHES = register_counter("dhd_count")
 FLOW_LAUNCHES = register_counter("dhd_flow")
+COUNT_SINGLE_LAUNCHES = register_counter("dhd_count_single")
+FLOW_SINGLE_LAUNCHES = register_counter("dhd_flow_single")
 
 
-def _check_inputs(heat, cols, vals, q) -> None:
-    if heat.dim() != 2:
-        raise ValueError(f"heat must be [B, n], got {tuple(heat.shape)}")
-    B, n = heat.shape
+def _check_inputs(heat, cols, vals, q, single: bool = False) -> None:
+    if heat.dim() != (1 if single else 2):
+        raise ValueError(
+            f"heat must be {'[n]' if single else '[B, n]'}, got {tuple(heat.shape)}"
+        )
+    n = heat.shape[-1]
     if cols.dim() != 2 or cols.shape[0] != n:
         raise ValueError(f"cols must be [n={n}, kmax], got {tuple(cols.shape)}")
     kmax = cols.shape[1]
-    if tuple(vals.shape) not in ((n, kmax), (B, n, kmax)):
-        raise ValueError(
-            f"vals must be [n, kmax] or [B, n, kmax], got {tuple(vals.shape)}"
-        )
-    if tuple(q.shape) != (B, n):
-        raise ValueError(f"q must be [B={B}, n={n}], got {tuple(q.shape)}")
+    shapes = ((n, kmax),) if single else ((n, kmax), (heat.shape[0], n, kmax))
+    if tuple(vals.shape) not in shapes:
+        raise ValueError(f"vals must be one of {shapes}, got {tuple(vals.shape)}")
+    if q.shape != heat.shape:
+        raise ValueError(f"q must be {tuple(heat.shape)}, got {tuple(q.shape)}")
     for name, t, dt in (
         ("heat", heat, torch.float32), ("cols", cols, torch.int32),
         ("vals", vals, torch.float32), ("q", q, torch.float32),
@@ -95,4 +116,46 @@ def dhd_ell_step_batch(
             "dhd_flow_batch",
         )
         FLOW_LAUNCHES.n += 1
+    return out
+
+
+def dhd_ell_step(
+    heat: torch.Tensor,  # [n] f32
+    cols: torch.Tensor,  # [n, kmax] i32 symmetric ELL (pad slots: self, weight 0)
+    vals: torch.Tensor,  # [n, kmax] f32 edge weights
+    q: torch.Tensor,  # [n] f32 source heat
+    alpha: float = 0.5,
+    gamma: float = 0.1,
+    beta: float = 0.3,
+) -> torch.Tensor:
+    """One DHD update for one heat field; same contract as
+    ``ref.dhd_ell_ref`` (and as the JAX package's ``dhd_ell_step``)."""
+    if heat.device.type == "cpu":
+        return ref.dhd_ell_ref(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+    if heat.device.type != "cuda":
+        raise ValueError(f"dhd_ell_step runs on cpu or cuda, not {heat.device}")
+    _check_inputs(heat, cols, vals, q, single=True)
+    n, kmax = cols.shape
+    nout = torch.empty_like(heat)
+    out = torch.empty_like(heat)
+    lib = library().get()
+    stream = stream_ptr(heat.device)
+    with torch.cuda.device(heat.device):
+        check(
+            lib.dhd_count_single(
+                heat.data_ptr(), cols.data_ptr(), vals.data_ptr(), nout.data_ptr(),
+                n, kmax, stream,
+            ),
+            "dhd_count_single",
+        )
+        COUNT_SINGLE_LAUNCHES.n += 1
+        check(
+            lib.dhd_flow_single(
+                heat.data_ptr(), nout.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                q.data_ptr(), out.data_ptr(), n, kmax,
+                float(alpha), float(1.0 - gamma), float(beta), stream,
+            ),
+            "dhd_flow_single",
+        )
+        FLOW_SINGLE_LAUNCHES.n += 1
     return out

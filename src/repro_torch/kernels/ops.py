@@ -19,10 +19,12 @@ import torch
 
 from ..device import DeviceLike, on_cuda, resolve_device
 from ..obs import get_registry
-from .dhd_spmv import dhd_ell_step_batch
+from . import ref
+from .dhd_spmv import dhd_ell_step, dhd_ell_step_batch
 from .route_expand import route_expand as _route_expand_kernel
 
 __all__ = [
+    "dhd_step",
     "dhd_step_batch",
     "diffuse_batch",
     "edge_cache_stats",
@@ -114,6 +116,57 @@ def _tail_edges(
     return out
 
 
+def _tail_raise_on_card(heat: torch.Tensor) -> None:
+    if heat.device.type != "cpu":
+        raise ValueError(
+            "a COO tail takes the edge form, which has no kernel: "
+            "pack a tail-free ELL (kmax = max degree) for the card"
+        )
+
+
+def dhd_step(
+    heat: torch.Tensor,  # [n]
+    cols: torch.Tensor,  # [n, kmax]
+    vals: torch.Tensor,  # [n, kmax]
+    q: torch.Tensor,  # [n]
+    tail_src: Optional[torch.Tensor] = None,
+    tail_dst: Optional[torch.Tensor] = None,
+    tail_val: Optional[torch.Tensor] = None,
+    alpha: float = 0.5,
+    gamma: float = 0.1,
+    beta: float = 0.3,
+    use_kernel: Optional[bool] = None,
+) -> torch.Tensor:
+    """DHD update for one heat field over ELL (+ optional COO tail).
+
+    Without a tail, :func:`dhd_ell_step` (the single-field CUDA kernels on
+    the card, their plain version on the CPU); ``use_kernel=False`` takes
+    the plain version directly, which the card refuses.  With a COO tail,
+    the exact edge form over the cached undirected edge list on the CPU
+    (tail edges change ``|N_u^out|`` globally, so the ELL pass cannot be
+    patched additively); the edge form has no kernel, so a tail on the card
+    raises."""
+    t0 = _obs_t0()
+    if tail_src is not None and tail_src.numel() > 0:
+        _tail_raise_on_card(heat)
+        n = heat.shape[0]
+        a, b, w = _tail_edges(n, cols, vals, tail_src, tail_dst, tail_val)
+        from ..core.dhd import dhd_step_edges
+
+        out = dhd_step_edges(heat, a, b, w, q, n, alpha=alpha, gamma=gamma, beta=beta)
+        _obs_dispatch("dhd_step", "tail_edges", t0)
+        return out
+    if use_kernel is False:
+        if heat.device.type != "cpu":
+            raise ValueError("dhd_step on the card runs the ELL kernels only")
+        out = ref.dhd_ell_ref(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+        _obs_dispatch("dhd_step", "ref", t0)
+        return out
+    out = dhd_ell_step(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
+    _obs_dispatch("dhd_step", "ell", t0)
+    return out
+
+
 def dhd_step_batch(
     heat: torch.Tensor,  # [B, n]
     cols: torch.Tensor,  # [n, kmax]
@@ -135,11 +188,7 @@ def dhd_step_batch(
     the edge form has no kernel, so a tail on the card raises."""
     t0 = _obs_t0()
     if tail_src is not None and tail_src.numel() > 0:
-        if heat.device.type != "cpu":
-            raise ValueError(
-                "a COO tail takes the edge form, which has no kernel: "
-                "pack a tail-free ELL (kmax = max degree) for the card"
-            )
+        _tail_raise_on_card(heat)
         if vals.dim() == 3:
             raise ValueError("COO-tail batching requires shared [n, kmax] vals")
         n = heat.shape[1]

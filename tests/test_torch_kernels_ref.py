@@ -14,10 +14,12 @@ import torch
 
 from repro.core.graph import build_csr, build_ell
 from repro.kernels import ref as jref
+from repro.kernels.dhd_spmv import dhd_ell_step as jax_dhd_single_kernel
 from repro.kernels.dhd_spmv import dhd_ell_step_batch as jax_dhd_kernel
 from repro.kernels.route_expand import route_expand as jax_route_kernel
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+from repro_torch.kernels.dhd_spmv import dhd_ell_step as torch_dhd_single_wrapper
 from repro_torch.kernels.dhd_spmv import dhd_ell_step_batch as torch_dhd_wrapper
 from repro_torch.kernels.route_expand import route_expand as torch_route_wrapper
 
@@ -185,8 +187,12 @@ def test_wrappers_take_plain_version_on_cpu():
     want_r = tref.route_expand_ref(*(_t(x) for x in prob))
     for a, b in zip(got_r, want_r):
         assert torch.equal(a, b)
+    got_s = torch_dhd_single_wrapper(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0]))
+    assert torch.equal(got_s, tref.dhd_ell_ref(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0])))
     counts = {k: c.n for k, c in launch_counters().items()}
-    assert set(counts) == {"dhd_count", "dhd_flow", "route_expand"}
+    assert set(counts) == {
+        "dhd_count", "dhd_flow", "dhd_count_single", "dhd_flow_single", "route_expand"
+    }
     assert all(n == 0 for n in counts.values()), counts
 
 
@@ -233,3 +239,108 @@ def test_route_expand_candidates_and_device_kind():
     assert tops.route_expand_candidates("cpu", n_dcs=12) == [{"impl": "ref"}]
     kind = Autotuner.device_kind()
     assert kind.startswith("cuda:") if torch.cuda.is_available() else kind == "cpu:cpu"
+
+
+# ------------------------------------------------------- single-field DHD
+SINGLE_CASES = [
+    # n, ELL width beyond the max degree (self-pad slots of weight 0)
+    (256, 0),  # a multiple of the JAX kernel's 256-row block
+    (300, 8),  # not a multiple: the JAX wrapper pads, the port masks
+    (57, 3),
+]
+
+
+def _single_problem(n, extra, seed=11):
+    rng = np.random.default_rng(seed + n)
+    m = 3 * n
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = src != dst
+    a, b = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+    _, i = np.unique(a.astype(np.int64) * n + b, return_index=True)
+    a, b = a[i], b[i]
+    w = (rng.random(len(a)) + 0.1).astype(np.float32)
+    csr = build_csr(n, a, b, weights=w, symmetrize=True)
+    ell = build_ell(csr, max_degree=int(csr.degree().max()) + extra)
+    heat = rng.random(n).astype(np.float32)
+    q = (rng.random(n) * 0.1).astype(np.float32)
+    return heat, np.asarray(ell.cols, np.int32), np.asarray(ell.vals, np.float32), q, csr
+
+
+@pytest.mark.parametrize("n,extra", SINGLE_CASES)
+def test_dhd_single_step_matches_jax(n, extra):
+    """The port's ``dhd_ell_step`` and ``ops.dhd_step`` (CPU: the plain
+    version) against the JAX Pallas kernel in interpret mode and its
+    oracle, with the streaming path's alpha."""
+    from repro_torch.kernels import ops as tops
+
+    reset_launch_counters()
+    heat, cols, vals, q, _ = _single_problem(n, extra)
+    if extra:
+        assert (vals == 0).any(axis=1).all()  # every row has a pad slot
+        pad = vals == 0
+        assert (cols[pad] == np.nonzero(pad)[0]).all()  # pad = self
+    p = dict(alpha=0.013, gamma=0.1, beta=0.3)
+    args = (jnp.asarray(heat), jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(q))
+    want_kernel = np.asarray(jax_dhd_single_kernel(*args, **p, interpret=True))
+    want_ref = np.asarray(jref.dhd_ell_ref(*args, **p))
+    targs = (_t(heat), _t(cols), _t(vals), _t(q))
+    for got in (
+        torch_dhd_single_wrapper(*targs, **p),
+        tops.dhd_step(*targs, **p),
+        tops.dhd_step(*targs, **p, use_kernel=False),
+    ):
+        np.testing.assert_allclose(got.numpy(), want_kernel, **DHD_TOL)
+        np.testing.assert_allclose(got.numpy(), want_ref, **DHD_TOL)
+    # the count pass alone is exact
+    n_out = tref.dhd_ell_count_ref(_t(heat)[None], _t(cols), _t(vals))[0].numpy()
+    want_n = ((vals > 0) & (heat[:, None] > heat[cols])).sum(axis=1)
+    np.testing.assert_array_equal(n_out, want_n.astype(np.float32))
+    assert all(c.n == 0 for c in launch_counters().values())
+
+
+def test_dhd_single_step_coo_tail_matches_jax():
+    """A COO tail: the port's edge form over the cached edge list against
+    the JAX ``ops.dhd_step`` tail path, and against the tail-free ELL."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+
+    heat, _, _, q, csr = _single_problem(120, 0)
+    full = build_ell(csr, max_degree=int(csr.degree().max()))
+    ell = build_ell(csr, max_degree=3)
+    assert len(ell.tail_src) > 0
+    tail = (ell.tail_src, ell.tail_dst, ell.tail_val)
+    want = jops.dhd_step(
+        jnp.asarray(heat), jnp.asarray(ell.cols), jnp.asarray(ell.vals),
+        jnp.asarray(q), *(jnp.asarray(t) for t in tail),
+    )
+    got = tops.dhd_step(
+        _t(heat), _t(np.asarray(ell.cols, np.int32)),
+        _t(np.asarray(ell.vals, np.float32)), _t(q), *(_t(t) for t in tail),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DHD_TOL)
+    no_tail = tops.dhd_step(
+        _t(heat), _t(np.asarray(full.cols, np.int32)),
+        _t(np.asarray(full.vals, np.float32)), _t(q),
+    )
+    np.testing.assert_allclose(got.numpy(), no_tail.numpy(), **DHD_TOL)
+
+
+def test_dhd_single_wrapper_checks_its_inputs():
+    """What the kernel does not take raises before any launch: a device
+    other than cpu/cuda, and (checked for CUDA tensors) wrong shapes and
+    types."""
+    from repro_torch.kernels.dhd_spmv import _check_inputs
+
+    heat, cols, vals, q, _ = _single_problem(57, 3)
+    h, c, v, qq = _t(heat), _t(cols), _t(vals), _t(q)
+    _check_inputs(h, c, v, qq, single=True)
+    with pytest.raises(ValueError, match="heat must be"):
+        _check_inputs(h[None], c, v, qq, single=True)
+    with pytest.raises(ValueError, match="vals must be"):
+        _check_inputs(h, c, v[None], qq, single=True)
+    with pytest.raises(ValueError, match="q must be"):
+        _check_inputs(h, c, v, qq[:-1], single=True)
+    with pytest.raises(TypeError, match="cols must be"):
+        _check_inputs(h, c.long(), v, qq, single=True)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        torch_dhd_single_wrapper(h.to("meta"), c.to("meta"), v.to("meta"), qq.to("meta"))
