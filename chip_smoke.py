@@ -35,6 +35,29 @@ Phases, each of which fails the run with a nonzero exit:
 6. The single-field DHD kernels against their plain versions on the card,
    on the inputs of real sweeps recorded in phase 5 (global and pre-solve).
 7. A CPU build of the same store: replica rows that differ from the card's.
+   The store is freed after this phase.
+8. LM serving at full width, counts set to 0 just before and read just
+   after: ``deepseek-v2-lite-16b`` (MLA + MoE, 16 B parameters, bf16,
+   random weights drawn on the card from seed 0) behind the
+   continuous-batching ``Engine`` (4 slots, 1,024 positions) serves 8
+   requests of 64-700 prompt tokens, 16 new tokens each.  Every request must
+   complete with 16 tokens and finite logits, and every prefill must run the
+   flash-attention kernel in each of its 27 layers.  Prints init seconds,
+   prefill and decode-step times, tokens/s, peak memory, and one prefill and
+   one decode step under the profiler.
+9. End to end: the prefill with the kernel against the same prefill with
+   ``kernels.ops.attention`` swapped for its plain version, on a 2-layer
+   model at full width in f32 (within atol/rtol 1e-3), and reported (not
+   failed) on the full-depth bf16 model.
+10. The flash-attention kernel against its plain version on the card on
+    layer 0's q, k, v recorded from the longest and the shortest prefill:
+    bf16 within 2e-2, the same inputs in f32 within 2e-5; timed beside its
+    bound and ``scaled_dot_product_attention``.
+11. Embedding bags, counts set to 0 just before and read just after: BST's
+    item table (2^22 x 32, f32) and Zipf ids, 20 a bag, at batches of 512
+    and 262,144, weighted, in sum and mean, through
+    ``models.recsys.embedding.bag_lookup``: within 1e-4 of the plain
+    version; timed beside the bound and ``F.embedding_bag``.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -42,6 +65,7 @@ and as the last line ``{"ok": true, "device": {...}}``.  Details go to
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import pathlib
@@ -59,6 +83,17 @@ CHURN = ((0.01, 2), (2e-5, 2))
 # the kernels slice A's path (build, serve, maintain) launches
 MAIN_KERNELS = ("dhd_count", "dhd_flow", "route_expand")
 SINGLE_KERNELS = ("dhd_count_single", "dhd_flow_single")
+DEVICE = "cuda"  # the card every phase runs on
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+# LM serving: the repo's MLA + MoE arch at full width, its engine's slots
+LM_ARCH = "deepseek-v2-lite-16b"
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 1024, 8, 16
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+E2E_TOL = dict(atol=1e-3, rtol=1e-3)
+# BST's item table (configs/bst.py) and the serving batches of RECSYS_SHAPES
+BAG_V, BAG_D, BAG_L = 1 << 22, 32, 20
+BAG_BATCHES = (512, 262_144)
+BAG_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def fail(msg: str) -> None:
@@ -290,10 +325,14 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
     return store, inputs, built_delta, total
 
 
-def profiled(fn, reps: int = 1):
+def profiled(fn, reps: int = 1, host: dict = None):
     """``(wall ms, device busy ms, device ms by kernel or copy, fn's last
-    result)`` per call of ``fn`` over ``reps`` calls under the profiler
-    (CUDA events)."""
+    result)`` per call of ``fn`` over ``reps`` calls under the profiler;
+    ``host``, when given, receives the 8 host ops of most self CPU ms.
+
+    Only the profiler's device events count: a kernel launched by an aten
+    op also appears as that CPU op's self device time, and summing both
+    would count it twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -305,10 +344,16 @@ def profiled(fn, reps: int = 1):
         wall_ms = (time.perf_counter() - t) * 1e3 / reps
     busy_us = 0.0
     by_kind = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+    events = prof.key_averages()
+    if host is not None:
+        cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:8]:
+            host[e.key[:60]] = {"self_cpu_ms": e.self_cpu_time_total / reps / 1e3,
+                                "calls": e.count // reps}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
         if us:
             busy_us += us
             by_kind[e.key[:60]] = us / reps / 1e3
@@ -834,33 +879,423 @@ def cpu_build_diff(inputs, built_delta, report: dict) -> None:
           f"differ from the card's build", flush=True)
 
 
-def main() -> None:
-    try:
+# ---------------------------------------------------------------- slice F1
+class AttentionRecorder:
+    """Installed over ``kernels.ops.attention`` (the name the MLA prefill
+    calls) for the LM serving run: passes every call on unchanged and keeps
+    q, k, v of layer 0 of each prefill (every ``n_layers``-th call), keyed
+    by prompt length.  Prefill never writes into them."""
+
+    def __init__(self, ops, n_layers: int) -> None:
+        self.ops = ops
+        self.fn = ops.attention
+        self.n_layers = n_layers
+        self.calls = 0
+        self.kept: dict = {}
+
+    def __call__(self, q, k, v, causal=True, window=None):
+        if self.calls % self.n_layers == 0:
+            self.kept[int(q.shape[2])] = (q, k, v, causal, window)
+        self.calls += 1
+        return self.fn(q, k, v, causal=causal, window=window)
+
+    def __enter__(self) -> "AttentionRecorder":
+        self.ops.attention = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ops.attention = self.fn
+
+
+class StepTimer:
+    """Installed over ``models.transformer.prefill`` and ``decode`` (the
+    names the engine calls): times each call to a synchronised device and
+    fails on a non-finite logit."""
+
+    def __init__(self, tf) -> None:
+        self.tf = tf
+        self.prefill, self.decode = tf.prefill, tf.decode
+        self.prefills: list = []
+        self.decodes: list = []
+
+    def _timed(self, fn, args, log: list, row: dict):
         import torch
-    except ImportError as e:
-        fail(f"PyTorch is not importable: {e}")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        from repro_torch.kernels.cuda_lib import library
-    except ImportError as e:
-        fail(f"the repro_torch package is missing next to chip_smoke.py ({e})")
-    card = gpu_line()
-    print(card, flush=True)
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
 
-    lib = library()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = fn(*args)
+        finite = bool(torch.isfinite(logits).all())  # synchronises
+        row["ms"] = (time.perf_counter() - t) * 1e3
+        log.append(row)
+        if not finite:
+            fail(f"non-finite logits in {row}")
+        return logits, caches
+
+    def _prefill(self, params, tokens, cfg):
+        return self._timed(self.prefill, (params, tokens, cfg), self.prefills,
+                           {"tokens": int(tokens.shape[1])})
+
+    def _decode(self, params, token, caches, position, cfg):
+        return self._timed(self.decode, (params, token, caches, position, cfg),
+                           self.decodes, {})
+
+    def __enter__(self) -> "StepTimer":
+        self.tf.prefill, self.tf.decode = self._prefill, self._decode
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.tf.prefill, self.tf.decode = self.prefill, self.decode
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def lm_serving_phase(report: dict) -> dict:
+    """Phase 8: ``deepseek-v2-lite-16b`` at full width in bf16 (random
+    weights drawn on the card from seed 0), served through ``Engine`` with
+    4 slots and 1,024 positions: 8 requests of 64-700 prompt tokens, 16 new
+    tokens each.  Counts set to 0 just before the engine runs, read just
+    after: every prefill must take the flash-attention kernel in each
+    layer.  Then one prefill and one decode step under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    cfg = get_arch(LM_ARCH).cfg
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    lib.get()
-    print(f"kernels built in {time.perf_counter() - t:.2f} s -> {lib.path.name}", flush=True)
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip().split("ptxas info    : ")[-1], flush=True)
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"{LM_ARCH}: {n_params / 1e9:.3f} B parameters ({weight_bytes / 1e9:.2f} GB at rest) "
+          f"drawn on the card in {init_s:.2f} s", flush=True)
 
-    report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                    "build_s": lib.build_s}
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(64, 701, LM_REQUESTS)]
+    if not (any(n % 64 for n in lens) and any(n >= 512 for n in lens)):
+        fail(f"prompt lengths {lens} miss a ragged or a >= 512-token prompt")
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    eng = Engine(params, cfg, ServeConfig(n_slots=LM_SLOTS, max_len=LM_MAX_LEN), device=DEVICE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_NEW))
+    with AttentionRecorder(ops, cfg.n_layers) as rec, StepTimer(tf) as timer:
+        reset_launch_counters()
+        t = time.perf_counter()
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+    if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
+        fail(f"the engine completed {sorted(r.rid for r in done)} of {LM_REQUESTS} requests")
+    if any(len(r.out_tokens) != LM_NEW for r in done):
+        fail("a request completed without its 16 new tokens")
+    want = cfg.n_layers * LM_REQUESTS
+    if launches.get("flash_attention", 0) <= 0:
+        fail("kernel flash_attention was not launched on the LM serving path")
+    if launches.get("flash_attention") != want or set(launches) != {"flash_attention"}:
+        fail(f"LM serving launches {launches}, want flash_attention {want} and nothing else")
+    gen_tokens = LM_REQUESTS * LM_NEW
+    dec_ms = [d["ms"] for d in timer.decodes]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"LM serving: {LM_REQUESTS} requests, {gen_tokens} new tokens in {wall_s:.3f} s "
+          f"({gen_tokens / wall_s:.1f} tokens/s); {len(timer.prefills)} prefills, "
+          f"{len(dec_ms)} decode steps; launches {launches}; peak memory "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    for p in timer.prefills:
+        print(f"  prefill {p['tokens']} tokens: {p['ms']:.2f} ms", flush=True)
+    print(f"  decode step ({LM_SLOTS} slots): median {float(np.median(dec_ms)):.2f} ms, "
+          f"first {dec_ms[0]:.2f}, min {min(dec_ms):.2f}, max {max(dec_ms):.2f} ms", flush=True)
+
+    longest = prompts[int(np.argmax(lens))]
+    tok = torch.as_tensor(longest[None], device=DEVICE)
+    token = torch.zeros(LM_SLOTS, dtype=torch.long, device=DEVICE)
+    pos = torch.as_tensor(eng.pos, dtype=torch.long, device=DEVICE)
+    prof = {}
+    with torch.inference_mode():
+        for name, fn in (("prefill", lambda: tf.prefill(params, tok, cfg)),
+                         ("decode", lambda: tf.decode(params, token, eng.caches, pos, cfg))):
+            fn()
+            host: dict = {}
+            wall_ms, busy_ms, by_kind, _ = profiled(fn, host=host)
+            top = dict(sorted(by_kind.items(), key=lambda kv: -kv[1])[:8])
+            prof[name] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                          "device_share": busy_ms / wall_ms, "top_ms": top, "host_top": host}
+            print(f"  {name} ({len(longest) if name == 'prefill' else LM_SLOTS} tokens) "
+                  f"profiled: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, share "
+                  f"{busy_ms / wall_ms:.4f}; top: "
+                  + ", ".join(f"{k.strip()[:40]} {v:.3f}" for k, v in top.items()), flush=True)
+            print("    host ops by self CPU ms: " + ", ".join(
+                f"{k.strip()[:30]} {v['self_cpu_ms']:.2f} ({v['calls']} calls)"
+                for k, v in host.items()), flush=True)
+    report["lm_serving"] = {
+        "arch": LM_ARCH, "n_params": n_params, "weight_bytes": weight_bytes,
+        "init_s": init_s, "prompt_lens": lens, "wall_s": wall_s,
+        "tokens_per_s": gen_tokens / wall_s, "prefills": timer.prefills,
+        "decode_ms": dec_ms, "peak_memory_bytes": peak, "launches": launches,
+        "profiled": prof,
+    }
+    return {"cfg": cfg, "params": params, "tokens": tok, "kept": rec.kept,
+            "launches": launches}
+
+
+def lm_end_to_end_check(lm: dict, report: dict) -> None:
+    """Phase 9: the prefill with the kernel against the same prefill with
+    ``ops.attention`` swapped for its plain version.  A 2-layer model at
+    full width in f32 must agree within atol/rtol 1e-3; on the full-depth
+    bf16 model the last position's logits are reported (max abs and
+    relative RMS difference, top-1 agreement), not failed, beside a
+    control: the same prefill with SDPA in the kernel's place, against the
+    plain version, which reads how far two sound bf16 attentions drift
+    apart over the full depth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import transformer as tf
+
+    def plain(q, k, v, causal=True, window=None):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    def sdpa(q, k, v, causal=True, window=None):
+        if window is not None:
+            fail("the SDPA control covers no sliding window")
+        return _sdpa(q, k, v, causal)
+
+    def prefill_with(params, cfg, tokens, fn=None):
+        """Last logits of one prefill, with ``fn`` in ``ops.attention``'s
+        place when given."""
+        kernel_fn = ops.attention
+        ops.attention = fn or kernel_fn
+        try:
+            with torch.inference_mode():
+                return tf.prefill(params, tokens, cfg)[0].float()
+        finally:
+            ops.attention = kernel_fn
+
+    def gap(got, want) -> dict:
+        diff = got - want
+        rms = float(want.pow(2).mean().sqrt())
+        return {"max_abs_diff": float(diff.abs().max()),
+                "rel_rms_diff": float(diff.pow(2).mean().sqrt()) / rms,
+                "top1_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                "logit_rms": rms}
+
+    cfg2 = dataclasses.replace(lm["cfg"], n_layers=2, dtype=torch.float32)
+    params2 = tf.init_params(cfg2, torch.Generator(device=DEVICE).manual_seed(1), DEVICE)
+    got = prefill_with(params2, cfg2, lm["tokens"])
+    want = prefill_with(params2, cfg2, lm["tokens"], plain)
+    del params2
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **E2E_TOL))
+    print(f"end to end, 2 layers at full width in f32, {lm['tokens'].shape[1]}-token prefill: "
+          f"last logits max abs diff kernel vs plain {err:.3g} "
+          f"({'within' if ok else 'OUTSIDE'} atol/rtol 1e-3)", flush=True)
+    if not ok:
+        fail("the f32 2-layer prefill with the flash kernel differs from the plain version")
+    want = prefill_with(lm["params"], lm["cfg"], lm["tokens"], plain)
+    full = gap(prefill_with(lm["params"], lm["cfg"], lm["tokens"]), want)
+    control = gap(prefill_with(lm["params"], lm["cfg"], lm["tokens"], sdpa), want)
+    for name, g in (("kernel", full), ("control, SDPA", control)):
+        print(f"end to end, full depth in bf16, {name} vs plain: last logits max abs diff "
+              f"{g['max_abs_diff']:.4g}, relative RMS diff {g['rel_rms_diff']:.4g} "
+              f"(logit RMS {g['logit_rms']:.4g}), top-1 agreement {g['top1_agreement']:.3f}",
+              flush=True)
+    report["lm_end_to_end"] = {"f32_2_layers": {"max_abs_diff": err, "ok": ok},
+                               "bf16_full_depth": full, "bf16_full_depth_sdpa_control": control}
+
+
+def attention_bound(q, k, v, causal: bool, window) -> tuple:
+    """``(bound ms, bound_by, flops, bytes)`` of one attention call: the
+    unmasked q.k pairs times 2 (Dqk + Dv) flops at the bf16 dense peak
+    against q, k, v read and the output written once at 3.35 TB/s."""
+    B, Hq, Sq, dqk = q.shape
+    Skv, dv = k.shape[2], v.shape[3]
+    pairs = 0
+    for i in range(Sq):
+        pos = i + Skv - Sq
+        hi = min(Skv, pos + 1) if causal else Skv
+        lo = max(0, pos - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    flops = 2 * B * Hq * pairs * (dqk + dv)
+    size = q.element_size()
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Hq * Sq * dv) * size
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
+
+
+def _sdpa(q, k, v, causal: bool):
+    import torch.nn.functional as F
+
+    gqa = {"enable_gqa": True} if q.shape[1] != k.shape[1] else {}
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal, **gqa)
+
+
+def attention_kernel_checks(lm: dict, report: dict) -> dict:
+    """Phase 10: the flash kernel against its plain version on the card on
+    layer 0's q, k, v of the longest and the shortest prompt, in bf16
+    (2e-2) and cast to f32 (2e-5); times of the kernel (its C entry point,
+    CUDA events), the plain version and SDPA beside the bound.  Returns
+    the kernel table row (longest prompt, bf16)."""
+    import torch
+
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    kept = lm["kept"]
+    if len(kept) != LM_REQUESTS:
+        fail(f"recorded layer-0 attention inputs of {len(kept)} prefills, want {LM_REQUESTS}")
+    lib = library().get()
+    checks, err_bf16 = [], 0.0
+    for S in (max(kept), min(kept)):
+        q, k, v, causal, window = kept[S]
+        row = {"tokens": S, "shape": {"q": list(q.shape), "k": list(k.shape),
+                                      "v": list(v.shape)}}
+        for name, cast in (("bfloat16", lambda x: x), ("float32", lambda x: x.float())):
+            qc, kc, vc = cast(q), cast(k), cast(v)
+            got = flash_attention(qc, kc, vc, causal=causal, window=window)
+            want = attention_ref(qc, kc, vc, causal=causal, window=window)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[name]
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                fail(f"flash_attention at {S} tokens in {name}: max abs err {err:.3g} "
+                     f"outside {tol}")
+            row[f"max_abs_err_{name}"] = err
+        err_bf16 = max(err_bf16, row["max_abs_err_bfloat16"])
+
+        out = torch.empty((q.shape[0], q.shape[1], S, v.shape[3]), dtype=q.dtype,
+                          device=q.device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
+                q.shape[1], k.shape[1], S, k.shape[2], q.shape[3], v.shape[3],
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                float(q.shape[3] ** -0.5), int(causal), int(window is not None),
+                int(window or 0), 1, stream_ptr(q.device))
+
+        def launch():
+            lib.flash_attention_fwd(*args)
+
+        bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, causal, window)
+        _, _, sdpa_kinds, _ = profiled(lambda: _sdpa(q, k, v, causal))
+        row.update(
+            ms=cuda_ms(launch), plain_ms=cuda_ms(lambda: attention_ref(q, k, v, causal=causal)),
+            sdpa_ms=cuda_ms(lambda: _sdpa(q, k, v, causal)),
+            sdpa_kernels=sorted(sdpa_kinds), flops=flops, bytes=nbytes,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        checks.append(row)
+        print(f"flash_attention layer 0 at {S} tokens q {tuple(q.shape)} v {tuple(v.shape)} "
+              f"bf16: max abs err {row['max_abs_err_bfloat16']:.3g} (f32 "
+              f"{row['max_abs_err_float32']:.3g}); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, SDPA {row['sdpa_ms']:.4f} ms "
+              f"({', '.join(k.strip()[:50] for k in row['sdpa_kernels'])}); bound "
+              f"{bound_ms:.5f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+    report["flash_attention_checks"] = checks
+    top = checks[0]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:29",
+            "launches": lm["launches"]["flash_attention"], "max_abs_err": err_bf16,
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["sdpa_ms"]}
+
+
+def bag_phase(report: dict) -> dict:
+    """Phase 11: BST's item table (2^22 x 32, f32, seeded on the card) and
+    Zipf(1.1) ids, 20 a bag, weighted, at the serving batches 512 and
+    262,144, in sum and mean, through ``models.recsys.embedding.bag_lookup``
+    with counts set to 0 just before and read just after: each result
+    within 1e-4 of the plain version.  Times of the kernel (C entry point),
+    the plain version and ``F.embedding_bag`` (sum mode) beside the bound.
+    Returns the kernel table row (262,144 bags, sum)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cuda_lib import (
+        launch_counters,
+        library,
+        reset_launch_counters,
+        stream_ptr,
+    )
+    from repro_torch.kernels.ref import embedding_bag_ref
+    from repro_torch.models.recsys.embedding import bag_lookup, table_init
+
+    table = table_init(torch.Generator(device=DEVICE).manual_seed(2), BAG_V, BAG_D,
+                       device=DEVICE)
+    rng = np.random.default_rng(1)
+    bags = []
+    for B in BAG_BATCHES:
+        ids = torch.as_tensor((rng.zipf(1.1, (B, BAG_L)) % BAG_V).astype(np.int32),
+                              device=DEVICE)
+        w = torch.as_tensor(rng.random((B, BAG_L)).astype(np.float32), device=DEVICE)
+        bags.append((B, ids, w))
+    reset_launch_counters()
+    results = []
+    for B, ids, w in bags:
+        for mode in ("sum", "mean"):
+            results.append((B, mode, bag_lookup(table, ids, w, mode=mode, dtype=torch.float32)))
+    torch.cuda.synchronize()
+    launches = {k: c.n for k, c in launch_counters().items() if c.n}
+    if launches.get("embedding_bag", 0) <= 0:
+        fail("kernel embedding_bag was not launched through bag_lookup")
+    lib = library().get()
+    rows, err_max = [], 0.0
+    for (B, mode, got), (_, ids, w) in zip(results, [b for b in bags for _ in range(2)]):
+        want = embedding_bag_ref(table, ids, w, mode=mode)
+        err = float((got - want).abs().max())
+        err_max = max(err_max, err)
+        if not torch.allclose(got, want, **BAG_TOL):
+            fail(f"embedding_bag B={B} {mode}: max abs err {err:.3g} outside 1e-4")
+        uniq = int(torch.unique(ids).numel())
+        nbytes = uniq * BAG_D * 4 + ids.numel() * 8 + B * BAG_D * 4
+        out = torch.empty_like(got)
+        args = (table.data_ptr(), ids.data_ptr(), w.data_ptr(), out.data_ptr(), B, BAG_L,
+                BAG_V, BAG_D, int(mode == "mean"), 0, stream_ptr(table.device))
+
+        def launch():
+            lib.embedding_bag_fwd(*args)
+
+        row = {"B": B, "mode": mode, "max_abs_err": err, "unique_rows": uniq, "bytes": nbytes,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ms": cuda_ms(launch),
+               "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, ids, w, mode=mode))}
+        if mode == "sum":
+            ids64 = ids.long()
+            row["library_ms"] = cuda_ms(lambda: F.embedding_bag(
+                ids64, table, mode="sum", per_sample_weights=w))
+            lib_out = F.embedding_bag(ids64, table, mode="sum", per_sample_weights=w)
+            row["library_max_abs_diff"] = float((lib_out - got).abs().max())
+        rows.append(row)
+        print(f"embedding_bag B={B} L={BAG_L} {mode}: max abs err {err:.3g}; {uniq} distinct "
+              f"rows; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+              + (f", F.embedding_bag {row['library_ms']:.4f} ms" if mode == "sum" else "")
+              + f"; bound {row['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB)", flush=True)
+    print(f"launches through bag_lookup: {launches}", flush=True)
+    report["embedding_bag"] = {"launches": launches, "checks": rows}
+    top = next(r for r in rows if r["B"] == BAG_BATCHES[-1] and r["mode"] == "sum")
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:27",
+            "launches": launches["embedding_bag"], "max_abs_err": err_max,
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": "bytes", "library_ms": top["library_ms"]}
+
+
+def store_phases(report: dict) -> list:
+    """Phases 3-7 (slices A and B); returns their kernel table rows.  The
+    store and its mirrors are freed when this returns."""
     store, inputs, built_delta, launches, rec = main_path(report)
     device_busy(store, report)
     rows = kernel_checks(store, rec, report)
@@ -869,7 +1304,7 @@ def main() -> None:
     cpu_build_diff(inputs, built_delta, report)
 
     route, dhd = rows["route"], rows["dhd"]
-    table = [
+    return [
         {"name": "dhd_count", "route": "cuda", "source": "src/repro_torch/csrc/dhd_spmv.cu",
          "replaces": "src/repro/kernels/dhd_spmv.py:159", "launches": launches["dhd_count"],
          "max_abs_err": dhd["count"]["max_abs_err"], "ms": dhd["count"]["ms"],
@@ -896,10 +1331,53 @@ def main() -> None:
          "bound_by": "bytes", "library_ms": None}
         for part, line in (("count", 70), ("flow", 82))
     ]
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"PyTorch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels.cuda_lib import library
+    except ImportError as e:
+        fail(f"the repro_torch package is missing next to chip_smoke.py ({e})")
+    card = gpu_line()
+    print(card, flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+
+    lib = library()
+    t = time.perf_counter()
+    lib.get()
+    print(f"kernels built in {time.perf_counter() - t:.2f} s -> {lib.path.name}", flush=True)
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas: " + line.strip().split("ptxas info    : ")[-1], flush=True)
+
+    report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                    "build_s": lib.build_s}
+    table = store_phases(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_serving_phase(report)
+    lm_end_to_end_check(lm, report)
+    table.append(attention_kernel_checks(lm, report))
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    table.append(bag_phase(report))
+
     report["kernels"] = table
+    report["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
+    print(f"chip_smoke: every phase passed in {report['total_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

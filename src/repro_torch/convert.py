@@ -12,6 +12,9 @@ placement parity.
 :func:`streaming_heat_arrays` and :func:`streaming_heat_from_numpy` do the
 same for a warm DHD field (``StreamingHeat``), so both packages' warm
 updates can start from one field.
+
+:func:`lm_params_from_numpy` turns an LM's params (the JAX package's tree,
+as numpy arrays) into the port's, so both packages run one set of weights.
 """
 from __future__ import annotations
 
@@ -28,8 +31,10 @@ from .device import DeviceLike
 
 __all__ = [
     "ENV_FIELDS",
+    "F32_PARAMS",
     "GRAPH_FIELDS",
     "HEAT_FIELDS",
+    "lm_params_from_numpy",
     "store_arrays",
     "store_from_numpy",
     "streaming_heat_arrays",
@@ -39,6 +44,9 @@ __all__ = [
 GRAPH_FIELDS = ("src", "dst", "node_size", "edge_size", "partition")
 ENV_FIELDS = ("rtt_s", "bw_Bps", "c_store", "c_read", "c_write", "c_net")
 HEAT_FIELDS = ("cols", "vals", "heat", "q")
+# LM params the JAX package uses in f32 (the router's logits, norm gains);
+# every other weight is only ever used cast to the config's dtype
+F32_PARAMS = frozenset({"router", "g", "kv_norm"})
 
 
 def store_arrays(store) -> Dict[str, object]:
@@ -134,3 +142,25 @@ def streaming_heat_from_numpy(arrays: Dict[str, object], device: DeviceLike = No
         n_nodes=int(arrays["n_nodes"]),
     )
     return sh
+
+
+def lm_params_from_numpy(tree: Dict[str, object], cfg, device: DeviceLike = None):
+    """The port's LM params from the JAX package's tree of numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, params)``), on ``device``.
+
+    Leaves named in :data:`F32_PARAMS` stay f32; every other leaf is stored
+    in ``cfg.dtype``, the cast the JAX package applies at each use, done once
+    with the same rounding (round to nearest even)."""
+    import torch
+
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+
+    def conv(node, name: str = ""):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, dtype=np.float32))
+        return t.to(device=dev, dtype=torch.float32 if name in F32_PARAMS else cfg.dtype)
+
+    return conv(tree)

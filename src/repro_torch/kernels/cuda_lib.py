@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as c_void_p so
 # ctypes never truncates them to 32 bits
@@ -55,6 +56,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _P,
     ),
+    "flash_attention_fwd": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _P,
+    ),
+    "embedding_bag_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,7 +1,8 @@
 """Public kernel API: dispatch between the CUDA kernels and their plain versions.
 
 Policy: for tensors on a CUDA device the hand-written kernels run (the
-wrappers in :mod:`.dhd_spmv` and :mod:`.route_expand` launch them or raise),
+wrappers in :mod:`.dhd_spmv`, :mod:`.route_expand`, :mod:`.flash_attention`
+and :mod:`.embedding_bag` launch them or raise),
 and asking for any other form there raises; on the CPU the plain PyTorch
 versions in :mod:`.ref` and the edge form of :mod:`repro_torch.core.dhd` run.
 On the CPU ``use_kernel`` picks between the kernel wrapper's plain version and
@@ -21,9 +22,13 @@ from ..device import DeviceLike, on_cuda, resolve_device
 from ..obs import get_registry
 from . import ref
 from .dhd_spmv import dhd_ell_step, dhd_ell_step_batch
+from .embedding_bag import embedding_bag
+from .flash_attention import flash_attention
 from .route_expand import route_expand as _route_expand_kernel
 
 __all__ = [
+    "attention",
+    "bag_lookup",
     "dhd_step",
     "dhd_step_batch",
     "diffuse_batch",
@@ -122,6 +127,41 @@ def _tail_raise_on_card(heat: torch.Tensor) -> None:
             "a COO tail takes the edge form, which has no kernel: "
             "pack a tail-free ELL (kmax = max degree) for the card"
         )
+
+
+def attention(
+    q: torch.Tensor,  # [B, Hq, Sq, Dqk]
+    k: torch.Tensor,  # [B, Hkv, Skv, Dqk]
+    v: torch.Tensor,  # [B, Hkv, Skv, Dv]
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Softmax attention through :func:`flash_attention` (the CUDA kernel on
+    the card, its plain version on the CPU).  The kernel masks ragged
+    sequence ends, so every shape takes it: unlike the JAX package there is
+    no fallback for lengths its tiles do not divide."""
+    t0 = _obs_t0()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    _obs_dispatch("attention", "kernel", t0)
+    return out
+
+
+def bag_lookup(
+    table: torch.Tensor,  # [V, D]
+    indices: torch.Tensor,  # [B, L] ids in [0, V)
+    weights: Optional[torch.Tensor] = None,  # [B, L]
+    mode: str = "sum",
+) -> torch.Tensor:
+    """EmbeddingBag lookup (sum/mean) through :func:`embedding_bag` (the
+    CUDA kernel on the card for every shape, its plain version on the CPU);
+    ids go in as int32 and weights as f32."""
+    t0 = _obs_t0()
+    indices = indices.to(torch.int32).contiguous()
+    if weights is not None:
+        weights = weights.to(torch.float32).contiguous()
+    out = embedding_bag(table, indices, weights, mode=mode)
+    _obs_dispatch("bag_lookup", "kernel", t0)
+    return out
 
 
 def dhd_step(

@@ -8,18 +8,77 @@ live on.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = [
+    "attention_ref",
     "dhd_ell_count_ref",
     "dhd_ell_flow_ref",
     "dhd_ell_ref",
     "dhd_ell_ref_batch",
+    "embedding_bag_ref",
     "route_expand_masks",
     "route_expand_ref",
 ]
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, Hq, Sq, Dqk]
+    k: torch.Tensor,  # [B, Hkv, Skv, Dqk]
+    v: torch.Tensor,  # [B, Hkv, Skv, Dv]
+    causal: bool = True,
+    window: Optional[int] = None,  # sliding-window size (local attention)
+) -> torch.Tensor:
+    """Dense softmax attention with GQA head grouping + causal/local masks,
+    ``[B, Hq, Sq, Dv]`` in q's dtype (``Dv`` from ``v``).
+
+    With Sq < Skv (decode/chunked prefill), query position i is aligned to
+    absolute position ``i + Skv - Sq`` (the suffix convention).  A fully
+    masked row gives 0.  Computed in f32 whatever the input dtype, as the
+    flash kernel computes it (the JAX oracle multiplies in the input dtype;
+    in bf16 the two agree within the reference's 2e-2)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv != 0:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
+    group = hq // hkv
+    scale = d ** -0.5
+    dev = q.device
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    q_pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=dev)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vr).to(q.dtype)
+
+
+def embedding_bag_ref(
+    table: torch.Tensor,  # [V, D]
+    indices: torch.Tensor,  # [B, L] ids
+    weights: Optional[torch.Tensor] = None,  # [B, L]
+    mode: str = "sum",
+) -> torch.Tensor:
+    """EmbeddingBag: per-bag weighted gather-reduce (sum, or mean over
+    ``max(sum w, 1e-9)``), ``[B, D]`` in the table's dtype.  Sums in f32 as
+    the kernel does; ids outside ``[0, V)`` are clamped to the nearest row
+    (the JAX oracle's gather clamps ids past the end, wraps negative ones)."""
+    ids = indices.long().clamp(0, table.shape[0] - 1)
+    rows = table[ids].float()  # [B, L, D]
+    w = torch.ones(indices.shape, device=table.device) if weights is None else weights.float()
+    out = (rows * w[..., None]).sum(dim=1)
+    if mode == "mean":
+        out = out / w.sum(dim=1, keepdim=True).clamp_min(1e-9)
+    return out.to(table.dtype)
 
 
 def dhd_ell_ref(

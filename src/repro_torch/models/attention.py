@@ -1,0 +1,221 @@
+"""MLA attention (DeepSeek-V2 latent KV compression) for the LM zoo.
+
+Port of ``repro/models/attention.py``: ``chunked_attention``, ``_attend``,
+the head merge helper and ``mla_init`` / ``mla_forward`` /
+``mla_decode``.  The GQA variants wait for the dense-LM slice.
+
+Execution paths:
+  * ``ops.attention``     — the CUDA flash kernel on the card (prefill), its
+    plain version on the CPU.
+  * ``chunked_attention`` — plain torch online softmax over KV chunks, as
+    the JAX package computes it outside any Pallas kernel; decode takes it
+    (its ``kv_valid`` mask is per batch row).
+
+KV caches are dicts of tensors.  ``mla_decode`` writes the new token's
+latent and rope key into the caller's cache tensors in place (the JAX
+package returns updated copies); at 1,024 slots x 27 layers a copy per
+step would move the whole cache.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike
+from ..kernels import ops
+from ..kernels.ref import attention_ref
+from .layers import Params, normal, rmsnorm, rmsnorm_init, rope
+
+__all__ = [
+    "chunked_attention",
+    "mla_decode",
+    "mla_forward",
+    "mla_init",
+]
+
+
+# ------------------------------------------------------- chunked (plain torch)
+def chunked_attention(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Skv, D]
+    v: torch.Tensor,  # [B, Hkv, Skv, Dv]
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk_kv: int = 1024,
+    chunk_q: int = 2048,
+    kv_valid: Optional[torch.Tensor] = None,  # [B] #valid kv positions
+) -> torch.Tensor:
+    """Online-softmax attention over KV (and Q) chunks — O(Sq*Ckv) peak.
+
+    Equivalent to ``ref.attention_ref``; ``kv_valid`` masks each batch
+    row's cache past its valid length."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]  # may differ from qk dim (MLA)
+    group = hq // hkv
+    scale = d ** -0.5
+    dev = q.device
+    chunk_kv = min(chunk_kv, skv)
+    chunk_q = min(chunk_q, sq)
+    pad_kv = (-skv) % chunk_kv
+    if pad_kv:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad_kv))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad_kv))
+    n_kv = k.shape[2] // chunk_kv
+
+    def q_block(qb: torch.Tensor, q0: int) -> torch.Tensor:
+        cq = qb.shape[2]
+        qf = qb.float()
+        m = torch.full((b, hq, cq, 1), -1e30, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hq, cq, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hq, cq, dv), dtype=torch.float32, device=dev)
+        q_pos = q0 + torch.arange(cq, device=dev)[:, None] + (skv - sq)
+        for ikv in range(n_kv):
+            sl = slice(ikv * chunk_kv, (ikv + 1) * chunk_kv)
+            kb = k[:, :, sl].repeat_interleave(group, dim=1)
+            vb = v[:, :, sl].repeat_interleave(group, dim=1)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) * scale
+            k_pos = ikv * chunk_kv + torch.arange(chunk_kv, device=dev)[None, :]
+            mask = k_pos < skv  # padding
+            if causal:
+                mask = mask & (k_pos <= q_pos)
+            if window is not None:
+                mask = mask & (k_pos > q_pos - window)
+            if kv_valid is not None:
+                mask = (mask[None] & (k_pos[None] < kv_valid[:, None, None]))[:, None]
+            else:
+                mask = mask[None, None]
+            s = torch.where(mask, s, torch.full((), -1e30, device=dev))
+            m_cur = s.amax(dim=-1, keepdim=True)
+            m_new = torch.maximum(m, m_cur)
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
+            m = m_new
+        return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+    if sq <= chunk_q:
+        return q_block(q, 0)
+    if sq % chunk_q:
+        raise ValueError(f"Sq={sq} must be a multiple of chunk_q={chunk_q}")
+    return torch.cat(
+        [q_block(q[:, :, i:i + chunk_q], i) for i in range(0, sq, chunk_q)], dim=2
+    )
+
+
+def _attend(q, k, v, causal: bool, window: Optional[int], kv_valid=None) -> torch.Tensor:
+    """Dispatch: flash kernel (card) -> chunked (long or masked) -> dense plain."""
+    if kv_valid is None and q.device.type == "cuda":
+        return ops.attention(q, k, v, causal=causal, window=window)
+    if k.shape[2] > 2048 or kv_valid is not None:
+        return chunked_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+# ------------------------------------------------------------------- MLA
+def mla_init(
+    generator: torch.Generator,
+    d_model: int,
+    n_heads: int,
+    kv_lora_rank: int,
+    qk_nope_dim: int = 128,
+    qk_rope_dim: int = 64,
+    v_head_dim: int = 128,
+    device: DeviceLike = None,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """MLA params with the JAX package's scales; the matmul weights in
+    ``dtype``, ``kv_norm`` in f32."""
+    s = 1.0 / math.sqrt(d_model)
+    sl = 1.0 / math.sqrt(kv_lora_rank)
+    so = 1.0 / math.sqrt(n_heads * v_head_dim)
+    return {
+        "wq": normal(generator, (d_model, n_heads * (qk_nope_dim + qk_rope_dim)), s,
+                     device, dtype),
+        "w_dkv": normal(generator, (d_model, kv_lora_rank), s, device, dtype),
+        "w_krope": normal(generator, (d_model, qk_rope_dim), s, device, dtype),
+        "w_uk": normal(generator, (kv_lora_rank, n_heads * qk_nope_dim), sl, device, dtype),
+        "w_uv": normal(generator, (kv_lora_rank, n_heads * v_head_dim), sl, device, dtype),
+        "wo": normal(generator, (n_heads * v_head_dim, d_model), so, device, dtype),
+        "kv_norm": rmsnorm_init(kv_lora_rank, device)["g"],
+    }
+
+
+def mla_forward(
+    p: Params,
+    x: torch.Tensor,  # [B, S, d]
+    positions: torch.Tensor,  # [S]
+    n_heads: int,
+    qk_nope_dim: int = 128,
+    qk_rope_dim: int = 64,
+    v_head_dim: int = 128,
+    causal: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MLA (DeepSeek-V2): latent-compressed KV + decoupled RoPE head.
+
+    The cache stores only (c_kv [B,S,r], k_rope [B,S,dr]); keys and values
+    are up-projected per step (no absorbed-weight trick)."""
+    b, s, _ = x.shape
+    xd = x.to(dtype)
+    q = (xd @ p["wq"].to(dtype)).reshape(b, s, n_heads, qk_nope_dim + qk_rope_dim)
+    q = q.transpose(1, 2)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = rope(q_rope, positions)
+    c_kv = rmsnorm({"g": p["kv_norm"]}, xd @ p["w_dkv"].to(dtype))  # [B,S,r]
+    k_rope = rope((xd @ p["w_krope"].to(dtype))[:, None], positions)  # [B,1,S,dr] shared head
+    k_nope = (c_kv @ p["w_uk"].to(dtype)).reshape(b, s, n_heads, qk_nope_dim).transpose(1, 2)
+    v = (c_kv @ p["w_uv"].to(dtype)).reshape(b, s, n_heads, v_head_dim).transpose(1, 2)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, n_heads, s, qk_rope_dim)], dim=-1)
+    o = _attend(q_full, k_full, v, causal, None)
+    out = _merge_heads(o).to(dtype) @ p["wo"].to(dtype)
+    return out, {"c_kv": c_kv, "k_rope": k_rope[:, 0]}
+
+
+def mla_decode(
+    p: Params,
+    x: torch.Tensor,  # [B, 1, d]
+    cache: Dict[str, torch.Tensor],  # c_kv [B, Smax, r], k_rope [B, Smax, dr]
+    position: torch.Tensor,  # [B]
+    n_heads: int,
+    qk_nope_dim: int = 128,
+    qk_rope_dim: int = 64,
+    v_head_dim: int = 128,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token MLA step; writes the token's cache entries in place at
+    ``position`` (clamped into the cache, as ``dynamic_update_slice`` does)
+    and returns ``(out, cache)``."""
+    b = x.shape[0]
+    xd = x.to(dtype)
+    q = (xd @ p["wq"].to(dtype)).reshape(b, 1, n_heads, qk_nope_dim + qk_rope_dim)
+    q = q.transpose(1, 2)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = rope(q_rope, position[:, None])
+    c_new = rmsnorm({"g": p["kv_norm"]}, xd @ p["w_dkv"].to(dtype))  # [B,1,r]
+    kr_new = rope((xd @ p["w_krope"].to(dtype))[:, None], position[:, None])[:, 0]  # [B,1,dr]
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s_max = c_kv.shape[1]
+    rows = torch.arange(b, device=x.device)
+    at = position.long().clamp(0, s_max - 1)
+    c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[rows, at] = kr_new[:, 0].to(k_rope.dtype)
+    k_nope = (c_kv @ p["w_uk"].to(dtype)).reshape(b, s_max, n_heads, qk_nope_dim).transpose(1, 2)
+    v = (c_kv @ p["w_uv"].to(dtype)).reshape(b, s_max, n_heads, v_head_dim).transpose(1, 2)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat(
+        [k_nope, k_rope[:, None].expand(b, n_heads, s_max, qk_rope_dim)], dim=-1
+    )
+    kv_valid = position + 1
+    o = _attend(q_full, k_full, v, causal=False, window=None, kv_valid=kv_valid)
+    out = _merge_heads(o).to(dtype) @ p["wo"].to(dtype)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}

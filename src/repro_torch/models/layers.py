@@ -1,0 +1,171 @@
+"""Shared neural-net building blocks (pure-functional, dict params).
+
+Port of ``repro/models/layers.py``.  Params are plain dicts of tensors; the
+``*_init`` helpers draw from a ``torch.Generator`` on the device they are
+given (the generator must live on that device) with the JAX package's
+scales.  JAX's PRNG is not reproduced: tests convert the JAX package's params
+instead (:func:`repro_torch.convert.lm_params_from_numpy`).  Compute dtype
+is bf16 by default; the init helpers return f32 and the model stores each
+matmul weight in its compute dtype (see :mod:`.transformer`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..device import DeviceLike, resolve_device
+
+__all__ = [
+    "Params",
+    "cross_entropy",
+    "dense",
+    "dense_init",
+    "embedding_init",
+    "layernorm",
+    "layernorm_init",
+    "mlp",
+    "mlp_init",
+    "normal",
+    "rmsnorm",
+    "rmsnorm_init",
+    "rope",
+    "swiglu",
+    "swiglu_init",
+]
+
+Params = Dict[str, torch.Tensor]
+
+
+def normal(
+    generator: torch.Generator,
+    shape: Sequence[int],
+    scale: float,
+    device: DeviceLike = None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """``normal(shape) * scale`` drawn in f32, then cast to ``dtype`` (the
+    rounding the JAX package applies at each use, done once)."""
+    dev = resolve_device(device)
+    x = torch.randn(tuple(shape), generator=generator, device=dev, dtype=torch.float32)
+    return x.mul_(scale).to(dtype)
+
+
+def dense_init(
+    generator: torch.Generator, d_in: int, d_out: int, scale: Optional[float] = None,
+    device: DeviceLike = None,
+) -> Params:
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    return {"w": normal(generator, (d_in, d_out), scale, device)}
+
+
+def dense(p: Params, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return x.to(dtype) @ p["w"].to(dtype)
+
+
+def rmsnorm_init(d: int, device: DeviceLike = None) -> Params:
+    return {"g": torch.ones(d, dtype=torch.float32, device=resolve_device(device))}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * p["g"]).to(dt)
+
+
+def layernorm_init(d: int, device: DeviceLike = None) -> Params:
+    dev = resolve_device(device)
+    return {"g": torch.ones(d, dtype=torch.float32, device=dev),
+            "b": torch.zeros(d, dtype=torch.float32, device=dev)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(dt)
+
+
+def mlp_init(generator: torch.Generator, dims: Sequence[int], device: DeviceLike = None) -> Params:
+    dev = resolve_device(device)
+    p: Params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        p[f"w{i}"] = normal(generator, (a, b), 1.0 / math.sqrt(a), dev)
+        p[f"b{i}"] = torch.zeros(b, dtype=torch.float32, device=dev)
+    return p
+
+
+def mlp(
+    p: Params, x: torch.Tensor, act: Callable = F.silu, final_act: bool = False,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    n = len([k for k in p if k.startswith("w")])
+    h = x.to(dtype)
+    for i in range(n):
+        h = h @ p[f"w{i}"].to(dtype) + p[f"b{i}"].to(dtype)
+        if i < n - 1 or final_act:
+            h = act(h)
+    return h
+
+
+def swiglu_init(generator: torch.Generator, d: int, d_ff: int, device: DeviceLike = None) -> Params:
+    s = 1.0 / math.sqrt(d)
+    return {
+        "w_gate": normal(generator, (d, d_ff), s, device),
+        "w_up": normal(generator, (d, d_ff), s, device),
+        "w_down": normal(generator, (d_ff, d), 1.0 / math.sqrt(d_ff), device),
+    }
+
+
+def swiglu(p: Params, x: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    xd = x.to(dtype)
+    g = F.silu(xd @ p["w_gate"].to(dtype))
+    u = xd @ p["w_up"].to(dtype)
+    return (g * u) @ p["w_down"].to(dtype)
+
+
+def embedding_init(
+    generator: torch.Generator, vocab: int, d: int, scale: float = 0.02,
+    device: DeviceLike = None,
+) -> Params:
+    return {"table": normal(generator, (vocab, d), scale, device)}
+
+
+def rope(
+    x: torch.Tensor,  # [..., S, D] (D even)
+    positions: torch.Tensor,  # [..., S] or [S]
+    base: float = 10000.0,
+) -> torch.Tensor:
+    """Rotary position embedding over the last dim (half-split convention);
+    frequencies ``exp(-log(base) * i / half)`` in f32, as the JAX package."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(
+        -math.log(base) * torch.arange(half, dtype=torch.float32, device=x.device) / half
+    )
+    ang = positions[..., None].float() * freqs  # [..., S, half]
+    while ang.dim() < x.dim():  # insert head axis: [..., 1, S, half]
+        ang = ang.unsqueeze(-3)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # [..., V]
+    labels: torch.Tensor,  # [...]
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

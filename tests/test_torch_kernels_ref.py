@@ -21,6 +21,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
 from repro_torch.kernels.dhd_spmv import dhd_ell_step as torch_dhd_single_wrapper
 from repro_torch.kernels.dhd_spmv import dhd_ell_step_batch as torch_dhd_wrapper
+from repro_torch.kernels.embedding_bag import embedding_bag as torch_bag_wrapper
+from repro_torch.kernels.flash_attention import flash_attention as torch_attn_wrapper
 from repro_torch.kernels.route_expand import route_expand as torch_route_wrapper
 
 DHD_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -189,9 +191,17 @@ def test_wrappers_take_plain_version_on_cpu():
         assert torch.equal(a, b)
     got_s = torch_dhd_single_wrapper(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0]))
     assert torch.equal(got_s, tref.dhd_ell_ref(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0])))
+    rng = np.random.default_rng(4)
+    qkv = [_t(rng.standard_normal((1, 2, 9, 8)).astype(np.float32)) for _ in range(3)]
+    assert torch.equal(torch_attn_wrapper(*qkv), tref.attention_ref(*qkv))
+    tab = _t(rng.standard_normal((30, 4)).astype(np.float32))
+    idx = _t(rng.integers(0, 30, (5, 3)).astype(np.int32))
+    assert torch.equal(torch_bag_wrapper(tab, idx, mode="mean"),
+                       tref.embedding_bag_ref(tab, idx, mode="mean"))
     counts = {k: c.n for k, c in launch_counters().items()}
     assert set(counts) == {
-        "dhd_count", "dhd_flow", "dhd_count_single", "dhd_flow_single", "route_expand"
+        "dhd_count", "dhd_flow", "dhd_count_single", "dhd_flow_single", "route_expand",
+        "flash_attention", "embedding_bag",
     }
     assert all(n == 0 for n in counts.values()), counts
 
