@@ -8,7 +8,8 @@ Run from the repository root with no arguments::
 Phases, each of which fails the run with a nonzero exit:
 
 1. Device: CUDA must be present; prints the card's name and power limit.
-2. Build: compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (sm_90a).
+2. Build: compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (sm_90a) and
+   prints each kernel's registers, spill bytes and ptxas warnings.
 3. Main path at full size, with every kernel's launch count set to 0 just
    before and read just after: a 530,175-item store (community graph of
    26,000 vertices, the paper's five-DC environment, 160 five-hop patterns,
@@ -20,8 +21,9 @@ Phases, each of which fails the run with a nonzero exit:
    expansion on the store's own batches (and the sweep cases plus a 31-DC
    case), DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
-   ``maintain``), recorded during phase 3: integer outputs exact, DHD floats
-   within atol 1e-5 / rtol 1e-4.
+   ``maintain``), recorded during phase 3, and on two seeded shapes the
+   lane lacks (7 fields, kmax 150; 6 fields with per-field vals): integer
+   outputs exact, DHD floats within atol 1e-5 / rtol 1e-4.
 5. Streaming updates on the same store, counts set to 0 just before and
    read just after: two churn batches at rate 0.01 (global warm-DHD sweeps)
    and two at 2e-5 (a trickle whose frontier takes the pre-solve), each
@@ -48,11 +50,17 @@ Phases, each of which fails the run with a nonzero exit:
 9. End to end: the prefill with the kernel against the same prefill with
    ``kernels.ops.attention`` swapped for its plain version, on a 2-layer
    model at full width in f32 (within atol/rtol 1e-3), and reported (not
-   failed) on the full-depth bf16 model.
+   failed) on the full-depth bf16 model beside two controls (SDPA, and the
+   f32 kernel on upcast inputs), each with its layer-0 outputs' count of
+   differences from the plain version and RMS distance to f64.
 10. The flash-attention kernel against its plain version on the card on
     layer 0's q, k, v recorded from the longest and the shortest prefill:
     bf16 within 2e-2, the same inputs in f32 within 2e-5; timed beside its
-    bound and ``scaled_dot_product_attention``.
+    bound and ``scaled_dot_product_attention``.  Then a sweep of shapes the
+    LM path never gives it (GQA, a window, suffix-aligned and fully masked
+    rows, widths 16-256, lengths 1-1,024, a transposed v, two batch rows),
+    each in bf16 and f32 within the same tolerances; fully masked rows must
+    be exactly 0, and a bf16 view the kernel cannot copy must raise.
 11. Embedding bags, counts set to 0 just before and read just after: BST's
     item table (2^22 x 32, f32) and Zipf ids, 20 a bag, at batches of 512
     and 262,144, weighted, in sum and mean, through
@@ -89,6 +97,28 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 LM_ARCH = "deepseek-v2-lite-16b"
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 1024, 8, 16
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# phase 10's sweep: name, B, Hq, Hkv, Sq, Skv, Dqk, Dv, causal, window, v transposed
+ATTN_SWEEP = (
+    ("GQA 8/2", 1, 8, 2, 256, 256, 64, 64, True, None, False),
+    ("window 128", 1, 4, 4, 605, 605, 128, 128, True, 128, False),
+    ("suffix-aligned Sq < Skv", 1, 4, 4, 100, 300, 64, 64, True, None, False),
+    ("one query of 1,024 keys", 1, 4, 4, 1, 1024, 192, 128, True, None, True),
+    ("causal Sq > Skv", 1, 4, 4, 300, 100, 64, 64, True, None, False),
+    ("not causal", 1, 4, 4, 200, 150, 64, 64, False, None, False),
+    ("widths 24/16", 1, 4, 4, 128, 128, 24, 16, True, None, False),
+    ("widths 64/64", 1, 4, 4, 128, 128, 64, 64, True, None, False),
+    ("widths 128/128", 1, 4, 4, 128, 128, 128, 128, True, None, False),
+    ("widths 256/256", 1, 4, 4, 128, 128, 256, 256, True, None, False),
+    ("widths 64/256", 1, 4, 4, 128, 128, 64, 256, True, None, False),
+    ("widths 192/128", 1, 4, 4, 128, 128, 192, 128, True, None, False),
+    ("length 1", 1, 16, 16, 1, 1, 192, 128, True, None, True),
+    ("length 63", 1, 16, 16, 63, 63, 192, 128, True, None, True),
+    ("length 65", 1, 16, 16, 65, 65, 192, 128, True, None, True),
+    ("length 605", 1, 16, 16, 605, 605, 192, 128, True, None, True),
+    ("length 1,024", 1, 16, 16, 1024, 1024, 192, 128, True, None, True),
+    ("window 128, length 1,024", 1, 16, 16, 1024, 1024, 192, 128, True, 128, True),
+    ("batch 2, GQA 4/2", 2, 4, 2, 130, 130, 64, 64, True, None, False),
+)
 E2E_TOL = dict(atol=1e-3, rtol=1e-3)
 # BST's item table (configs/bst.py) and the serving batches of RECSYS_SHAPES
 BAG_V, BAG_D, BAG_L = 1 << 22, 32, 20
@@ -542,8 +572,17 @@ def check_dhd(name, heat, cols, vals, q, params) -> dict:
     field = B * n * 4
     count_bytes = field + cbytes + vbytes + field
     flow_bytes = 3 * field + cbytes + vbytes + field
+    # what the flow pass gathers: h[b, c] of every live slot and field,
+    # nout[b, c] where heat flows in; how far a live slot's column lies
+    # from its row
+    live = (vals > 0).expand(B, n, kmax)
+    inflow = live & (heat[:, cols.long()] > heat[:, :, None])
+    rows = torch.arange(n, device=cols.device)[:, None]
+    dist = (cols.long() - rows).abs()[(vals[0] if per_field else vals) > 0]
     return {
         "case": name, "shape": [B, n, kmax], "per_field_vals": bool(per_field),
+        "flow_gathers": int(live.sum()) + int(inflow.sum()),
+        "median_col_distance": float(dist.float().median()) if dist.numel() else 0.0,
         "count": {
             "max_abs_err": err_count, "ms": cuda_ms(lambda: count(heat)),
             "plain_ms": cuda_ms(lambda: dhd_ell_count_ref(heat, cols, vals)),
@@ -561,6 +600,7 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
     """Phase 4; returns the kernel table rows by name.  The DHD kernels are
     checked on the inputs the main path gave them (``rec``)."""
     import numpy as np
+    import torch
 
     from repro_torch.core.routing import pack_request_tiles
 
@@ -597,7 +637,24 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
               f"(plain {d['count']['plain_ms']:.4f}, bound {d['count']['bound_ms']:.5f}), "
               f"flow kernel {d['flow']['ms']:.4f} ms (plain {d['flow']['plain_ms']:.4f}, "
               f"bound {d['flow']['bound_ms']:.5f}), max abs err "
-              f"{d['flow']['max_abs_err']:.3g}", flush=True)
+              f"{d['flow']['max_abs_err']:.3g}; flow gathers {d['flow_gathers']}, median "
+              f"|col - row| {d['median_col_distance']:.0f}", flush=True)
+    # shapes the lane's recorded steps do not have: B with no divisor up to
+    # 5 (one field a block), per-field vals in groups of 3, kmax past 96
+    # (the flow kernel's slot loop)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    for B, n, kmax, per_field in ((7, 3000, 150, False), (6, 2000, 40, True)):
+        shape = (B, n, kmax) if per_field else (n, kmax)
+        vals = torch.rand(shape, generator=gen, device=DEVICE)
+        vals *= torch.rand(shape, generator=gen, device=DEVICE) < 0.6
+        cols = torch.randint(0, n, (n, kmax), generator=gen, device=DEVICE, dtype=torch.int32)
+        heat, q = (torch.rand((B, n), generator=gen, device=DEVICE) for _ in range(2))
+        name = (f"synthetic: {B} fields, {'per-field' if per_field else 'shared'} vals, "
+                f"kmax {kmax}")
+        d = check_dhd(name, heat, cols, vals, q, (0.5, 0.1, 0.3))
+        dhds.append(d)
+        print(f"dhd {name} {d['shape']}: count and flow within atol 1e-5 / rtol 1e-4, flow "
+              f"kernel {d['flow']['ms']:.4f} ms", flush=True)
     report["route_expand_checks"] = routes
     report["dhd_checks"] = dhds
     return {"route": routes[len(BATCHES) - 1], "dhd": dhds[0]}
@@ -1052,15 +1109,18 @@ def lm_end_to_end_check(lm: dict, report: dict) -> None:
     ``ops.attention`` swapped for its plain version.  A 2-layer model at
     full width in f32 must agree within atol/rtol 1e-3; on the full-depth
     bf16 model the last position's logits are reported (max abs and
-    relative RMS difference, top-1 agreement), not failed, beside a
-    control: the same prefill with SDPA in the kernel's place, against the
-    plain version, which reads how far two sound bf16 attentions drift
-    apart over the full depth."""
+    relative RMS difference, top-1 agreement), not failed, beside
+    controls: the same prefill with SDPA, and with the f32 kernel on
+    upcast inputs, in the kernel's place, against the plain version, which
+    read how far sound bf16 attentions drift apart over the full depth; and
+    for each, layer 0's outputs on their recorded inputs: how many differ
+    from the plain version's and their RMS distance to f64."""
     import dataclasses
 
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
     from repro_torch.models import transformer as tf
 
@@ -1071,6 +1131,10 @@ def lm_end_to_end_check(lm: dict, report: dict) -> None:
         if window is not None:
             fail("the SDPA control covers no sliding window")
         return _sdpa(q, k, v, causal)
+
+    def f32_kernel(q, k, v, causal=True, window=None):
+        return flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                               window=window).to(q.dtype)
 
     def prefill_with(params, cfg, tokens, fn=None):
         """Last logits of one prefill, with ``fn`` in ``ops.attention``'s
@@ -1104,15 +1168,27 @@ def lm_end_to_end_check(lm: dict, report: dict) -> None:
     if not ok:
         fail("the f32 2-layer prefill with the flash kernel differs from the plain version")
     want = prefill_with(lm["params"], lm["cfg"], lm["tokens"], plain)
-    full = gap(prefill_with(lm["params"], lm["cfg"], lm["tokens"]), want)
-    control = gap(prefill_with(lm["params"], lm["cfg"], lm["tokens"], sdpa), want)
-    for name, g in (("kernel", full), ("control, SDPA", control)):
+    # layer 0's attention alone, on its recorded inputs: how many bf16
+    # outputs differ from the plain version's, and the RMS distance to the
+    # same attention in f64 (the plain version's own is bf16 rounding)
+    q, k, v, causal, window = lm["kept"][max(lm["kept"])]
+    exact = attention_ref(q.double(), k.double(), v.double(), causal=causal, window=window)
+    base = plain(q, k, v, causal, window).float()
+    rows = {}
+    for name, fn in (("kernel", flash_attention), ("control, SDPA", sdpa),
+                     ("control, f32 kernel", f32_kernel), ("plain", plain)):
+        o = fn(q, k, v, causal=causal, window=window).float()
+        g = gap(prefill_with(lm["params"], lm["cfg"], lm["tokens"], fn), want)
+        g.update(layer0_outputs_differing=int((o != base).sum()), layer0_outputs=o.numel(),
+                 layer0_rms_vs_f64=float((o.double() - exact).pow(2).mean().sqrt()))
+        rows[name] = g
         print(f"end to end, full depth in bf16, {name} vs plain: last logits max abs diff "
               f"{g['max_abs_diff']:.4g}, relative RMS diff {g['rel_rms_diff']:.4g} "
-              f"(logit RMS {g['logit_rms']:.4g}), top-1 agreement {g['top1_agreement']:.3f}",
-              flush=True)
+              f"(logit RMS {g['logit_rms']:.4g}), top-1 agreement {g['top1_agreement']:.3f}; "
+              f"layer 0: {g['layer0_outputs_differing']} of {o.numel()} outputs differ from "
+              f"the plain version's, RMS vs f64 {g['layer0_rms_vs_f64']:.4g}", flush=True)
     report["lm_end_to_end"] = {"f32_2_layers": {"max_abs_diff": err, "ok": ok},
-                               "bf16_full_depth": full, "bf16_full_depth_sdpa_control": control}
+                               "bf16_full_depth": rows}
 
 
 def attention_bound(q, k, v, causal: bool, window) -> tuple:
@@ -1210,6 +1286,61 @@ def attention_kernel_checks(lm: dict, report: dict) -> dict:
             "launches": lm["launches"]["flash_attention"], "max_abs_err": err_bf16,
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["sdpa_ms"]}
+
+
+def attention_sweep(report: dict) -> None:
+    """Phase 10's sweep: the flash kernel against its plain version on
+    seeded inputs of every ``ATTN_SWEEP`` case, in bf16 (2e-2) and f32
+    (2e-5).  Query rows that see no key must come out exactly 0, and a bf16
+    view whose rows the kernel cannot copy in 16-byte pieces must raise
+    before a launch."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import LAUNCHES, flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    rows = []
+    for name, B, Hq, Hkv, Sq, Skv, dqk, dv, causal, window, v_t in ATTN_SWEEP:
+        q, k = randn(B, Hq, Sq, dqk), randn(B, Hkv, Skv, dqk)
+        v = randn(B, Skv, Hkv, dv).transpose(1, 2) if v_t else randn(B, Hkv, Skv, dv)
+        row = {"case": name, "shape": [B, Hq, Hkv, Sq, Skv, dqk, dv], "causal": causal,
+               "window": window, "v_transposed": v_t}
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            qc, kc, vc = q.to(dt), k.to(dt), v.to(dt)
+            got = flash_attention(qc, kc, vc, causal=causal, window=window)
+            want = attention_ref(qc, kc, vc, causal=causal, window=window)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[dtype]
+            err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+            if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                fail(f"flash_attention sweep '{name}' in {dtype}: max abs err {err:.3g} "
+                     f"outside {tol}")
+            if causal and Sq > Skv and got[:, :, : Sq - Skv].any():
+                fail(f"flash_attention sweep '{name}' in {dtype}: a fully masked row is not 0")
+            row[f"max_abs_err_{dtype}"] = err
+        rows.append(row)
+    before = LAUNCHES.n
+    base = torch.zeros((1, 2, 64, 25), dtype=torch.bfloat16, device=DEVICE)
+    try:
+        flash_attention(base[..., :24], base[..., :24], base[..., :24])
+    except ValueError:
+        pass
+    else:
+        fail("flash_attention took a bf16 view with a 25-element row stride")
+    if LAUNCHES.n != before:
+        fail("flash_attention launched on a view it refused")
+    print(f"flash_attention sweep: {len(rows)} cases within {ATTN_TOL['bfloat16']} (bf16) and "
+          f"{ATTN_TOL['float32']} (f32), max abs err bf16 "
+          f"{max(r['max_abs_err_bfloat16'] for r in rows):.3g}, f32 "
+          f"{max(r['max_abs_err_float32'] for r in rows):.3g}; fully masked rows 0; a "
+          f"misaligned bf16 view raises", flush=True)
+    report["flash_attention_sweep"] = rows
 
 
 def bag_phase(report: dict) -> dict:
@@ -1333,6 +1464,61 @@ def store_phases(report: dict) -> list:
     ]
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_attn_wgmma_kernel<2>`` from its Itanium-mangled name: the last
+    component of the nested name, with its template arguments (integers,
+    booleans, ``float`` or named types)."""
+    import re
+
+    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        pos += m.end()
+        name = mangled[pos: pos + int(m.group())]
+        pos += int(m.group())
+    if not mangled.startswith("I", pos):
+        return name
+    rest, args = mangled[pos + 1:], []
+    while rest and not rest.startswith("E"):
+        m = re.match(r"Li(\d+)E|Lb([01])E|(f)|(\d+)", rest)
+        if m is None:
+            break
+        if m.group(4):  # a named type: its length, then its name
+            size = int(m.group(4))
+            args.append(rest[m.end(): m.end() + size])
+            rest = rest[m.end() + size:]
+            continue
+        args.append(m.group(1) or ("float" if m.group(3) else ("false", "true")[int(m.group(2))]))
+        rest = rest[m.end():]
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spill bytes and warnings of each kernel from ``nvcc
+    -Xptxas -v``, keyed by :func:`kernel_name`."""
+    import re
+
+    out: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+        if "warning" in line:  # a warning may name its kernel
+            m = re.search(r"'(_Z\w+)'", line)
+            key = kernel_name(m.group(1)) if m else name or "(build)"
+            out.setdefault(key, {}).setdefault("warnings", []).append(line.strip())
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1355,12 +1541,12 @@ def main() -> None:
     t = time.perf_counter()
     lib.get()
     print(f"kernels built in {time.perf_counter() - t:.2f} s -> {lib.path.name}", flush=True)
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip().split("ptxas info    : ")[-1], flush=True)
+    ptxas = ptxas_report(lib.build_log)
+    for fn, info in ptxas.items():
+        print(f"  ptxas: {fn}: {info}", flush=True)
 
     report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                    "build_s": lib.build_s}
+                    "build_s": lib.build_s, "ptxas": ptxas}
     table = store_phases(report)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1368,6 +1554,7 @@ def main() -> None:
     lm_end_to_end_check(lm, report)
     table.append(attention_kernel_checks(lm, report))
     del lm
+    attention_sweep(report)
     gc.collect()
     torch.cuda.empty_cache()
     table.append(bag_phase(report))

@@ -6,21 +6,41 @@
 // Replaces the Pallas kernels _count_kernel_batch / _flow_kernel_batch of
 // repro/kernels/dhd_spmv.py.  The TPU version keeps each field's whole heat
 // vector resident in VMEM as an (n, 1) block and walks row blocks in grid
-// order.  Here every (field, row) pair gets one warp; its lanes stride the
-// row's kmax neighbour slots, and the neighbour heat gather goes through L2
-// (26,000 rows x 5 fields of f32 heat is 0.5 MB, far below the 50 MB L2).
+// order.  Here the neighbour heat gathers go through L2 (26,000 rows x 5
+// fields of f32 heat is 0.5 MB, far below the 50 MB L2).
 //
 // Bound on an H100: memory.  A step reads cols and vals (n*kmax*8 bytes with
 // shared vals, plus B*n*kmax*4 with per-field vals) once per pass and does a
-// handful of flops per slot, so both launches are limited by HBM bandwidth
-// (3.35 TB/s).  Lanes read consecutive slots of one row, so the cols/vals
-// loads coalesce; with shared vals the B fields of a row reuse the same
-// lines from L2.
+// handful of flops per slot, so both launches are bounded by HBM bandwidth
+// (3.35 TB/s): at maintain's 5 x 26,000 x 71 the flow pass moves 16.8 MB, a
+// bound of 5.0 us.
+//
+// The count pass gives one warp to each (field, row) pair; its lanes stride
+// the row's kmax neighbour slots.  The flow pass did the same at first and
+// ran at 13x its bound on an H100 (0.0658 ms at 5 x 26,000 x 71): 130,000
+// warps, each walking 71 slots in three passes (the third with 7 of 32
+// lanes live) as chains of dependent loads (cols/vals -> h[c] -> nout[c]),
+// and loading the row's cols and vals again for each of the 5 fields.
+// Giving a warp one row for all fields (cols/vals once, every field's
+// gathers in flight together) shortened the chains but not the time: the
+// gathers are what costs.  Each reads a 32-byte sector for 4 useful bytes,
+// 5 fields x (h, and nout where heat flows in) per live slot, about 7.5 M
+// a pass, at the rate of L1 and L2 rather than of HBM.  So the flow pass
+// also keeps them local: block x owns a contiguous range of rows (one block
+// of 32 warps per SM, n / 132 rows each), so an SM's gathers fall mostly
+// in its rows' neighbourhood (the lane graph's vertex ids are grouped by
+// community: median |c - u| 623 of 26,000) and hit its L1; with the L1
+// carved down to make room for shared memory it is as slow as the first
+// design.  The row's own nout and q load at the top of the row, off the
+// chain.  At maintain's shape it runs at about 7x the bound (PERF.md); the
+// [B, n] layout puts the fields of one column in 5 different sectors, and
+// interleaving them is the next step (it changes the layouts the callers
+// pass).
 //
 // Two launches per step: the flow pass reads |N_j^out| of neighbour rows,
 // which needs every row's count first (a grid-wide sync).  The ragged edge
-// (rows past B*n) is masked; ELL padding slots carry weight 0 and stay
-// inactive, so no pad rows are needed.
+// is masked; ELL padding slots carry weight 0 and stay inactive, so no pad
+// rows are needed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,41 +86,105 @@ __global__ void dhd_count_kernel(const float* __restrict__ heat,   // [B, n]
 }
 
 // Pass 2: inflow - outflow with alpha / max(n_out, 1) on both ends, then the
-// epilogue (1 - gamma) * (h + delta) + beta * q.
-__global__ void dhd_flow_kernel(const float* __restrict__ heat,   // [B, n]
-                                const float* __restrict__ nout,   // [B, n]
-                                const int* __restrict__ cols,     // [n, kmax]
-                                const float* __restrict__ vals,   // [n, kmax] or [B, n, kmax]
-                                const float* __restrict__ q,      // [B, n]
-                                float* __restrict__ out,          // [B, n]
-                                int B, int n, int kmax, int64_t vals_bstride,
-                                float alpha, float one_minus_gamma, float beta) {
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+// epilogue (1 - gamma) * (h + delta) + beta * q.  Block (x, y) owns a
+// contiguous range of rows, one x per SM, for the FB fields from y * FB on
+// (clamped to B); each of its warps takes one row at a time for all FB
+// fields, kFlowSlots slots a lane per sweep of the slot loop (one sweep when
+// ONE_SWEEP, kmax <= 96: the loop's bookkeeping cost 4% at maintain's shape
+// on an H100).  PER_FIELD: vals is [B, n, kmax] (one weight row per field)
+// rather than shared.
+constexpr int kFlowMaxFields = 5;
+constexpr int kFlowSlots = 3;  // kmax <= 96 in one sweep (the serving lane's is 71)
+constexpr int kFlowThreads = 1024;
+
+template <int FB, bool PER_FIELD, bool ONE_SWEEP>
+__global__ void __launch_bounds__(kFlowThreads)
+    dhd_flow_kernel(const float* __restrict__ heat,   // [B, n]
+                    const float* __restrict__ nout,   // [B, n]
+                    const int* __restrict__ cols,     // [n, kmax]
+                    const float* __restrict__ vals,   // [n, kmax] or [B, n, kmax]
+                    const float* __restrict__ q,      // [B, n]
+                    float* __restrict__ out,          // [B, n]
+                    int B, int n, int kmax, float alpha, float one_minus_gamma,
+                    float beta) {
+  constexpr int FW = PER_FIELD ? FB : 1;  // weight rows a slot carries
+  const int per_block = (n + gridDim.x - 1) / gridDim.x;
+  const int end = min(n, (int)(blockIdx.x + 1) * per_block);
+  const int warps = blockDim.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  if (row >= (int64_t)B * n) return;  // warp-uniform
-  const int64_t b = row / n;
-  const int64_t u = row - b * n;
-  const float* h = heat + b * n;
-  const float* no = nout + b * n;
-  const int* crow = cols + u * kmax;
-  const float* vrow = vals + b * vals_bstride + u * kmax;
-  const float hu = h[u];
-  const float a_u = alpha / fmaxf(no[u], 1.f);
-  float inflow = 0.f, outflow = 0.f;
-  for (int j = lane; j < kmax; j += kWarp) {
-    const float v = __ldg(vrow + j);
-    if (v > 0.f) {
-      const int c = __ldg(crow + j);
-      const float hn = __ldg(h + c);
-      if (hu > hn) {
-        outflow += a_u * v * (hu - hn);
-      } else if (hn > hu) {
-        inflow += alpha / fmaxf(__ldg(no + c), 1.f) * v * (hn - hu);
+  // this block's fields: b0 .. b0 + FB - 1 (FB divides B), addressed by
+  // compile-time offsets from field b0, which keeps registers low
+  const int b0 = blockIdx.y * FB;
+  const int64_t field0 = (int64_t)b0 * n;
+  heat += field0;
+  nout += field0;
+  q += field0;
+  out += field0;
+  if (PER_FIELD) vals += field0 * kmax;
+#define FIELD(f) ((int64_t)(f) * n)
+
+  for (int u = blockIdx.x * per_block + threadIdx.x / kWarp; u < end; u += warps) {
+    // the row's own |N^out| and q (lane f writes field f) load first, so no
+    // load waits at the end of the row's chain
+    float hu[FB], nu[FB], acc[FB];
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      nu[f] = nout[FIELD(f) + u];
+      acc[f] = 0.f;
+    }
+    const float qu = lane < FB ? q[FIELD(lane) + u] : 0.f;
+    for (int j0 = 0; j0 < (ONE_SWEEP ? 1 : kmax); j0 += kWarp * kFlowSlots) {
+      // the row's slots first (pad slots: weight 0, column u), then every
+      // field's gathers, then |N^out| only where heat flows in
+      int c[kFlowSlots];
+      float w[FW][kFlowSlots];
+#pragma unroll
+      for (int s = 0; s < kFlowSlots; ++s) {
+        const int j = j0 + s * kWarp + lane;
+        const bool live = j < kmax;
+        c[s] = live ? __ldg(cols + (int64_t)u * kmax + j) : u;
+#pragma unroll
+        for (int f = 0; f < FW; ++f)
+          w[f][s] = live ? __ldg(vals + FIELD(f) * kmax + (int64_t)u * kmax + j) : 0.f;
+      }
+      float hn[FB][kFlowSlots], nn[FB][kFlowSlots];
+#pragma unroll
+      for (int f = 0; f < FB; ++f) {
+        hu[f] = heat[FIELD(f) + u];
+#pragma unroll
+        for (int s = 0; s < kFlowSlots; ++s) hn[f][s] = __ldg(heat + FIELD(f) + c[s]);
+      }
+#pragma unroll
+      for (int f = 0; f < FB; ++f)
+#pragma unroll
+        for (int s = 0; s < kFlowSlots; ++s)
+          nn[f][s] = w[PER_FIELD ? f : 0][s] > 0.f && hn[f][s] > hu[f]
+                         ? __ldg(nout + FIELD(f) + c[s])
+                         : 1.f;
+#pragma unroll
+      for (int f = 0; f < FB; ++f) {
+        const float a_u = alpha / fmaxf(nu[f], 1.f);
+#pragma unroll
+        for (int s = 0; s < kFlowSlots; ++s) {
+          const float v = w[PER_FIELD ? f : 0][s];
+          if (v > 0.f) {
+            if (hu[f] > hn[f][s]) {
+              acc[f] -= a_u * v * (hu[f] - hn[f][s]);
+            } else if (hn[f][s] > hu[f]) {
+              acc[f] += alpha / fmaxf(nn[f][s], 1.f) * v * (hn[f][s] - hu[f]);
+            }
+          }
+        }
       }
     }
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      const float delta = warp_sum(acc[f]);
+      if (lane == f)
+        out[FIELD(f) + u] = one_minus_gamma * (hu[f] + delta) + beta * qu;
+    }
   }
-  const float delta = warp_sum(inflow) - warp_sum(outflow);
-  if (lane == 0) out[row] = one_minus_gamma * (hu + delta) + beta * q[row];
+#undef FIELD
 }
 
 constexpr int kWarpsPerBlock = 8;
@@ -213,9 +297,43 @@ extern "C" int dhd_flow_batch(const float* heat, const float* nout, const int* c
                               float one_minus_gamma, float beta, void* stream) {
   const int64_t rows = (int64_t)B * n;
   if (rows == 0) return (int)cudaSuccess;
-  const int64_t vstride = vals_per_field ? (int64_t)n * kmax : 0;
-  dhd_flow_kernel<<<grid_for(rows), kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(
-      heat, nout, cols, vals, q, out, B, n, kmax, vstride, alpha, one_minus_gamma, beta);
+  // groups of FB fields, FB the largest divisor of B up to kFlowMaxFields;
+  // one block of each group per SM
+  int fields = kFlowMaxFields;
+  while (B % fields) --fields;
+  const int groups = B / fields;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)sms, (unsigned)groups);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool one_sweep = kmax <= kWarp * kFlowSlots;
+#define FLOW_LAUNCH(fb, per_field, one)                                              \
+  dhd_flow_kernel<fb, per_field, one><<<grid, kFlowThreads, 0, st>>>(               \
+      heat, nout, cols, vals, q, out, B, n, kmax, alpha, one_minus_gamma, beta)
+#define FLOW_CASE(fb)                      \
+  case fb:                                 \
+    if (vals_per_field && one_sweep)       \
+      FLOW_LAUNCH(fb, true, true);         \
+    else if (vals_per_field)               \
+      FLOW_LAUNCH(fb, true, false);        \
+    else if (one_sweep)                    \
+      FLOW_LAUNCH(fb, false, true);        \
+    else                                   \
+      FLOW_LAUNCH(fb, false, false);       \
+    break;
+  switch (fields) {
+    FLOW_CASE(1)
+    FLOW_CASE(2)
+    FLOW_CASE(3)
+    FLOW_CASE(4)
+    FLOW_CASE(5)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef FLOW_CASE
+#undef FLOW_LAUNCH
   return (int)cudaGetLastError();
 }
 

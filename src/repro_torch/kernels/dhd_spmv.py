@@ -2,7 +2,13 @@
 
 :func:`dhd_ell_step_batch` replaces ``_count_kernel_batch`` and
 ``_flow_kernel_batch`` of the JAX package's ``kernels/dhd_spmv.py`` (Pallas,
-TPU): B heat fields over one column structure, one warp per (field, row).
+TPU): B heat fields over one column structure.  The count pass gives one
+warp to each (field, row).  The flow pass gives each SM one block over a
+contiguous range of rows, and each warp one row for up to 5 fields at once:
+it loads the row's ``cols`` (and shared ``vals``) once, keeps the fields'
+neighbour gathers in flight together, and finds most of them in its SM's
+L1 (the first design, a warp per (field, row), ran at 13x its bound on
+chains of dependent loads).
 :func:`dhd_ell_step` replaces ``_count_kernel`` and ``_flow_kernel`` of the
 same file (``dhd_spmv.py:70``, ``:82``): one heat field, half a warp per row
 (the warm-DHD ELL has 80 slots a row on the serving lane).  The kernels live

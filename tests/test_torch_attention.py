@@ -5,6 +5,9 @@ The JAX side runs as its own tests run it on the CPU: the Pallas kernel in
 interpret mode and the dense oracle ``attention_ref``.  Tolerances are the
 reference's own (``tests/test_kernels.py``): 2e-5 in f32, 2e-2 in bf16.
 """
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,13 @@ from repro.models.attention import chunked_attention as jax_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
-from repro_torch.kernels.flash_attention import _check_inputs, flash_attention
+from repro_torch.kernels.flash_attention import (
+    BF16_DV_WIDTHS,
+    MAX_HEAD_DIM,
+    _check_inputs,
+    bf16_instance,
+    flash_attention,
+)
 from repro_torch.models.attention import chunked_attention
 
 # the reference's ATTN_SWEEP (tests/test_kernels.py)
@@ -173,3 +182,83 @@ def test_kernel_input_checks_accept_a_transposed_v():
     np.testing.assert_array_equal(
         tref.attention_ref(_t(1, 2, 8, 24), _t(1, 2, 8, 24), v).shape, (1, 2, 8, 16)
     )
+
+
+def test_kernel_input_checks_accept_a_transposed_v_in_bf16():
+    """The bf16 kernel copies rows in 16-byte pieces; MLA's transposed v
+    (strides multiples of 8 elements) qualifies as it is."""
+    bf = torch.bfloat16
+    v = _t(1, 8, 2, 128, dtype=bf).transpose(1, 2)
+    _check_inputs(_t(1, 2, 8, 192, dtype=bf), _t(1, 2, 8, 192, dtype=bf), v)
+
+
+def _aligned_buffer(n, dtype=torch.bfloat16):
+    return torch.zeros(n, dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "which,view",
+    [
+        ("q", lambda: _t(1, 2, 8, 25, dtype=torch.bfloat16)[..., :24]),  # row stride 25
+        ("k", lambda: _t(1, 2, 8, 25, dtype=torch.bfloat16)[..., :24]),
+        ("v", lambda: _t(1, 2, 8, 25, dtype=torch.bfloat16)[..., :24]),
+        ("q", lambda: _aligned_buffer(1000)[1:385].view(1, 2, 8, 24)),  # base 2 bytes off
+        ("v", lambda: _aligned_buffer(1000).as_strided((1, 2, 8, 24), (0, 196, 24, 1))),
+        ("k", lambda: _aligned_buffer(2000).as_strided((2, 2, 8, 24), (390, 192, 24, 1))),
+    ],
+    ids=["q row stride", "k row stride", "v row stride", "q base", "v head stride",
+         "k batch stride"],
+)
+def test_kernel_input_checks_refuse_misaligned_bf16_views(which, view):
+    """What cp.async cannot copy in 16-byte pieces is refused before a
+    launch, with a message; it is never copied or sent to the plain version."""
+    bf = torch.bfloat16
+    args = {"q": _t(1, 2, 8, 24, dtype=bf), "k": _t(1, 2, 8, 24, dtype=bf),
+            "v": _t(1, 2, 8, 24, dtype=bf)}
+    t = view()
+    if t.shape[0] != 1:
+        args = {n: x.expand(2, -1, -1, -1) if n != which else x for n, x in args.items()}
+    args[which] = t
+    with pytest.raises(ValueError, match="16-byte pieces"):
+        _check_inputs(args["q"], args["k"], args["v"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_input_checks_ignore_strides_of_length_one_axes(dtype):
+    """An axis of length 1 never moves the copy, so its stride may be
+    anything; in f32 (the CUDA-core kernel) any stride is taken."""
+    buf = _aligned_buffer(4000, dtype)
+    q = buf.as_strided((1, 1, 8, 24), (7, 5, 24, 1))
+    _check_inputs(q, q, q)
+    if dtype == torch.float32:
+        odd = _t(1, 2, 8, 25)[..., :24]
+        _check_inputs(odd, odd, odd)
+
+
+def _compiled_dv_widths():
+    src = pathlib.Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/flash_attention.cu"
+    return sorted(int(w) for w in re.findall(r"^\s*FA_WG_CASE\((\d+)\)", src.read_text(), re.M))
+
+
+def test_bf16_instances_are_the_ones_the_source_compiles():
+    assert _compiled_dv_widths() == sorted(BF16_DV_WIDTHS)
+
+
+@pytest.mark.parametrize("dv", range(1, MAX_HEAD_DIM + 1, 17))
+def test_bf16_instance_holds_every_width(dv):
+    """Every (Dqk, Dv) in 1..256 maps to an instance the C side compiles:
+    q.k to the next multiple of 64 (a run-time chunk count, at most 4), v
+    to the smallest compiled width that holds it."""
+    widths = _compiled_dv_widths()
+    for dv_ in range(dv, min(dv + 17, MAX_HEAD_DIM + 1)):
+        for dqk in range(1, MAX_HEAD_DIM + 1):
+            qk, dv_pad = bf16_instance(dqk, dv_)
+            assert qk % 64 == 0 and dqk <= qk < dqk + 64 and qk <= MAX_HEAD_DIM
+            assert dv_pad in widths and dv_pad >= dv_
+            assert all(w < dv_ for w in widths if w < dv_pad)
+
+
+@pytest.mark.parametrize("dqk,dv", [(0, 8), (8, 0), (257, 8), (8, 257)])
+def test_bf16_instance_refuses_widths_out_of_range(dqk, dv):
+    with pytest.raises(ValueError):
+        bf16_instance(dqk, dv)
