@@ -21,9 +21,11 @@ Phases, each of which fails the run with a nonzero exit:
    expansion on the store's own batches (and the sweep cases plus a 31-DC
    case), DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
-   ``maintain``), recorded during phase 3, and on two seeded shapes the
-   lane lacks (7 fields, kmax 150; 6 fields with per-field vals): integer
-   outputs exact, DHD floats within atol 1e-5 / rtol 1e-4.
+   ``maintain``), recorded during phase 3, on two seeded shapes the lane
+   lacks (7 fields, kmax 150; 6 fields with per-field vals), and on a
+   sweep of the batched count's branches (``DHD_SWEEP``: heat on 4 levels,
+   pad rows, B 1/5/7/6, kmax 71/80/150/37, n 10,007 and 3): counts and
+   other integer outputs exact, DHD floats within atol 1e-5 / rtol 1e-4.
 5. Streaming updates on the same store, counts set to 0 just before and
    read just after: two churn batches at rate 0.01 (global warm-DHD sweeps)
    and two at 2e-5 (a trickle whose frontier takes the pre-solve), each
@@ -35,7 +37,10 @@ Phases, each of which fails the run with a nonzero exit:
    pre-solve and both single-field DHD kernels must have run.  Flush plans
    may differ from the mirror's on heat near-ties: counted, not failed.
 6. The single-field DHD kernels against their plain versions on the card,
-   on the inputs of real sweeps recorded in phase 5 (global and pre-solve).
+   on the inputs of real sweeps recorded in phase 5 (global and pre-solve),
+   and on a sweep of the flow pass's instances (``DHD_SINGLE_SWEEP``: 8, 16
+   and 32 lanes a row, 16-byte or scalar loads, a misaligned base, kmax up
+   to 400), with tie-heavy heat and pad rows.
 7. A CPU build of the same store: replica rows that differ from the card's.
    The store is freed after this phase.
 8. LM serving at full width, counts set to 0 just before and read just
@@ -55,8 +60,8 @@ Phases, each of which fails the run with a nonzero exit:
    differences from the plain version and RMS distance to f64.
 10. The flash-attention kernel against its plain version on the card on
     layer 0's q, k, v recorded from the longest and the shortest prefill:
-    bf16 within 2e-2, the same inputs in f32 within 2e-5; timed beside its
-    bound and ``scaled_dot_product_attention``.  Then a sweep of shapes the
+    bf16 within 2e-2, the same inputs in f32 within 2e-5; timed in turns
+    with ``scaled_dot_product_attention`` beside its bound.  Then a sweep of shapes the
     LM path never gives it (GQA, a window, suffix-aligned and fully masked
     rows, widths 16-256, lengths 1-1,024, a transposed v, two batch rows),
     each in bf16 and f32 within the same tolerances; fully masked rows must
@@ -66,6 +71,13 @@ Phases, each of which fails the run with a nonzero exit:
     and 262,144, weighted, in sum and mean, through
     ``models.recsys.embedding.bag_lookup``: within 1e-4 of the plain
     version; timed beside the bound and ``F.embedding_bag``.
+
+Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
+come from CUDA-graph replay: 20 launches captured in one graph, replayed
+between two CUDA events, so the host's launch rate does not set them; the
+old host-loop figure stands beside each as ``host_loop_ms``, and
+``launch_floor_ms`` is the replayed time of a launch that does no work.
+``flash_attention`` and SDPA are replayed in turns within one call.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -131,9 +143,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def gpu_line() -> str:
+def gpu_query(fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if out.returncode != 0:
@@ -141,8 +153,14 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` calls (CUDA events)."""
+def gpu_line() -> str:
+    return gpu_query("name,power.limit")
+
+
+def host_loop_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Mean time of ``fn`` in ms over ``iters`` calls issued by Python
+    between two CUDA events.  Where one call takes the host longer to issue
+    than the card to run, this reads the host's launch interval."""
     import torch
 
     for _ in range(warmup):
@@ -156,6 +174,85 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _capture(fn, warmup: int, iters: int):
+    """``iters`` calls of ``fn`` in one CUDA graph, after ``warmup`` calls
+    on a side stream.  ``fn`` must read the current stream when it
+    launches, so that its launches land on the capturing stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph, iters: int) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms_in_turns(fns, warmup: int = 3, iters: int = 20, reps: int = 7) -> list:
+    """Device time in ms of one call of each of ``fns``: each function's
+    ``iters`` calls are captured in one CUDA graph, the graphs are replayed
+    in turns ``reps`` times between two events each, and each time is the
+    median replay over ``iters``.  The host issues one replay for
+    ``iters`` launches, so its launch rate does not set the figure."""
+    import numpy as np
+
+    graphs = [_capture(fn, warmup, iters) for fn in fns]
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for graph, t in zip(graphs, times):
+            t.append(_replay_ms(graph, iters))
+    del graphs
+    return [float(np.median(t)) for t in times]
+
+
+def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Device time in ms of one call of ``fn``, by CUDA-graph replay."""
+    return cuda_ms_in_turns([fn], warmup, iters)[0]
+
+
+def kernel_ms(fn) -> dict:
+    """A kernel launch's graph-replayed time (``ms``) and the old host-loop
+    figure beside it (``host_loop_ms``)."""
+    return {"ms": cuda_ms(fn), "host_loop_ms": host_loop_ms(fn)}
+
+
+def launch_floor_ms() -> float:
+    """Graph-replayed time of a launch that does no work: the batched count
+    kernel on a 1-row graph with one pad slot."""
+    import torch
+
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+
+    lib = library().get()
+    heat = torch.zeros((1, 1), device=DEVICE)
+    cols = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+    vals = torch.zeros((1, 1), device=DEVICE)
+    nout = torch.empty_like(heat)
+    return cuda_ms(lambda: lib.dhd_count_batch(
+        heat.data_ptr(), cols.data_ptr(), vals.data_ptr(), nout.data_ptr(), 1, 1, 1, 0,
+        stream_ptr(heat.device)))
 
 
 def request_stream(store, n: int, seed: int):
@@ -224,6 +321,7 @@ class DHDRecorder:
         self.phase = "build"
         self.calls: dict = {}
         self.kept: dict = {}
+        self.by_shape: dict = {}  # (phase, [B,] n, kmax, per-field vals) -> calls
 
     def key(self, heat, cols, vals) -> tuple:
         return (self.phase, int(heat.shape[0]), vals.dim() == 3)
@@ -234,6 +332,8 @@ class DHDRecorder:
     def __call__(self, heat, cols, vals, q, alpha=0.5, gamma=0.1, beta=0.3):
         key = self.key(heat, cols, vals)
         n = self.calls[key] = self.calls.get(key, 0) + 1
+        shape = (self.phase, *heat.shape, int(cols.shape[1]), vals.dim() == 3)
+        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
         if n <= self.KEEP_AT:
             self.kept[key] = (*self.keep(heat, cols, vals, q), (alpha, gamma, beta))
         return self.step(heat, cols, vals, q, alpha=alpha, gamma=gamma, beta=beta)
@@ -344,6 +444,9 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
     total = counts()
     print(f"maintain: evicted {m['evicted']} replicas in {maintain_s:.3f} s", flush=True)
     print(f"launches on the main path: {total} (per phase: {launches})", flush=True)
+    by_shape = {", ".join(map(str, k)): v for k, v in sorted(rec.by_shape.items())}
+    print(f"batched DHD steps (one count + one flow launch each) by phase, B, n, kmax, "
+          f"per-field vals: {by_shape}", flush=True)
     for name in MAIN_KERNELS:
         if total[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -351,6 +454,7 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
         "n_items": int(store.g.n_items), "n_layers": int(store.lg.n_layers),
         "build_s": build_s, "serve": serve, "maintain_s": maintain_s,
         "evicted": int(m["evicted"]), "launches": total, "launches_by_phase": launches,
+        "dhd_steps_by_shape": by_shape,
     }
     return store, inputs, built_delta, total
 
@@ -493,27 +597,26 @@ def check_route_expand(name, prob, timed: bool) -> dict:
                   + R * K * 4 + R * (D + L + 1 + 3) * 4)
         lib = library().get()
         ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in got]
-        stream = stream_ptr(args[0].device)
 
         # the C entry point straight, into the outputs above: the kernel's
         # own time, without the wrapper's checks and allocations
         def launch():
-            lib.route_expand_launch(*ptrs, R, K, D, L, BLOCK_R, stream)
+            lib.route_expand_launch(*ptrs, R, K, D, L, BLOCK_R, stream_ptr(args[0].device))
 
         out.update(
-            shape=[R, K, D, L], items=int(lens.sum()),
-            ms=cuda_ms(launch),
-            wrapper_ms=cuda_ms(lambda: route_expand(*args)),
-            plain_ms=cuda_ms(lambda: route_expand_ref(*args), warmup=1, iters=5),
+            shape=[R, K, D, L], items=int(lens.sum()), **kernel_ms(launch),
+            wrapper_ms=host_loop_ms(lambda: route_expand(*args)),
+            plain_ms=host_loop_ms(lambda: route_expand_ref(*args), warmup=1, iters=5),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         )
     return out
 
 
-def check_dhd(name, heat, cols, vals, q, params) -> dict:
+def check_dhd(name, heat, cols, vals, q, params, timed: bool = True) -> dict:
     """Count and flow kernels vs their plain versions on the card, one
     step from the same input at a time over 4 chained steps; ``params`` is
-    the step's ``(alpha, gamma, beta)``."""
+    the step's ``(alpha, gamma, beta)``.  Counts must be equal, flows
+    within ``DHD_TOL``."""
     import torch
 
     from repro_torch.kernels.cuda_lib import library, stream_ptr
@@ -530,20 +633,20 @@ def check_dhd(name, heat, cols, vals, q, params) -> dict:
     per_field = int(vals.dim() == 3)
     alpha, gamma, beta = (float(x) for x in params)
     p = dict(alpha=alpha, gamma=gamma, beta=beta)
-    stream = stream_ptr(heat.device)
     nout = torch.empty_like(heat)
     out = torch.empty_like(heat)
 
     # the two C entry points straight, so each kernel is checked and timed
-    # on its own (these launches are outside the main path's counts)
+    # on its own (these launches are outside the main path's counts); the
+    # stream is read at launch, so a graph capture takes the launches
     def count(h):
         lib.dhd_count_batch(h.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                            nout.data_ptr(), B, n, kmax, per_field, stream)
+                            nout.data_ptr(), B, n, kmax, per_field, stream_ptr(h.device))
 
     def flow(h):
         lib.dhd_flow_batch(h.data_ptr(), nout.data_ptr(), cols.data_ptr(),
                            vals.data_ptr(), q.data_ptr(), out.data_ptr(), B, n, kmax,
-                           per_field, alpha, 1.0 - gamma, beta, stream)
+                           per_field, alpha, 1.0 - gamma, beta, stream_ptr(h.device))
 
     err_count = err_flow = 0.0
     for _ in range(4):
@@ -566,34 +669,115 @@ def check_dhd(name, heat, cols, vals, q, params) -> dict:
         err_count = max(err_count, float((nout - want_n).abs().max()))
         err_flow = max(err_flow, float((out - want).abs().max()))
         heat = want  # next step from the plain version's field
+    row = {"case": name, "shape": [B, n, kmax], "per_field_vals": bool(per_field),
+           "count": {"max_abs_err": err_count}, "flow": {"max_abs_err": err_flow}}
+    if not timed:
+        return row
     count(heat)
     vbytes = vals.numel() * 4
     cbytes = cols.numel() * 4
     field = B * n * 4
     count_bytes = field + cbytes + vbytes + field
     flow_bytes = 3 * field + cbytes + vbytes + field
-    # what the flow pass gathers: h[b, c] of every live slot and field,
-    # nout[b, c] where heat flows in; how far a live slot's column lies
-    # from its row
+    # what the passes gather: h[b, c] of every live slot and field (both
+    # passes), nout[b, c] where heat flows in (the flow pass); how far a
+    # live slot's column lies from its row
     live = (vals > 0).expand(B, n, kmax)
     inflow = live & (heat[:, cols.long()] > heat[:, :, None])
     rows = torch.arange(n, device=cols.device)[:, None]
     dist = (cols.long() - rows).abs()[(vals[0] if per_field else vals) > 0]
-    return {
-        "case": name, "shape": [B, n, kmax], "per_field_vals": bool(per_field),
+    row.update({
+        "count_gathers": int(live.sum()),
         "flow_gathers": int(live.sum()) + int(inflow.sum()),
         "median_col_distance": float(dist.float().median()) if dist.numel() else 0.0,
-        "count": {
-            "max_abs_err": err_count, "ms": cuda_ms(lambda: count(heat)),
-            "plain_ms": cuda_ms(lambda: dhd_ell_count_ref(heat, cols, vals)),
-            "bytes": count_bytes, "bound_ms": count_bytes / HBM_BYTES_PER_S * 1e3,
-        },
-        "flow": {
-            "max_abs_err": err_flow, "ms": cuda_ms(lambda: flow(heat)),
-            "plain_ms": cuda_ms(lambda: dhd_ell_flow_ref(heat, nout, cols, vals, q, **p)),
-            "bytes": flow_bytes, "bound_ms": flow_bytes / HBM_BYTES_PER_S * 1e3,
-        },
-    }
+    })
+    row["count"].update(
+        **kernel_ms(lambda: count(heat)),
+        plain_ms=host_loop_ms(lambda: dhd_ell_count_ref(heat, cols, vals)),
+        bytes=count_bytes, bound_ms=count_bytes / HBM_BYTES_PER_S * 1e3)
+    row["flow"].update(
+        **kernel_ms(lambda: flow(heat)),
+        plain_ms=host_loop_ms(lambda: dhd_ell_flow_ref(heat, nout, cols, vals, q, **p)),
+        bytes=flow_bytes, bound_ms=flow_bytes / HBM_BYTES_PER_S * 1e3)
+    return row
+
+
+def tie_problem(gen, B: int, n: int, kmax: int, per_field: bool, single: bool = False):
+    """Seeded DHD inputs on the card where the new designs branch: heat on
+    4 levels (h_u == h_c is frequent, so both strict masks are exercised),
+    about 45% pad slots (weight 0, column = the row), every 17th row pad
+    slots only, per-field vals with their own zero patterns."""
+    import torch
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+
+    rows = torch.arange(n, device=DEVICE, dtype=torch.int32)[:, None]
+    cols = torch.randint(0, n, (n, kmax), generator=gen, device=DEVICE, dtype=torch.int32)
+    pad = rand(n, kmax) < 0.45
+    pad[::17] = True
+    cols = torch.where(pad, rows, cols)
+    shape = (B, n, kmax) if per_field else (n, kmax)
+    vals = (rand(*shape) + 0.05) * ~pad
+    if per_field:
+        vals *= rand(*shape) < 0.8  # edges switched off per field
+    heat = torch.floor(rand(B, n) * 4) / 4
+    q = rand(B, n) * 0.1
+    if single:
+        return heat[0].contiguous(), cols, vals, q[0].contiguous()
+    return heat, cols, vals, q
+
+
+# the new designs' branches: B with FB 1 and 5 and none up to 5 (7), per-field
+# vals in groups of 3 (6 fields); kmax 71 (3 sweeps of a warp), 80, 150 (past
+# one sweep), 37 (not a multiple of 4); a prime n, which no block size
+# divides, and rows fewer than the SMs
+DHD_SWEEP = (
+    # B, n, kmax, per-field vals
+    (1, 10_007, 71, False),
+    (5, 10_007, 80, False),
+    (7, 10_007, 150, False),
+    (6, 10_007, 37, True),
+    (5, 10_007, 71, True),
+    (1, 10_007, 150, True),
+    (5, 3, 37, False),
+)
+# the single-field flow pass's instances: 8, 16 and 32 lanes a row, 16-byte
+# loads (kmax % 4 == 0, aligned) or scalar ones, one sweep or two (kmax 400)
+DHD_SINGLE_SWEEP = (
+    # n, kmax, base 16-byte aligned
+    (10_007, 80, True),
+    (10_007, 80, False),
+    (10_007, 71, True),
+    (10_007, 150, True),
+    (10_007, 37, True),
+    (10_007, 32, True),
+    (10_007, 400, True),
+    (3, 80, True),
+)
+
+
+def ptxas_of(report: dict, prefix: str) -> str:
+    return "; ".join(f"{k}: {v.get('registers')} registers, spill bytes {v.get('spill_bytes')}"
+                     for k, v in sorted(report["ptxas"].items()) if k.startswith(prefix))
+
+
+def dhd_sweep(report: dict) -> None:
+    """Phase 4's sweep: the batched count and flow kernels against their
+    plain versions on every ``DHD_SWEEP`` case (tie-heavy heat, pad rows)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rows = []
+    for B, n, kmax, per_field in DHD_SWEEP:
+        name = f"sweep: {B} fields, n {n}, kmax {kmax}, {'per-field' if per_field else 'shared'} vals"
+        rows.append(check_dhd(name, *tie_problem(gen, B, n, kmax, per_field),
+                              (0.5, 0.1, 0.3), timed=False))
+    report["dhd_sweep"] = rows
+    print(f"dhd sweep: {len(rows)} cases (B 1/5/7/6, kmax 71/80/150/37, n 10,007 and 3, "
+          f"tie-heavy heat, pad rows): counts equal, flows within atol 1e-5 / rtol 1e-4, "
+          f"max abs err {max(r['flow']['max_abs_err'] for r in rows):.3g}", flush=True)
+    print(f"  ptxas: {ptxas_of(report, 'dhd_count_kernel')}", flush=True)
 
 
 def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
@@ -610,9 +794,9 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
         routes.append(check_route_expand(f"store batch {bs}", prob, timed=True))
         r = routes[-1]
         print(f"route_expand {r['case']} {r['shape']}: exact, max abs err "
-              f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms (through the "
-              f"wrapper {r['wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms", flush=True)
+              f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms (host loop "
+              f"{r['host_loop_ms']:.4f}, through the wrapper {r['wrapper_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms", flush=True)
     for i, case in enumerate(SWEEP):
         rng = np.random.default_rng(1000 + i)
         prob = rand_route_problem(rng, *case[:6], all_ties=case[6],
@@ -633,12 +817,14 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
                 f"{'per-field' if per_field else 'shared'} vals")
         d = check_dhd(name, heat, cols, vals, q, params)
         dhds.append(d)
-        print(f"dhd {name} {d['shape']}: count kernel {d['count']['ms']:.4f} ms "
-              f"(plain {d['count']['plain_ms']:.4f}, bound {d['count']['bound_ms']:.5f}), "
-              f"flow kernel {d['flow']['ms']:.4f} ms (plain {d['flow']['plain_ms']:.4f}, "
-              f"bound {d['flow']['bound_ms']:.5f}), max abs err "
-              f"{d['flow']['max_abs_err']:.3g}; flow gathers {d['flow_gathers']}, median "
-              f"|col - row| {d['median_col_distance']:.0f}", flush=True)
+        c, f = d["count"], d["flow"]
+        print(f"dhd {name} {d['shape']}: count kernel {c['ms']:.4f} ms (host loop "
+              f"{c['host_loop_ms']:.4f}, plain {c['plain_ms']:.4f}, bound {c['bound_ms']:.5f}), "
+              f"flow kernel {f['ms']:.4f} ms (host loop {f['host_loop_ms']:.4f}, plain "
+              f"{f['plain_ms']:.4f}, bound {f['bound_ms']:.5f}), max abs err "
+              f"{f['max_abs_err']:.3g}; gathers count {d['count_gathers']}, flow "
+              f"{d['flow_gathers']}, median |col - row| {d['median_col_distance']:.0f}",
+              flush=True)
     # shapes the lane's recorded steps do not have: B with no divisor up to
     # 5 (one field a block), per-field vals in groups of 3, kmax past 96
     # (the flow kernel's slot loop)
@@ -653,8 +839,10 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
                 f"kmax {kmax}")
         d = check_dhd(name, heat, cols, vals, q, (0.5, 0.1, 0.3))
         dhds.append(d)
-        print(f"dhd {name} {d['shape']}: count and flow within atol 1e-5 / rtol 1e-4, flow "
-              f"kernel {d['flow']['ms']:.4f} ms", flush=True)
+        print(f"dhd {name} {d['shape']}: count and flow within atol 1e-5 / rtol 1e-4, count "
+              f"kernel {d['count']['ms']:.4f} ms, flow kernel {d['flow']['ms']:.4f} ms",
+              flush=True)
+    dhd_sweep(report)
     report["route_expand_checks"] = routes
     report["dhd_checks"] = dhds
     return {"route": routes[len(BATCHES) - 1], "dhd": dhds[0]}
@@ -812,6 +1000,17 @@ def _drive_streaming(store, report: dict, rec: SweepRecorder) -> dict:
           f"items): identical to the numpy router, median {med * 1e3:.3f} ms, "
           f"{BATCHES[-1] / med:.1f} routed requests/s", flush=True)
     print(f"launches on the streaming path: {total}", flush=True)
+    by_shape = {", ".join(map(str, k)): v for k, v in sorted(rec.by_shape.items())}
+    out["dhd_steps_by_shape"] = by_shape
+    print(f"single-field DHD steps (one count + one flow launch each) by phase, n, kmax: "
+          f"{by_shape}", flush=True)
+    differ = [i for i, b in enumerate(out["batches"]) if b["warm"] != b["mirror_warm"]]
+    out["warm_stats_differing"] = differ
+    print(f"warm-DHD stats (frontier, halo, local and global iterations) differ from the "
+          f"mirror's in {len(differ)} of {len(out['batches'])} batches"
+          + (": " + "; ".join(f"batch {i + 1}: {out['batches'][i]['warm']} vs mirror "
+                              f"{out['batches'][i]['mirror_warm']}" for i in differ)
+             if differ else ""), flush=True)
     for name in SINGLE_KERNELS:
         if total[name] <= 0:
             fail(f"kernel {name} was not launched on the streaming path")
@@ -819,7 +1018,7 @@ def _drive_streaming(store, report: dict, rec: SweepRecorder) -> dict:
     return total
 
 
-def check_dhd_single(name, heat, cols, vals, q, params) -> dict:
+def check_dhd_single(name, heat, cols, vals, q, params, timed: bool = True) -> dict:
     """The single-field count and flow kernels vs their plain versions on
     the card, over 4 chained steps from a recorded sweep input."""
     import torch
@@ -832,18 +1031,17 @@ def check_dhd_single(name, heat, cols, vals, q, params) -> dict:
     n, kmax = cols.shape
     alpha, gamma, beta = (float(x) for x in params)
     p = dict(alpha=alpha, gamma=gamma, beta=beta)
-    stream = stream_ptr(heat.device)
     nout = torch.empty_like(heat)
     out = torch.empty_like(heat)
 
     def count(h):
         lib.dhd_count_single(h.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                             nout.data_ptr(), n, kmax, stream)
+                             nout.data_ptr(), n, kmax, stream_ptr(h.device))
 
     def flow(h):
         lib.dhd_flow_single(h.data_ptr(), nout.data_ptr(), cols.data_ptr(),
                             vals.data_ptr(), q.data_ptr(), out.data_ptr(), n, kmax,
-                            alpha, 1.0 - gamma, beta, stream)
+                            alpha, 1.0 - gamma, beta, stream_ptr(h.device))
 
     def count_ref(h):
         return dhd_ell_count_ref(h[None], cols, vals)[0]
@@ -870,23 +1068,48 @@ def check_dhd_single(name, heat, cols, vals, q, params) -> dict:
         err_count = max(err_count, float((nout - want_n).abs().max()))
         err_flow = max(err_flow, float((out - want).abs().max()))
         heat = want
+    row = {"case": name, "shape": [n, kmax], "count": {"max_abs_err": err_count},
+           "flow": {"max_abs_err": err_flow}}
+    if not timed:
+        return row
     count(heat)
     ell = cols.numel() * 4 + vals.numel() * 4
     count_bytes = ell + 2 * n * 4  # heat in, |N_out| out
     flow_bytes = ell + 4 * n * 4  # heat, |N_out|, q in, heat out
-    return {
-        "case": name, "shape": [n, kmax],
-        "count": {
-            "max_abs_err": err_count, "ms": cuda_ms(lambda: count(heat)),
-            "plain_ms": cuda_ms(lambda: count_ref(heat)),
-            "bytes": count_bytes, "bound_ms": count_bytes / HBM_BYTES_PER_S * 1e3,
-        },
-        "flow": {
-            "max_abs_err": err_flow, "ms": cuda_ms(lambda: flow(heat)),
-            "plain_ms": cuda_ms(lambda: flow_ref(heat, nout)),
-            "bytes": flow_bytes, "bound_ms": flow_bytes / HBM_BYTES_PER_S * 1e3,
-        },
-    }
+    live = vals > 0
+    inflow = live & (heat[cols.long()] > heat[:, None])
+    row.update(count_gathers=int(live.sum()), flow_gathers=int(live.sum()) + int(inflow.sum()))
+    row["count"].update(
+        **kernel_ms(lambda: count(heat)), plain_ms=host_loop_ms(lambda: count_ref(heat)),
+        bytes=count_bytes, bound_ms=count_bytes / HBM_BYTES_PER_S * 1e3)
+    row["flow"].update(
+        **kernel_ms(lambda: flow(heat)), plain_ms=host_loop_ms(lambda: flow_ref(heat, nout)),
+        bytes=flow_bytes, bound_ms=flow_bytes / HBM_BYTES_PER_S * 1e3)
+    return row
+
+
+def dhd_single_sweep(report: dict) -> None:
+    """Phase 6's sweep: the single-field kernels against their plain
+    versions on every ``DHD_SINGLE_SWEEP`` case (tie-heavy heat, pad rows;
+    a base that is not 16-byte aligned takes the scalar loads)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    rows = []
+    for n, kmax, aligned in DHD_SINGLE_SWEEP:
+        heat, cols, vals, q = tie_problem(gen, 1, n, kmax, False, single=True)
+        if not aligned:  # the same values one element past an aligned base
+            cols = torch.empty(n * kmax + 1, dtype=cols.dtype, device=DEVICE)[1:].view(
+                n, kmax).copy_(cols)
+            vals = torch.empty(n * kmax + 1, device=DEVICE)[1:].view(n, kmax).copy_(vals)
+        name = f"sweep: n {n}, kmax {kmax}{'' if aligned else ', base not 16-byte aligned'}"
+        rows.append(check_dhd_single(name, heat, cols, vals, q, (0.5, 0.1, 0.3), timed=False))
+    report["dhd_single_sweep"] = rows
+    print(f"dhd single sweep: {len(rows)} cases (kmax 80/71/150/37/32/400, n 10,007 and 3, "
+          f"a misaligned base, tie-heavy heat, pad rows): counts equal, flows within atol "
+          f"1e-5 / rtol 1e-4, max abs err {max(r['flow']['max_abs_err'] for r in rows):.3g}",
+          flush=True)
+    print(f"  ptxas: {ptxas_of(report, 'dhd_flow_single_kernel')}", flush=True)
 
 
 def streaming_kernel_checks(rec: SweepRecorder, report: dict) -> dict:
@@ -908,12 +1131,15 @@ def streaming_kernel_checks(rec: SweepRecorder, report: dict) -> dict:
             rows["global"] = d
         if key == pre[0]:
             rows["presolve"] = d
-        print(f"dhd single {name} {d['shape']}: count kernel {d['count']['ms']:.4f} ms "
-              f"(plain {d['count']['plain_ms']:.4f}, bound {d['count']['bound_ms']:.5f}), "
-              f"flow kernel {d['flow']['ms']:.4f} ms (plain {d['flow']['plain_ms']:.4f}, "
-              f"bound {d['flow']['bound_ms']:.5f}), max abs err "
-              f"{d['flow']['max_abs_err']:.3g}", flush=True)
+        c, f = d["count"], d["flow"]
+        print(f"dhd single {name} {d['shape']}: count kernel {c['ms']:.4f} ms (host loop "
+              f"{c['host_loop_ms']:.4f}, plain {c['plain_ms']:.4f}, bound {c['bound_ms']:.5f}), "
+              f"flow kernel {f['ms']:.4f} ms (host loop {f['host_loop_ms']:.4f}, plain "
+              f"{f['plain_ms']:.4f}, bound {f['bound_ms']:.5f}), max abs err "
+              f"{f['max_abs_err']:.3g}; gathers count {d['count_gathers']}, flow "
+              f"{d['flow_gathers']}", flush=True)
     report["dhd_single_checks"] = checks
+    dhd_single_sweep(report)
     return rows
 
 
@@ -1220,10 +1446,13 @@ def _sdpa(q, k, v, causal: bool):
 def attention_kernel_checks(lm: dict, report: dict) -> dict:
     """Phase 10: the flash kernel against its plain version on the card on
     layer 0's q, k, v of the longest and the shortest prompt, in bf16
-    (2e-2) and cast to f32 (2e-5); times of the kernel (its C entry point,
-    CUDA events), the plain version and SDPA beside the bound.  Returns
-    the kernel table row (longest prompt, bf16)."""
+    (2e-2) and cast to f32 (2e-5).  On layer 0's inputs of every prompt
+    length, the kernel (its C entry point) and SDPA graph-replayed in
+    turns beside the bound; the plain version and the host-loop figures at
+    the longest and the shortest.  Returns the kernel table row (longest
+    prompt, bf16)."""
     import torch
+    from torch.nn.attention import SDPBackend
 
     from repro_torch.kernels.cuda_lib import library, stream_ptr
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1233,9 +1462,29 @@ def attention_kernel_checks(lm: dict, report: dict) -> dict:
     if len(kept) != LM_REQUESTS:
         fail(f"recorded layer-0 attention inputs of {len(kept)} prefills, want {LM_REQUESTS}")
     lib = library().get()
-    checks, err_bf16 = [], 0.0
-    for S in (max(kept), min(kept)):
+    checks, by_length, err_bf16 = [], [], 0.0
+    for S in sorted(kept, reverse=True):
         q, k, v, causal, window = kept[S]
+        out = torch.empty((q.shape[0], q.shape[1], S, v.shape[3]), dtype=q.dtype,
+                          device=q.device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
+                q.shape[1], k.shape[1], S, k.shape[2], q.shape[3], v.shape[3],
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                float(q.shape[3] ** -0.5), int(causal), int(window is not None),
+                int(window or 0), 1)
+
+        def launch():
+            lib.flash_attention_fwd(*args, stream_ptr(q.device))
+
+        def sdpa():
+            _sdpa(q, k, v, causal)
+
+        bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, causal, window)
+        # each a graph of 20 calls, replayed in turns: medians of 9 replays
+        ms, sdpa_ms = cuda_ms_in_turns([launch, sdpa], reps=9)
+        by_length.append({"tokens": S, "ms": ms, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms})
+        if S not in (max(kept), min(kept)):
+            continue
         row = {"tokens": S, "shape": {"q": list(q.shape), "k": list(k.shape),
                                       "v": list(v.shape)}}
         for name, cast in (("bfloat16", lambda x: x), ("float32", lambda x: x.float())):
@@ -1250,42 +1499,36 @@ def attention_kernel_checks(lm: dict, report: dict) -> dict:
                      f"outside {tol}")
             row[f"max_abs_err_{name}"] = err
         err_bf16 = max(err_bf16, row["max_abs_err_bfloat16"])
-
-        out = torch.empty((q.shape[0], q.shape[1], S, v.shape[3]), dtype=q.dtype,
-                          device=q.device)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
-                q.shape[1], k.shape[1], S, k.shape[2], q.shape[3], v.shape[3],
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                float(q.shape[3] ** -0.5), int(causal), int(window is not None),
-                int(window or 0), 1, stream_ptr(q.device))
-
-        def launch():
-            lib.flash_attention_fwd(*args)
-
-        bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, causal, window)
-        _, _, sdpa_kinds, _ = profiled(lambda: _sdpa(q, k, v, causal))
+        backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
         row.update(
-            ms=cuda_ms(launch), plain_ms=cuda_ms(lambda: attention_ref(q, k, v, causal=causal)),
-            sdpa_ms=cuda_ms(lambda: _sdpa(q, k, v, causal)),
-            sdpa_kernels=sorted(sdpa_kinds), flops=flops, bytes=nbytes,
-            bound_ms=bound_ms, bound_by=bound_by,
+            ms=ms, host_loop_ms=host_loop_ms(launch),
+            plain_ms=host_loop_ms(lambda: attention_ref(q, k, v, causal=causal)),
+            sdpa_ms=sdpa_ms, sdpa_host_loop_ms=host_loop_ms(sdpa), sdpa_backend=backend,
+            flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
         )
         checks.append(row)
         print(f"flash_attention layer 0 at {S} tokens q {tuple(q.shape)} v {tuple(v.shape)} "
               f"bf16: max abs err {row['max_abs_err_bfloat16']:.3g} (f32 "
-              f"{row['max_abs_err_float32']:.3g}); kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, SDPA {row['sdpa_ms']:.4f} ms "
-              f"({', '.join(k.strip()[:50] for k in row['sdpa_kernels'])}); bound "
+              f"{row['max_abs_err_float32']:.3g}); kernel {ms:.4f} ms, SDPA ({backend}) "
+              f"{sdpa_ms:.4f} ms in turns (host loop: kernel {row['host_loop_ms']:.4f}, SDPA "
+              f"{row['sdpa_host_loop_ms']:.4f}), plain {row['plain_ms']:.4f} ms; bound "
               f"{bound_ms:.5f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB)", flush=True)
+    # launches x (time - bound) at every prefill's own shape
+    print("flash_attention by prompt length, graph-replayed in turns with SDPA (tokens: "
+          "kernel / SDPA / bound ms): " + ", ".join(
+              f"{r['tokens']}: {r['ms']:.4f} / {r['sdpa_ms']:.4f} / {r['bound_ms']:.5f}"
+              for r in by_length[::-1]), flush=True)
     report["flash_attention_checks"] = checks
+    report["flash_attention_by_length"] = by_length
     top = checks[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:29",
             "launches": lm["launches"]["flash_attention"], "max_abs_err": err_bf16,
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": top["sdpa_ms"]}
+            "ms": top["ms"], "host_loop_ms": top["host_loop_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["sdpa_ms"]}
 
 
 def attention_sweep(report: dict) -> None:
@@ -1394,14 +1637,14 @@ def bag_phase(report: dict) -> dict:
         nbytes = uniq * BAG_D * 4 + ids.numel() * 8 + B * BAG_D * 4
         out = torch.empty_like(got)
         args = (table.data_ptr(), ids.data_ptr(), w.data_ptr(), out.data_ptr(), B, BAG_L,
-                BAG_V, BAG_D, int(mode == "mean"), 0, stream_ptr(table.device))
+                BAG_V, BAG_D, int(mode == "mean"), 0)
 
         def launch():
-            lib.embedding_bag_fwd(*args)
+            lib.embedding_bag_fwd(*args, stream_ptr(table.device))
 
         row = {"B": B, "mode": mode, "max_abs_err": err, "unique_rows": uniq, "bytes": nbytes,
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ms": cuda_ms(launch),
-               "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, ids, w, mode=mode))}
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, **kernel_ms(launch),
+               "plain_ms": host_loop_ms(lambda: embedding_bag_ref(table, ids, w, mode=mode))}
         if mode == "sum":
             ids64 = ids.long()
             row["library_ms"] = cuda_ms(lambda: F.embedding_bag(
@@ -1410,7 +1653,8 @@ def bag_phase(report: dict) -> dict:
             row["library_max_abs_diff"] = float((lib_out - got).abs().max())
         rows.append(row)
         print(f"embedding_bag B={B} L={BAG_L} {mode}: max abs err {err:.3g}; {uniq} distinct "
-              f"rows; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+              f"rows; kernel {row['ms']:.4f} ms (host loop {row['host_loop_ms']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ms"
               + (f", F.embedding_bag {row['library_ms']:.4f} ms" if mode == "sum" else "")
               + f"; bound {row['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB)", flush=True)
     print(f"launches through bag_lookup: {launches}", flush=True)
@@ -1420,8 +1664,8 @@ def bag_phase(report: dict) -> dict:
             "source": "src/repro_torch/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:27",
             "launches": launches["embedding_bag"], "max_abs_err": err_max,
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": "bytes", "library_ms": top["library_ms"]}
+            "ms": top["ms"], "host_loop_ms": top["host_loop_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": top["library_ms"]}
 
 
 def store_phases(report: dict) -> list:
@@ -1434,33 +1678,26 @@ def store_phases(report: dict) -> list:
     single = streaming_kernel_checks(sweep_rec, report)["global"]
     cpu_build_diff(inputs, built_delta, report)
 
+    def row(name, line, launched, t):
+        return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/dhd_spmv.cu",
+                "replaces": f"src/repro/kernels/dhd_spmv.py:{line}", "launches": launched,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "host_loop_ms": t["host_loop_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None}
+
     route, dhd = rows["route"], rows["dhd"]
     return [
-        {"name": "dhd_count", "route": "cuda", "source": "src/repro_torch/csrc/dhd_spmv.cu",
-         "replaces": "src/repro/kernels/dhd_spmv.py:159", "launches": launches["dhd_count"],
-         "max_abs_err": dhd["count"]["max_abs_err"], "ms": dhd["count"]["ms"],
-         "plain_ms": dhd["count"]["plain_ms"], "bound_ms": dhd["count"]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "dhd_flow", "route": "cuda", "source": "src/repro_torch/csrc/dhd_spmv.cu",
-         "replaces": "src/repro/kernels/dhd_spmv.py:173", "launches": launches["dhd_flow"],
-         "max_abs_err": dhd["flow"]["max_abs_err"], "ms": dhd["flow"]["ms"],
-         "plain_ms": dhd["flow"]["plain_ms"], "bound_ms": dhd["flow"]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+        row("dhd_count", 159, launches["dhd_count"], dhd["count"]),
+        row("dhd_flow", 173, launches["dhd_flow"], dhd["flow"]),
         {"name": "route_expand", "route": "cuda",
          "source": "src/repro_torch/csrc/route_expand.cu",
          "replaces": "src/repro/kernels/route_expand.py:48",
          "launches": launches["route_expand"], "max_abs_err": route["max_abs_err"],
-         "ms": route["ms"], "plain_ms": route["plain_ms"], "bound_ms": route["bound_ms"],
+         "ms": route["ms"], "host_loop_ms": route["host_loop_ms"],
+         "plain_ms": route["plain_ms"], "bound_ms": route["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
-    ] + [
-        {"name": f"dhd_{part}_single", "route": "cuda",
-         "source": "src/repro_torch/csrc/dhd_spmv.cu",
-         "replaces": f"src/repro/kernels/dhd_spmv.py:{line}",
-         "launches": stream_launches[f"dhd_{part}_single"],
-         "max_abs_err": single[part]["max_abs_err"], "ms": single[part]["ms"],
-         "plain_ms": single[part]["plain_ms"], "bound_ms": single[part]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}
-        for part, line in (("count", 70), ("flow", 82))
+        row("dhd_count_single", 70, stream_launches["dhd_count_single"], single["count"]),
+        row("dhd_flow_single", 82, stream_launches["dhd_flow_single"], single["flow"]),
     ]
 
 
@@ -1545,8 +1782,13 @@ def main() -> None:
     for fn, info in ptxas.items():
         print(f"  ptxas: {fn}: {info}", flush=True)
 
+    floor_ms = launch_floor_ms()
+    clocks = gpu_query("clocks.sm,clocks.max.sm")
+    print(f"launch floor (graph-replayed launch of no work): {floor_ms:.5f} ms; SM clock, "
+          f"max SM clock: {clocks}", flush=True)
     report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                    "build_s": lib.build_s, "ptxas": ptxas}
+                    "build_s": lib.build_s, "ptxas": ptxas, "launch_floor_ms": floor_ms,
+                    "sm_clocks": clocks}
     table = store_phases(report)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1559,6 +1801,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     table.append(bag_phase(report))
 
+    for r in table:
+        r["launch_floor_ms"] = floor_ms
     report["kernels"] = table
     report["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

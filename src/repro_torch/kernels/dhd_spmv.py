@@ -2,28 +2,28 @@
 
 :func:`dhd_ell_step_batch` replaces ``_count_kernel_batch`` and
 ``_flow_kernel_batch`` of the JAX package's ``kernels/dhd_spmv.py`` (Pallas,
-TPU): B heat fields over one column structure.  The count pass gives one
-warp to each (field, row).  The flow pass gives each SM one block over a
-contiguous range of rows, and each warp one row for up to 5 fields at once:
-it loads the row's ``cols`` (and shared ``vals``) once, keeps the fields'
-neighbour gathers in flight together, and finds most of them in its SM's
-L1 (the first design, a warp per (field, row), ran at 13x its bound on
-chains of dependent loads).
+TPU): B heat fields over one column structure.  Both passes give each SM one
+block over a contiguous range of rows, and each warp one row for up to 5
+fields at once: the row's ``cols`` (and shared ``vals``) load once, the
+fields' neighbour gathers are in flight together, and most of them hit the
+SM's L1 (the first designs, a warp per (field, row), ran at 8x and 13x
+their bounds on chains of dependent loads).
 :func:`dhd_ell_step` replaces ``_count_kernel`` and ``_flow_kernel`` of the
-same file (``dhd_spmv.py:70``, ``:82``): one heat field, half a warp per row
-(the warm-DHD ELL has 80 slots a row on the serving lane).  The kernels live
-in ``csrc/dhd_spmv.cu``; a step is two launches because the flow pass reads
-the neighbours' ``|N^out|``.
+same file (``dhd_spmv.py:70``, ``:82``): one heat field.  The count pass
+gives half a warp to a row; the flow pass a team of 8, 16 or 32 lanes (from
+``kmax``; 8 for the warm-DHD ELL's 80 slots) over contiguous rows per SM,
+each lane loading its slots in 16-byte pieces before any gather.  The
+kernels live in ``csrc/dhd_spmv.cu``; a step is two launches because the
+flow pass reads the neighbours' ``|N^out|``.
 
-The step is bound by memory on an H100: each pass reads ``cols`` and
+By bytes the step is bound by HBM on an H100: each pass reads ``cols`` and
 ``vals`` once (``n * kmax * 8`` bytes with shared ``vals``, plus
-``B * n * kmax * 4`` per-field) at 3.35 TB/s, with a few flops per slot;
-lanes read consecutive slots of a row so the loads coalesce, and the heat
-gather hits L2.  At warm DHD's streaming shape (the lane graph's 26,112
-padded rows x 80 slots) a pass moves 16.7 MB of cols and vals plus 0.2 MB
-(count: heat in, ``|N^out|`` out) or 0.4 MB (flow: heat, ``|N^out|``, ``q``
-in, heat out): 34.1 MB a step, a bound of 10.2 us (27,136 x 80 after two
-churn batches at 0.01: 35.4 MB, 10.6 us).
+``B * n * kmax * 4`` per-field) at 3.35 TB/s.  In fact the neighbour
+gathers bound it: each reads a 32-byte sector for 4 bytes, about one a
+clock per SM, and with one field every SM also reads back most of the
+field from L2.  At warm DHD's streaming shape (27,136 rows x 80 slots
+after two churn batches at 0.01) a pass moves 17.6-17.8 MB: 35.4 MB a
+step, a bound of 10.6 us.
 
 For tensors on the CPU both wrappers take the plain versions
 (:func:`repro_torch.kernels.ref.dhd_ell_ref_batch`,
