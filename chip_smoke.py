@@ -18,8 +18,11 @@ Phases, each of which fails the run with a nonzero exit:
    request-identical to the numpy router, and every kernel of that path
    (batched DHD count + flow, route expansion) must have run.
 4. Kernels against their plain PyTorch versions on the card: route
-   expansion on the store's own batches (and the sweep cases plus a 31-DC
-   case), DHD on the inputs of the 8th step (or the last) of each kind the
+   expansion on the store's own batches and on ``SWEEP`` (31 DCs, all-tie
+   rows, rows with no items, and K at each instance's boundary: 32, 33, 64,
+   65, 128, 129, 256, 257 and past 1,024, where each warp stages its slots
+   in shared memory), with ``slots_instance`` printed for each timed case
+   and checked against the kernel's own choice; DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
    ``maintain``), recorded during phase 3, on two seeded shapes the lane
    lacks (7 fields, kmax 150; 6 fields with per-field vals), and on a
@@ -70,7 +73,11 @@ Phases, each of which fails the run with a nonzero exit:
     item table (2^22 x 32, f32) and Zipf ids, 20 a bag, at batches of 512
     and 262,144, weighted, in sum and mean, through
     ``models.recsys.embedding.bag_lookup``: within 1e-4 of the plain
-    version; timed beside the bound and ``F.embedding_bag``.
+    version; timed beside the bound and ``F.embedding_bag``, with the
+    instance that ran (``embedding_bag.instance``).  Then ``BAG_SWEEP``
+    within 1e-4: f32 and bf16, D 16-256 and 33 (one element a load), L 0-64,
+    a partial last block, no weights, zero weights in mean, a misaligned
+    table view.
 
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
@@ -517,10 +524,17 @@ def device_busy(store, report: dict) -> None:
 
 
 def rand_route_problem(rng, R, k_lo, k_hi, D, L, p_rep=0.35, all_ties=False,
-                       single_origin=False, empty_layers=False):
+                       single_origin=False, empty_layers=False, pin_max=False,
+                       empty_rows=False):
+    """A random packed batch; ``pin_max`` makes row 0 ``k_hi`` long (so K is
+    exactly ``k_hi``), ``empty_rows`` gives every third row no items."""
     import numpy as np
 
     lens = rng.integers(k_lo, k_hi + 1, R)
+    if pin_max:
+        lens[0] = k_hi
+    if empty_rows:
+        lens[1::3] = 0
     K = int(lens.max())
     bits = np.zeros((R, K), np.int32)
     sizes = np.zeros((R, K), np.float32)
@@ -550,8 +564,9 @@ def rand_route_problem(rng, R, k_lo, k_hi, D, L, p_rep=0.35, all_ties=False,
             comp.astype(np.int32), rtt, ibw)
 
 
+SWEEP_FLAGS = ("all_ties", "single_origin", "empty_layers", "pin_max", "empty_rows")
 SWEEP = [
-    # R, k_lo, k_hi, D, L, p_rep, all_ties, single_origin, empty_layers
+    # R, k_lo, k_hi, D, L, p_rep, then SWEEP_FLAGS (False where left out)
     (8, 1, 24, 5, 3, 0.35, False, False, False),
     (16, 2, 40, 4, 1, 0.5, False, False, False),
     (8, 1, 16, 8, 5, 0.2, False, False, False),
@@ -562,6 +577,22 @@ SWEEP = [
     (4, 496, 500, 5, 3, 0.35, False, False, False),
     (4, 596, 600, 5, 3, 0.35, False, False, False),
     (256, 1, 160, 31, 4, 0.1, False, False, False),  # 31 DCs: every mask bit
+    # the instances' boundaries (slots a lane 1 | 2 | 4 | 8 | shared memory)
+    (16, 1, 32, 5, 3, 0.35, False, False, False, True),
+    (16, 1, 33, 5, 3, 0.35, False, False, False, True),
+    (16, 1, 64, 5, 3, 0.35, False, False, False, True),
+    (16, 1, 65, 5, 3, 0.35, False, False, False, True),
+    (16, 1, 128, 6, 4, 0.3, False, False, False, True),
+    (16, 1, 129, 6, 4, 0.3, False, False, False, True),
+    (64, 1, 256, 5, 3, 0.35, False, False, False, True),
+    (64, 1, 257, 5, 3, 0.35, False, False, False, True),
+    (64, 200, 256, 31, 4, 0.1, False, False, False, True),
+    (64, 200, 257, 31, 4, 0.1, False, False, False, True),
+    (8, 1000, 1100, 5, 3, 0.35, False, False, False, True),  # past 1,024 slots
+    (8, 256, 256, 5, 3, 0.0, True, False, False, True),  # all ties at 8 slots a lane
+    # rows with no items, in a register and a shared-memory instance
+    (24, 1, 40, 5, 3, 0.35, False, False, False, True, True),
+    (24, 1, 300, 5, 3, 0.35, False, False, False, True, True),
 ]
 
 
@@ -585,17 +616,23 @@ def check_route_expand(name, prob, timed: bool) -> dict:
         if not torch.allclose(got[i], want[i], rtol=rtol, atol=atol):
             fail(f"route_expand {name}: output {i} outside rtol {rtol} / atol {atol}")
         err = max(err, float((got[i] - want[i]).abs().max()))
-    out = {"case": name, "max_abs_err": err}
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+    from repro_torch.kernels.route_expand import slots_instance
+
+    R, K = prob[0].shape
+    lib = library().get()
+    instance = slots_instance(K)
+    if lib.route_expand_slots(K) != instance:
+        fail(f"route_expand {name}: the kernel runs {lib.route_expand_slots(K)} slots a lane, "
+             f"slots_instance says {instance}")
+    out = {"case": name, "max_abs_err": err, "K": K, "slots_instance": instance}
     if timed:
-        from repro_torch.kernels.cuda_lib import library, stream_ptr
         from repro_torch.kernels.route_expand import BLOCK_R
 
         bits, sizes, lens, origin, comp, rtt, ibw = prob
-        R, K = bits.shape
         D, L = comp.shape[1], comp.shape[0] - 1
         nbytes = (int(lens.sum()) * 8 + R * 8 + comp.size * 4 + 2 * D * D * 4
                   + R * K * 4 + R * (D + L + 1 + 3) * 4)
-        lib = library().get()
         ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in got]
 
         # the C entry point straight, into the outputs above: the kernel's
@@ -793,16 +830,21 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
         prob = pack_request_tiles(store.lg, store.state, request_stream(store, bs, seed=bs))
         routes.append(check_route_expand(f"store batch {bs}", prob, timed=True))
         r = routes[-1]
-        print(f"route_expand {r['case']} {r['shape']}: exact, max abs err "
+        print(f"route_expand {r['case']} {r['shape']} (R, K, D, L; slots a lane "
+              f"{r['slots_instance']}): exact, max abs err "
               f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms (host loop "
               f"{r['host_loop_ms']:.4f}, through the wrapper {r['wrapper_ms']:.4f}), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms", flush=True)
     for i, case in enumerate(SWEEP):
         rng = np.random.default_rng(1000 + i)
-        prob = rand_route_problem(rng, *case[:6], all_ties=case[6],
-                                  single_origin=case[7], empty_layers=case[8])
+        prob = rand_route_problem(rng, *case[:6], **dict(zip(SWEEP_FLAGS, case[6:])))
         routes.append(check_route_expand(f"sweep {case}", prob, timed=False))
-    print(f"route_expand: {len(SWEEP)} sweep cases (31 DCs included) exact", flush=True)
+    sweep = routes[len(BATCHES):]
+    print(f"route_expand: {len(SWEEP)} sweep cases exact (31 DCs, K "
+          f"{sorted({r['K'] for r in sweep})}, slots a lane "
+          f"{sorted({r['slots_instance'] for r in sweep})} (0 = shared memory), rows with no "
+          f"items)", flush=True)
+    print(f"  ptxas: {ptxas_of(report, 'route_expand')}", flush=True)
 
     if not any(per_field for _, _, per_field in rec.kept):
         fail("the main path ran no DHD step with per-field vals (placement arena)")
@@ -1586,26 +1628,14 @@ def attention_sweep(report: dict) -> None:
     report["flash_attention_sweep"] = rows
 
 
-def bag_phase(report: dict) -> dict:
-    """Phase 11: BST's item table (2^22 x 32, f32, seeded on the card) and
-    Zipf(1.1) ids, 20 a bag, weighted, at the serving batches 512 and
-    262,144, in sum and mean, through ``models.recsys.embedding.bag_lookup``
-    with counts set to 0 just before and read just after: each result
-    within 1e-4 of the plain version.  Times of the kernel (C entry point),
-    the plain version and ``F.embedding_bag`` (sum mode) beside the bound.
-    Returns the kernel table row (262,144 bags, sum)."""
+def bag_inputs():
+    """Phase 11's inputs: BST's item table (2^22 x 32, f32, seeded on the
+    card) and, for each of ``BAG_BATCHES``, ``(B, ids, weights)`` with
+    Zipf(1.1) ids, ``BAG_L`` a bag."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.cuda_lib import (
-        launch_counters,
-        library,
-        reset_launch_counters,
-        stream_ptr,
-    )
-    from repro_torch.kernels.ref import embedding_bag_ref
-    from repro_torch.models.recsys.embedding import bag_lookup, table_init
+    from repro_torch.models.recsys.embedding import table_init
 
     table = table_init(torch.Generator(device=DEVICE).manual_seed(2), BAG_V, BAG_D,
                        device=DEVICE)
@@ -1616,6 +1646,31 @@ def bag_phase(report: dict) -> dict:
                               device=DEVICE)
         w = torch.as_tensor(rng.random((B, BAG_L)).astype(np.float32), device=DEVICE)
         bags.append((B, ids, w))
+    return table, bags
+
+
+def bag_phase(report: dict) -> dict:
+    """Phase 11: BST's item table (2^22 x 32, f32, seeded on the card) and
+    Zipf(1.1) ids, 20 a bag, weighted, at the serving batches 512 and
+    262,144, in sum and mean, through ``models.recsys.embedding.bag_lookup``
+    with counts set to 0 just before and read just after: each result
+    within 1e-4 of the plain version.  Times of the kernel (C entry point),
+    the plain version and ``F.embedding_bag`` (sum mode) beside the bound.
+    Returns the kernel table row (262,144 bags, sum)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cuda_lib import (
+        launch_counters,
+        library,
+        reset_launch_counters,
+        stream_ptr,
+    )
+    from repro_torch.kernels.embedding_bag import instance
+    from repro_torch.kernels.ref import embedding_bag_ref
+    from repro_torch.models.recsys.embedding import bag_lookup
+
+    table, bags = bag_inputs()
     reset_launch_counters()
     results = []
     for B, ids, w in bags:
@@ -1643,6 +1698,7 @@ def bag_phase(report: dict) -> dict:
             lib.embedding_bag_fwd(*args, stream_ptr(table.device))
 
         row = {"B": B, "mode": mode, "max_abs_err": err, "unique_rows": uniq, "bytes": nbytes,
+               "instance": instance(table, ids),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, **kernel_ms(launch),
                "plain_ms": host_loop_ms(lambda: embedding_bag_ref(table, ids, w, mode=mode))}
         if mode == "sum":
@@ -1652,13 +1708,17 @@ def bag_phase(report: dict) -> dict:
             lib_out = F.embedding_bag(ids64, table, mode="sum", per_sample_weights=w)
             row["library_max_abs_diff"] = float((lib_out - got).abs().max())
         rows.append(row)
-        print(f"embedding_bag B={B} L={BAG_L} {mode}: max abs err {err:.3g}; {uniq} distinct "
+        print(f"embedding_bag B={B} L={BAG_L} {mode} (instance {row['instance']}: dtype, "
+              f"bytes a load, lanes a row, rows a lane in flight): max abs err {err:.3g}; "
+              f"{uniq} distinct "
               f"rows; kernel {row['ms']:.4f} ms (host loop {row['host_loop_ms']:.4f}), plain "
               f"{row['plain_ms']:.4f} ms"
               + (f", F.embedding_bag {row['library_ms']:.4f} ms" if mode == "sum" else "")
               + f"; bound {row['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB)", flush=True)
     print(f"launches through bag_lookup: {launches}", flush=True)
     report["embedding_bag"] = {"launches": launches, "checks": rows}
+    del table, bags
+    err_max = max(err_max, bag_sweep(report))
     top = next(r for r in rows if r["B"] == BAG_BATCHES[-1] and r["mode"] == "sum")
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -1666,6 +1726,99 @@ def bag_phase(report: dict) -> dict:
             "launches": launches["embedding_bag"], "max_abs_err": err_max,
             "ms": top["ms"], "host_loop_ms": top["host_loop_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": top["library_ms"]}
+
+
+# phase 11's sweep: dtype, D, B, L, mode, weights ("rand", "none" or "zero"),
+# base 16-byte aligned; the instances' branches: 16-byte loads by 4, 8, 16
+# and 32 lanes a row, rows wider than 32 loads, one element a load (D = 33
+# and a misaligned base), no ids, one id, more than one chunk of 32 ids, and
+# a B that leaves the last block of 8 bags partial
+BAG_SWEEP = (
+    ("float32", 16, 1003, 20, "sum", "rand", True),
+    ("float32", 32, 9, 0, "sum", "rand", True),
+    ("float32", 32, 517, 1, "mean", "rand", True),
+    ("float32", 32, 517, 33, "sum", "none", True),
+    ("float32", 32, 1003, 20, "mean", "zero", True),
+    ("float32", 32, 1003, 20, "sum", "rand", False),
+    ("float32", 48, 1003, 64, "mean", "rand", True),
+    ("float32", 64, 1003, 20, "sum", "rand", True),
+    ("float32", 128, 517, 33, "mean", "rand", True),
+    ("float32", 256, 517, 20, "sum", "rand", True),
+    ("float32", 33, 1003, 20, "sum", "rand", True),
+    ("float32", 33, 517, 64, "mean", "none", True),
+    ("bfloat16", 32, 1003, 20, "sum", "rand", True),
+    ("bfloat16", 16, 1003, 64, "sum", "rand", True),
+    ("bfloat16", 48, 517, 33, "mean", "none", True),
+    ("bfloat16", 64, 9, 0, "mean", "rand", True),
+    ("bfloat16", 128, 517, 1, "mean", "rand", True),
+    ("bfloat16", 33, 1003, 20, "sum", "rand", True),
+    ("bfloat16", 32, 1003, 20, "mean", "zero", True),
+    ("bfloat16", 32, 1003, 20, "sum", "rand", False),
+)
+BAG_SWEEP_V = 5000
+
+
+def bag_sweep(report: dict) -> float:
+    """Phase 11's sweep: the kernel (through the wrapper) against its plain
+    version on every ``BAG_SWEEP`` case, within 1e-4; ids Zipf(1.1) with
+    one past the end and -1 in the first bag (both clamp).  bf16 cases draw
+    table entries k / 64 and weights j / 16: every product and sum is then
+    exact in f32 in any order, so the kernel and the plain version round
+    the same sums to bf16 and 1e-4 holds the kernel's indexing and packing,
+    not the order of its adds.  Also checks that :func:`instance` names the
+    instance the C entry point runs.  Returns the largest error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cuda_lib import library
+    from repro_torch.kernels.embedding_bag import _DTYPES, embedding_bag, instance
+    from repro_torch.kernels.ref import embedding_bag_ref
+
+    lib = library().get()
+    rng = np.random.default_rng(11)
+    rows, names = [], set()
+    for dtype, D, B, L, mode, weights, aligned in BAG_SWEEP:
+        dt = getattr(torch, dtype)
+        V = BAG_SWEEP_V
+        if dtype == "bfloat16":
+            tab = rng.integers(-64, 65, (V, D)) / 64.0
+            w = rng.integers(0, 17, (B, L)) / 16.0
+        else:
+            tab = rng.standard_normal((V, D))
+            w = rng.random((B, L))
+        if weights == "zero":
+            w[:] = 0.0
+        ids = (rng.zipf(1.1, (B, L)) % V).astype(np.int32)
+        if L:
+            ids[0, 0], ids[0, -1] = V, -1
+        table = torch.as_tensor(tab, dtype=dt, device=DEVICE)
+        if not aligned:  # the same values one element past an aligned base
+            table = torch.empty(V * D + 1, dtype=dt, device=DEVICE)[1:].view(V, D).copy_(table)
+        idx = torch.as_tensor(ids, device=DEVICE)
+        wt = None if weights == "none" else torch.as_tensor(w, dtype=torch.float32,
+                                                           device=DEVICE)
+        got = embedding_bag(table, idx, wt, mode=mode)
+        want = embedding_bag_ref(table, idx, wt, mode=mode)
+        torch.cuda.synchronize()
+        inst = instance(table, idx)
+        code = lib.embedding_bag_instance(table.data_ptr(), got.data_ptr(), D, _DTYPES[dt])
+        if (code >> 8, code & 255) != inst[1:3]:
+            fail(f"embedding_bag sweep {dtype} D={D}: the kernel runs {code >> 8}-byte loads "
+                 f"by {code & 255} lanes, instance() says {inst}")
+        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        name = f"{dtype} D={D} B={B} L={L} {mode} weights {weights}" + (
+            "" if aligned else ", base not 16-byte aligned")
+        if not torch.allclose(got.float(), want.float(), **BAG_TOL):
+            fail(f"embedding_bag sweep {name}: max abs err {err:.3g} outside 1e-4")
+        rows.append({"case": name, "instance": inst, "max_abs_err": err})
+        names.add(inst[1:3])
+    report["embedding_bag_sweep"] = rows
+    print(f"embedding_bag sweep: {len(rows)} cases within 1e-4 of the plain version (f32 and "
+          f"bf16, D 16-256 and 33, L 0-64, partial last block, no weights, zero weights in "
+          f"mean, a misaligned base; (bytes a load, lanes a row) {sorted(names)}), max abs err "
+          f"{max(r['max_abs_err'] for r in rows):.3g}", flush=True)
+    print(f"  ptxas: {ptxas_of(report, 'embedding_bag')}", flush=True)
+    return max(r["max_abs_err"] for r in rows)
 
 
 def store_phases(report: dict) -> list:

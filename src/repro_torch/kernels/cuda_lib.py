@@ -61,6 +61,8 @@ _SIGNATURES = {
         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _I, _P,
     ),
     "embedding_bag_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "embedding_bag_instance": (_P, _P, _I, _I),
+    "route_expand_slots": (_I,),
 }
 
 

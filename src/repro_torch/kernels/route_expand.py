@@ -5,11 +5,16 @@ Replaces ``_expand_kernel`` of the JAX package's ``kernels/route_expand.py``
 request walks its own greedy (local items, then per layer the cluster DC
 covering the most missing items, lowest DC id on ties, escalate on no
 progress) and folds Eq. 1.  Requests need no lockstep: extra greedy passes
-are idempotent, so per-request walks equal the block-lockstep oracle.  The
-kernel is bound by memory on an H100: ``R * K * (4 + 4)`` bytes of bitmasks
-and sizes read, ``R * K * 4`` bytes of picks written, at 3.35 TB/s; a
-request's passes re-read its own slots from L1/L2, and lanes own
-consecutive slots so each row's loads coalesce.
+are idempotent, so per-request walks equal the block-lockstep oracle.
+
+A request's walk is a chain of up to ``L * (D + 1)`` dependent passes, so
+the kernel takes the latency of one warp's walk; its bytes (``R * K * 12``)
+take less than a launch on an H100.  So every load of a request is issued
+before its first use, and the walk and the fold touch no memory: lane ``l``
+holds slots ``l + 32 j`` in registers (:func:`slots_instance` says how many
+a lane), counts and argmax are warp reductions, and the picks are stored
+once.  Past 256 slots each warp stages its slots in its own region of
+shared memory instead.
 
 For tensors on the CPU :func:`route_expand` takes the plain version,
 :func:`repro_torch.kernels.ref.route_expand_ref`; for CUDA tensors it
@@ -24,11 +29,34 @@ import torch
 from . import ref
 from .cuda_lib import check, library, register_counter, stream_ptr
 
-__all__ = ["LAUNCHES", "MAX_DCS", "route_expand"]
+__all__ = ["LAUNCHES", "MAX_DCS", "MAX_LAYERS", "MAX_SLOTS", "route_expand", "slots_instance"]
 
 LAUNCHES = register_counter("route_expand")
 MAX_DCS = 31  # one int32 bitmask per item, one warp lane per DC (bit 31 = sign)
-BLOCK_R = 4  # requests (warps) per CTA; no other value has been measured
+MAX_LAYERS = 127  # per-layer masks and miss counts held one a lane, 4 words
+# requests (warps) per CTA: 2 and 4 time the same on an H100, 8 up to 10%
+# slower at batches of 64 and 256 (tools/kernel_ab.py)
+BLOCK_R = 4
+REG_SLOTS = (1, 2, 4, 8)  # the register instances' slots a lane: K <= 256
+_SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
+
+
+def _smem_region(K: int) -> int:
+    words = -(-K // 4) * 4  # bits and sizes as 4-byte words, picks as int8
+    return 9 * words
+
+
+MAX_SLOTS = _SMEM_MAX // 9 // 4 * 4  # the most item slots one warp stages
+
+
+def slots_instance(K: int) -> int:
+    """Item slots a lane holds in registers for ``K`` slots a request (the
+    smallest of 1, 2, 4, 8 with ``32 * S >= K``), or 0 when ``K > 256`` and
+    each warp stages its slots in shared memory.  Raises past
+    :data:`MAX_SLOTS`, which no instance takes."""
+    if K < 0 or K > MAX_SLOTS:
+        raise ValueError(f"route_expand takes 0 to {MAX_SLOTS} item slots, got {K}")
+    return next((s for s in REG_SLOTS if K <= 32 * s), 0)
 
 
 def _check_inputs(bits, sizes, lens, origin, comp, rtt, ibw) -> None:
@@ -40,6 +68,10 @@ def _check_inputs(bits, sizes, lens, origin, comp, rtt, ibw) -> None:
     D = comp.shape[1]
     if D > MAX_DCS:
         raise ValueError(f"route_expand takes at most {MAX_DCS} DCs, got {D}")
+    if comp.shape[0] - 1 > MAX_LAYERS:
+        raise ValueError(f"route_expand takes at most {MAX_LAYERS} layers, got "
+                         f"{comp.shape[0] - 1}")
+    slots_instance(K)
     shapes = (
         ("sizes", sizes, (R, K), torch.float32),
         ("lens", lens, (R,), torch.int32),

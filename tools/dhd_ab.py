@@ -39,18 +39,21 @@ import chip_smoke as smoke  # noqa: E402  (timers, ptxas parser, tolerances)
 ENTRIES = ("dhd_count_batch", "dhd_flow_batch", "dhd_count_single", "dhd_flow_single")
 
 
-def build(checkouts: dict) -> dict:
-    """``{label: (library, ptxas report)}`` of each checkout's DHD source."""
+def build(checkouts: dict, sources=("dhd_spmv.cu",), entries=ENTRIES,
+          out="dhd_ab") -> dict:
+    """``{label: (library, ptxas report)}`` of each checkout's ``sources``
+    (under ``src/repro_torch/csrc/``), built into ``build/<out>/`` with the
+    C entry points ``entries`` bound."""
     from repro_torch.kernels import cuda_lib
 
-    out_dir = ROOT / "build" / "dhd_ab"
+    out_dir = ROOT / "build" / out
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, checkout in checkouts.items():
-        src = checkout / "src" / "repro_torch" / "csrc" / "dhd_spmv.cu"
+        csrc = checkout / "src" / "repro_torch" / "csrc"
         procs[label] = subprocess.Popen(
-            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", str(src), "-o",
-             str(out_dir / f"{label}.so")],
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared",
+             *(str(csrc / s) for s in sources), "-o", str(out_dir / f"{label}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
     builds = {}
@@ -59,12 +62,23 @@ def build(checkouts: dict) -> dict:
         if proc.returncode != 0:
             smoke.fail(f"nvcc failed on {checkouts[label]}:\n{log}")
         lib = ctypes.CDLL(str(out_dir / f"{label}.so"))
-        for name in ENTRIES:
+        for name in entries:
             fn = getattr(lib, name)
             fn.argtypes = list(cuda_lib._SIGNATURES[name])
             fn.restype = ctypes.c_int
         builds[label] = (lib, smoke.ptxas_report(log))
     return builds
+
+
+def in_turns(fns: dict) -> dict:
+    """Replayed ms of each of ``fns`` ({label: launch}), in turns: the
+    labels, then the labels reversed, each the mean over its two places."""
+    import numpy as np
+
+    labels = list(fns)
+    order = labels + labels[::-1]
+    times = smoke.cuda_ms_in_turns([fns[x] for x in order], reps=9)
+    return {x: float(np.mean([t for t, y in zip(times, order) if y == x])) for x in labels}
 
 
 def lane_ell(width: int, rows: int):
@@ -166,14 +180,9 @@ def main() -> None:
                "count_gathers": int(live.sum()), "flow_gathers": int(live.sum() + inflow.sum()),
                "count_bound_ms": (ell + 2 * field) / smoke.HBM_BYTES_PER_S * 1e3,
                "flow_bound_ms": (ell + 4 * field) / smoke.HBM_BYTES_PER_S * 1e3}
-        labels = list(fns)
-        for part in (0, 1):
-            # base, this, this, base: each build's graph replayed in turns
-            order = labels + labels[::-1]
-            times = smoke.cuda_ms_in_turns([fns[x][part] for x in order], reps=9)
-            for x in labels:
-                row[f"{('count', 'flow')[part]}_ms_{x}"] = float(np.mean(
-                    [t for t, y in zip(times, order) if y == x]))
+        for part in (0, 1):  # base, this, this, base: each build's graph in turns
+            for x, t in in_turns({x: f[part] for x, f in fns.items()}).items():
+                row[f"{('count', 'flow')[part]}_ms_{x}"] = t
         cases.append(row)
         print(json.dumps(row), flush=True)
     print(card, flush=True)
