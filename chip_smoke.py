@@ -79,6 +79,37 @@ Phases, each of which fails the run with a nonzero exit:
     a partial last block, no weights, zero weights in mean, a misaligned
     table view.
 
+12. Competitor stores at full size (paper Figs. 7 and 16) on the lane's
+    inputs, with 40 held-out test patterns drawn as
+    ``benchmarks/common.py:50-69`` draws them: GeoLayer, then Random-3 and
+    Top-3 with random routing, ADP and DCD with greedy set-cover routing,
+    and LP+RR (GeoLayer's placement, random routing), each built on the
+    card, with its build seconds and its mean modelled online latency (65%
+    home origins) normalised to GeoLayer's.  Then RP+SR
+    (random placement, stepwise routing), counts set to 0 just before and
+    read just after its build, batches of 64, 256 and 1024 requests and
+    ``maintain()``: every batch request-identical to the numpy router and
+    to a CPU mirror, replica sets and routes after ``maintain()`` equal to
+    the mirror's, ``route_expand`` and both batched DHD kernels launched;
+    both held against their plain versions on RP+SR's own inputs (phase 4's
+    tolerances), with ``slots_instance`` printed for its tiles.
+13. Offline routing and layouts at full size (Figs. 13-15): ``plan_offline``
+    over all 26,000 vertices of the phase-12 GeoLayer store, the
+    consolidated-or-in-place choice of ``bench_offline.py:27-55``, and the
+    RAGraph, RAGraph+ and GrapH layouts; the plan's fields and every layout
+    must equal a CPU mirror's.  Each layout is priced by the BSP model for
+    PageRank (15 supersteps), SSSP (10), HITS (20), LPA (10) and k-core
+    (its peel rounds): time, WAN bytes, speedup against RAGraph.
+14. Graph analytics on the card: PageRank (15 iterations), SSSP (10,
+    weights ``edge_size``, source 0), HITS (20) and LPA (10) on the lane
+    graph (26,000 vertices, 504,175 edges; k-core on the host beside them)
+    and on ``rmat_graph(20, edge_factor=16, a=0.57, b=0.19, c=0.19)``
+    (1,048,576 vertices, about 16.1 M edges), each against the same
+    function run on the host: SSSP and LPA equal, PageRank and HITS within
+    rtol 1e-4 / atol 1e-7.  Prints ms an iteration (CUDA events around the
+    whole call after a warm-up), edges a second, the byte bound of an
+    iteration and the device's busy share under the profiler.
+
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
 between two CUDA events, so the host's launch rate does not set them; the
@@ -288,6 +319,13 @@ def same_results(got, want) -> bool:
     )
 
 
+def launch_counts() -> dict:
+    """Every kernel's launch count so far, by name."""
+    from repro_torch.kernels.cuda_lib import launch_counters
+
+    return {k: c.n for k, c in launch_counters().items()}
+
+
 def build_inputs():
     from repro_torch.core.graph import build_csr
     from repro_torch.core.latency import make_paper_env
@@ -398,11 +436,9 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
     from repro_torch.core.placement import PlacementConfig
     from repro_torch.core.routing import route_online_batch
     from repro_torch.core.store import GeoGraphStore
-    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
 
-    def counts():
-        return {k: c.n for k, c in launch_counters().items()}
-
+    counts = launch_counts
     g, env, wl = inputs
     reset_launch_counters()
     t0 = time.perf_counter()
@@ -904,12 +940,11 @@ def _drive_streaming(store, report: dict, rec: SweepRecorder) -> dict:
 
     from repro_torch.convert import store_arrays, store_from_numpy
     from repro_torch.core.routing import route_online_batch
-    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
     from repro_torch.obs import Tracer
     from repro_torch.streaming import DeltaGraph, random_churn_batch
 
-    def counts():
-        return {k: c.n for k, c in launch_counters().items()}
+    counts = launch_counts
 
     def since(before):
         return {k: v - before[k] for k, v in counts().items() if v - before[k]}
@@ -1854,6 +1889,440 @@ def store_phases(report: dict) -> list:
     ]
 
 
+# ---------------------------------------------------------------- slice D
+# name, placement, routing: the paper pairings of benchmarks/common.py:84-89
+# (Fig. 7; Random-3 is also Fig. 16's RP+RR), then Fig. 16's LP+RR
+COMPETITORS = (("Random-3", "random", "random"), ("Top-3", "top", "random"),
+               ("ADP", "adp", "greedy"), ("DCD", "dcd", "greedy"),
+               ("LP+RR", "geolayer", "random"))
+N_TEST = 40  # held-out test patterns (bench_online.py's fast size)
+# bench_offline.py:24 and :70-81: each algorithm's supersteps (k-core: its
+# peel rounds), the message size and the per-DC edge rate the BSP model prices
+OFFLINE_ALGOS = {"pagerank": 15, "sssp": 10, "hits": 20, "lpa": 10, "core": None}
+OFFLINE_MSG_BYTES, OFFLINE_EDGE_RATE = 192.0, 5e8
+# make_benchmark_graph's "tw" family at scale 20 instead of 12: the largest
+# R-MAT graph whose host reference and generation fit the run's time limit
+RMAT_TW = dict(scale=20, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=0, n_dcs=5)
+ANALYTICS_TOL = dict(rtol=1e-4, atol=1e-7)
+
+
+def held_out_patterns(g, env, history, n_test: int = N_TEST, seed: int = 0):
+    """Test patterns drawn as ``benchmarks/common.py:50-69`` draws them:
+    revisits of history patterns (each item kept with probability 0.8) plus
+    the first quarter of a fresh pattern, made with the lane's k-hop
+    settings."""
+    import numpy as np
+
+    from repro_torch.core.graph import build_csr
+    from repro_torch.core.patterns import Pattern, generate_khop_patterns
+
+    csr = build_csr(g.n_nodes, g.src, g.dst, symmetrize=True)
+    rng = np.random.default_rng(seed + 77)
+    fresh = generate_khop_patterns(g, csr, n_test, hops=5, branch=2, seed=seed + 1000,
+                                   n_dcs=env.n_dcs, n_hot_sources=64)
+    test = []
+    for i in range(n_test):
+        base = history[int(rng.integers(0, len(history)))]
+        keep = rng.random(len(base.items)) < 0.8
+        tail = fresh[i].items[: max(2, len(fresh[i].items) // 4)]
+        items = np.unique(np.concatenate([base.items[keep], tail]))
+        test.append(Pattern(pid=10_000 + i, items=items, r_py=base.r_py,
+                            w_py=base.w_py, eta=base.eta))
+    return test
+
+
+def mean_online_latency(store, patterns, seed: int = 0) -> float:
+    """Mean modelled latency of ``serve_online`` over ``patterns``, each from
+    an origin drawn as ``benchmarks/common.py:92-104`` draws it (65% home
+    DC, 35% any)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lats = []
+    for p in patterns:
+        home = int(np.argmax(p.r_py))
+        origin = home if rng.random() < 0.65 else int(rng.integers(0, store.env.n_dcs))
+        lats.append(store.serve_online(p, origin).latency_s)
+    return float(np.mean(lats))
+
+
+def competitor_phase(report: dict, inputs):
+    """Phase 12; returns the GeoLayer store it built (for phase 13) and the
+    route-expansion and batched DHD rows checked on RP+SR's inputs, with
+    RP+SR's launch counts."""
+    import torch
+
+    from repro_torch.core.placement import PlacementConfig
+    from repro_torch.core.routing import pack_request_tiles, route_online_batch
+    from repro_torch.core.store import GeoGraphStore
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
+
+    t_phase = time.perf_counter()
+    g, env, wl = inputs
+    test = held_out_patterns(g, env, wl.patterns)
+    out = {"n_test": len(test), "stores": {}}
+
+    def build(placement, routing, device=DEVICE):
+        t = time.perf_counter()
+        store = GeoGraphStore(g, env, wl, config=PlacementConfig(), placement=placement,
+                              routing=routing, seed=0, device=device)
+        if store.device.type == "cuda":
+            torch.cuda.synchronize()
+        return store, time.perf_counter() - t
+
+    geo, geo_s = build("geolayer", "stepwise")
+    geo_lat = mean_online_latency(geo, test)
+    out["stores"]["GeoLayer"] = {"build_s": geo_s, "mean_latency_s": geo_lat, "normalised": 1.0}
+    print(f"GeoLayer (LP+SR): built in {geo_s:.3f} s, mean online latency over "
+          f"{len(test)} held-out patterns {geo_lat * 1e3:.3f} ms", flush=True)
+    for name, placement, routing in COMPETITORS:
+        store, s = build(placement, routing)
+        lat = mean_online_latency(store, test)
+        out["stores"][name] = {"placement": placement, "routing": routing, "build_s": s,
+                               "mean_latency_s": lat, "normalised": lat / geo_lat,
+                               "replicas": int(store.state.delta.sum())}
+        print(f"{name} ({placement} placement, {routing} routing): built in {s:.3f} s, "
+              f"mean online latency {lat * 1e3:.3f} ms, {lat / geo_lat:.3f}x GeoLayer's",
+              flush=True)
+        del store
+
+    # RP+SR, the ablation's random placement under stepwise routing: its
+    # serving takes route_expand and its maintain() the batched DHD pair on
+    # replica classes the GeoLayer lane never makes
+    mirror, mirror_s = build("random", "stepwise", device="cpu")
+    reset_launch_counters()
+    with DHDRecorder(ops) as rec:
+        rp, rp_s = build("random", "stepwise")
+        launches = {"build": launch_counts()}
+        # the same held-out traffic into both demand planes (host routing)
+        rp_lat = mean_online_latency(rp, test)
+        if rp_lat != mean_online_latency(mirror, test):
+            fail("RP+SR serve_online: the card store and its CPU mirror differ")
+        served, probs = {}, {}
+        for bs in BATCHES:
+            reqs = request_stream(rp, bs, seed=bs)
+            before = launch_counts()
+            t = time.perf_counter()
+            got = rp.serve_batch(reqs)
+            serve_s = time.perf_counter() - t
+            launches[f"serve_{bs}"] = {k: v - before[k] for k, v in launch_counts().items()}
+            if not same_results(got, route_online_batch(rp.lg, rp.state, reqs, fast=False)):
+                fail(f"RP+SR serve_batch({bs}) on the card differs from the numpy router")
+            served[bs] = (reqs, got, serve_s)
+            probs[bs] = pack_request_tiles(rp.lg, rp.state, reqs)
+        rec.phase = "maintain"
+        before = launch_counts()
+        t = time.perf_counter()
+        m = rp.maintain()
+        torch.cuda.synchronize()
+        maintain_s = time.perf_counter() - t
+        launches["maintain"] = {k: v - before[k] for k, v in launch_counts().items()}
+    total = launch_counts()
+    for k, n in (("route_expand", sum(launches[f"serve_{b}"]["route_expand"] for b in BATCHES)),
+                 ("dhd_count", launches["maintain"]["dhd_count"]),
+                 ("dhd_flow", launches["maintain"]["dhd_flow"])):
+        if n <= 0:
+            fail(f"kernel {k} was not launched on RP+SR")
+    for bs in BATCHES:
+        reqs, got, _ = served[bs]
+        if not same_results(got, mirror.serve_batch(reqs)):
+            fail(f"RP+SR serve_batch({bs}): the card and its CPU mirror differ")
+    m_cpu = mirror.maintain()
+    rows_delta = int((rp.state.delta != mirror.state.delta).any(axis=1).sum())
+    rows_route = int((rp.route_index.nearest != mirror.route_index.nearest).any(axis=1).sum())
+    out["stores"]["RP+SR"] = {"placement": "random", "routing": "stepwise", "build_s": rp_s,
+                              "mean_latency_s": rp_lat, "normalised": rp_lat / geo_lat}
+    print(f"RP+SR: built on the card in {rp_s:.3f} s (CPU mirror {mirror_s:.3f} s), mean "
+          f"online latency {rp_lat * 1e3:.3f} ms, {rp_lat / geo_lat:.3f}x GeoLayer's, "
+          + ", ".join(f"serve_batch({bs}) {served[bs][2] * 1e3:.3f} ms" for bs in BATCHES)
+          + f", each request-identical to the numpy router and the mirror; maintain() "
+          f"{maintain_s:.3f} s evicted {m['evicted']} (mirror {m_cpu['evicted']}); "
+          f"{rows_delta} replica rows and {rows_route} route rows differ from the mirror; "
+          f"launches {total} (per step: {launches})", flush=True)
+    if m != m_cpu or rows_delta or rows_route:
+        fail("RP+SR maintain() on the card differs from its CPU mirror")
+
+    busy = {}
+    reqs = served[BATCHES[-1]][0]
+    for name, fn, reps in (
+        ("serve_batch_1024", lambda: rp.serve_batch(reqs, observe=False), 5),
+        ("maintain_no_evict", lambda: rp.maintain(evict=False), 2),
+    ):
+        fn()
+        torch.cuda.synchronize()
+        wall_ms, busy_ms, by_kind, _ = profiled(fn, reps)
+        busy[name] = {"device_ms": busy_ms, "wall_ms_profiled": wall_ms,
+                      "device_share": busy_ms / wall_ms, "by_kind_ms": by_kind}
+        print(f"RP+SR {name}: device busy {busy_ms:.4f} ms of {wall_ms:.3f} ms (profiled "
+              f"wall), share {busy_ms / wall_ms:.4f}", flush=True)
+
+    routes = []
+    for bs in BATCHES:
+        r = check_route_expand(f"RP+SR batch {bs}", probs[bs], timed=True)
+        routes.append(r)
+        print(f"route_expand {r['case']} {r['shape']} (R, K, D, L): slots_instance "
+              f"{r['slots_instance']}, exact, max abs err {r['max_abs_err']:.3g}, kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms",
+              flush=True)
+    key = ("maintain", env.n_dcs, False)
+    if key not in rec.kept:
+        fail("RP+SR maintain() ran no DHD step over the per-DC heat fields")
+    heat, cols, vals, q, params = rec.kept[key]
+    dhd = check_dhd(f"RP+SR maintain, call {rec.calls[key]}", heat, cols, vals, q, params)
+    print(f"dhd {dhd['case']} {dhd['shape']}: count kernel {dhd['count']['ms']:.4f} ms "
+          f"(bound {dhd['count']['bound_ms']:.5f}), flow kernel {dhd['flow']['ms']:.4f} ms "
+          f"(bound {dhd['flow']['bound_ms']:.5f}), counts equal, flows within atol 1e-5 / "
+          f"rtol 1e-4, max abs err {dhd['flow']['max_abs_err']:.3g}", flush=True)
+    rp_launches = {"route_expand": sum(launches[f"serve_{b}"]["route_expand"] for b in BATCHES),
+                   "dhd_count": launches["maintain"]["dhd_count"],
+                   "dhd_flow": launches["maintain"]["dhd_flow"]}
+    out["rp_sr"] = {
+        "build_s": rp_s, "mirror_build_s": mirror_s, "maintain_s": maintain_s,
+        "serve_s": {bs: served[bs][2] for bs in BATCHES}, "evicted": int(m["evicted"]),
+        "launches": total, "launches_by_step": launches, "device_busy": busy,
+        "route_expand_checks": routes, "dhd_check": dhd,
+        "max_replicas_per_item": int(rp.state.delta.sum(axis=1).max()),
+    }
+    del rp, mirror
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 (competitor stores) wall {out['wall_s']:.1f} s", flush=True)
+    report["competitors"] = out
+    return geo, rp_launches
+
+
+def geo_layout(store, plan):
+    """GeoLayer's offline layout as ``benchmarks/bench_offline.py:27-55``
+    picks it: the consolidated plan is adopted only where the BSP model
+    prices it below executing in place (or it trades time for WAN bytes);
+    returns (vertex sites, assembly bytes charged)."""
+    from repro_torch.core import analytics
+
+    site = plan.item_site[: store.g.n_nodes].copy()
+    site[site < 0] = store.g.partition[site < 0]
+    inplace = store.g.partition.astype("int64")
+    c_cons = analytics.simulate_execution(
+        store.env, store.g, site, 15, msg_bytes=OFFLINE_MSG_BYTES,
+        edge_rate=OFFLINE_EDGE_RATE, assembly_bytes=plan.wan_bytes)
+    c_inpl = analytics.simulate_execution(
+        store.env, store.g, inplace, 15, msg_bytes=OFFLINE_MSG_BYTES,
+        edge_rate=OFFLINE_EDGE_RATE)
+    # the reference's three branches reduce to two: its last is reached
+    # only when the consolidated layout is no slower
+    if c_cons.time_s > c_inpl.time_s and c_cons.wan_bytes >= c_inpl.wan_bytes:
+        return inplace, 0.0
+    return site, plan.wan_bytes
+
+
+def offline_layouts(store, plan) -> tuple:
+    """GeoLayer's layout (with the assembly bytes it carries) and the
+    RAGraph, RAGraph+ and GrapH layouts of ``store``'s graph (traffic: each
+    vertex's read rate summed over DCs), each with its host seconds."""
+    from repro_torch.core.baselines import (
+        layout_graph_h,
+        layout_ragraph,
+        layout_ragraph_plus,
+    )
+
+    g, env = store.g, store.env
+    traffic = store.workload.r_xy[: g.n_nodes].sum(axis=1)
+    t = time.perf_counter()
+    site, assembly = geo_layout(store, plan)
+    layouts, secs = {"geolayer": site}, {"geolayer": time.perf_counter() - t}
+    for name, fn in (("ragraph", lambda: layout_ragraph(g, env)),
+                     ("ragraph+", lambda: layout_ragraph_plus(g, env, traffic)),
+                     ("graph_h", lambda: layout_graph_h(g, env, traffic))):
+        t = time.perf_counter()
+        layouts[name] = fn()
+        secs[name] = time.perf_counter() - t
+    return layouts, secs, assembly
+
+
+def offline_phase(report: dict, geo) -> None:
+    """Phase 13: offline routing and the competitor layouts on the lane
+    store, against a CPU mirror; prices each layout under the BSP model."""
+    import numpy as np
+
+    from repro_torch.convert import store_arrays, store_from_numpy
+    from repro_torch.core import analytics
+
+    t_phase = time.perf_counter()
+    mirror = store_from_numpy(store_arrays(geo), device="cpu")
+    req = np.arange(geo.g.n_nodes)
+    plans = {}
+    for name, store in (("card", geo), ("cpu", mirror)):
+        t = time.perf_counter()
+        plans[name] = store.plan_offline(req, n_iters=15, msg_bytes=OFFLINE_MSG_BYTES)
+        plans[name + "_s"] = time.perf_counter() - t
+    plan, plan_cpu = plans["card"], plans["cpu"]
+    for f in ("sites", "item_site", "migrated", "excluded"):
+        if not np.array_equal(getattr(plan, f), getattr(plan_cpu, f)):
+            fail(f"plan_offline: {f} differs from the CPU mirror's")
+    if plan.wan_bytes != plan_cpu.wan_bytes:
+        fail("plan_offline: wan_bytes differs from the CPU mirror's")
+    wall_ms, busy_ms, _, _ = profiled(
+        lambda: geo.plan_offline(req, n_iters=15, msg_bytes=OFFLINE_MSG_BYTES))
+    print(f"plan_offline({len(req)} vertices): {plans['card_s']:.3f} s, sites "
+          f"{plan.sites.tolist()}, excluded {plan.excluded.tolist()}, {len(plan.migrated)} "
+          f"migrated, assembly {plan.wan_bytes / 1e6:.3f} MB; equal to the CPU mirror's; "
+          f"device busy {busy_ms:.4f} ms of {wall_ms:.1f} ms", flush=True)
+    layouts, secs, assembly = offline_layouts(geo, plan)
+    layouts_cpu, _, assembly_cpu = offline_layouts(mirror, plan_cpu)
+    for name, site in layouts.items():
+        if not np.array_equal(site, layouts_cpu[name]):
+            fail(f"offline layout {name} differs from the CPU mirror's")
+    if assembly != assembly_cpu:
+        fail("GeoLayer's assembly bytes differ from the CPU mirror's")
+    print("layouts (host s): " + ", ".join(
+        f"{k} {v:.3f} s, {float((layouts[k] != geo.g.partition).mean()):.4f} migrated"
+        for k, v in secs.items()) + "; each equal to the CPU mirror's", flush=True)
+    g, env = geo.g, geo.env
+    priced = {}
+    for algo, iters in OFFLINE_ALGOS.items():
+        if iters is None:
+            _, iters = analytics.core_decomposition(g.n_nodes, g.src, g.dst)
+        stats = {}
+        for name, site in layouts.items():
+            ex = analytics.simulate_execution(
+                env, g, site, n_iters=iters, msg_bytes=OFFLINE_MSG_BYTES,
+                edge_rate=OFFLINE_EDGE_RATE,
+                assembly_bytes=assembly if name == "geolayer" else 0.0)
+            stats[name] = {"time_s": ex.time_s, "wan_bytes": ex.wan_bytes,
+                           "sites": ex.n_sites, "cut_edges": ex.cut_edges}
+        base = stats["ragraph"]
+        for s in stats.values():
+            s["speedup_vs_ragraph"] = base["time_s"] / s["time_s"]
+            s["wan_vs_ragraph"] = s["wan_bytes"] / base["wan_bytes"] if base["wan_bytes"] else None
+        priced[algo] = {"iters": int(iters), "layouts": stats}
+        print(f"{algo} ({iters} supersteps): " + "; ".join(
+            f"{k} {s['time_s']:.4f} s, {s['wan_bytes'] / 1e6:.2f} MB WAN, "
+            f"{s['speedup_vs_ragraph']:.3f}x RAGraph" for k, s in stats.items()), flush=True)
+    wall = time.perf_counter() - t_phase
+    report["offline"] = {
+        "plan_s": plans["card_s"], "plan_cpu_s": plans["cpu_s"],
+        "sites": plan.sites.tolist(), "excluded": plan.excluded.tolist(),
+        "migrated": int(len(plan.migrated)), "assembly_bytes": plan.wan_bytes,
+        "plan_device_busy_ms": busy_ms, "plan_wall_ms_profiled": wall_ms,
+        "layout_s": secs, "priced": priced, "wall_s": wall,
+    }
+    print(f"phase 13 (offline routing and layouts) wall {wall:.1f} s", flush=True)
+
+
+def analytics_bytes(algo: str, n: int, m: int, index_bytes: int) -> int:
+    """Bytes one iteration must move at the least: each index array read
+    once a pass, vertex arrays read and written once (f32 or int32).
+    PageRank: src, dst, rank and out-degree in, rank out.  SSSP: src, dst,
+    weights, distances in and out.  HITS: two dependent passes (each pass's
+    norm divides before the next), each reading src and dst.  LPA: one pass
+    gives both minima, labels in and out."""
+    per_pass = 2 * index_bytes * m
+    return {"pagerank": per_pass + 12 * n, "sssp": per_pass + 4 * m + 8 * n,
+            "hits": 2 * per_pass + 16 * n, "lpa": per_pass + 8 * n}[algo]
+
+
+def run_analytics(label: str, g) -> dict:
+    """PageRank (15), SSSP (10, weights ``edge_size``, source 0), HITS (20)
+    and LPA (10) over ``g`` on the card and on the host; SSSP and LPA must
+    be equal, PageRank and HITS within ``ANALYTICS_TOL``."""
+    import torch
+
+    from repro_torch.core import analytics
+
+    n, m = int(g.n_nodes), int(len(g.src))
+    algos = {
+        "pagerank": (15, lambda s, d, w, dev: analytics.pagerank(s, d, n, 15, device=dev)),
+        "sssp": (10, lambda s, d, w, dev: analytics.sssp(s, d, w, 0, n, 10, device=dev)),
+        "hits": (20, lambda s, d, w, dev: analytics.hits(s, d, n, 20, device=dev)),
+        "lpa": (10, lambda s, d, w, dev: analytics.label_propagation(s, d, n, 10, device=dev)),
+    }
+    on = {dev: (torch.as_tensor(g.src).to(dev, torch.int64),
+                torch.as_tensor(g.dst).to(dev, torch.int64),
+                torch.as_tensor(g.edge_size).to(dev, torch.float32))
+          for dev in (DEVICE, "cpu")}
+    rows = {}
+    for algo, (iters, fn) in algos.items():
+        def run(dev):
+            return fn(*on[dev], dev)
+
+        run(DEVICE)  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = run(DEVICE)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        wall_ms, busy_ms, by_kind, _ = profiled(lambda: run(DEVICE))
+        t = time.perf_counter()
+        want = run("cpu")
+        cpu_s = time.perf_counter() - t
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        err = 0.0
+        for a, b in pairs:
+            a = a.cpu()
+            if algo in ("sssp", "lpa"):
+                if not torch.equal(a, b):
+                    fail(f"{algo} on {label}: the card's result is not equal to the host's")
+            elif not torch.allclose(a, b, **ANALYTICS_TOL):
+                fail(f"{algo} on {label}: the card's result is outside rtol 1e-4 / atol 1e-7 "
+                     f"of the host's")
+            finite = torch.isfinite(b)
+            if bool(finite.any()):
+                err = max(err, float((a[finite].double() - b[finite].double()).abs().max()))
+        bound = {ib: analytics_bytes(algo, n, m, ib) / HBM_BYTES_PER_S * 1e3 for ib in (4, 8)}
+        rows[algo] = {
+            "iters": iters, "ms": ms, "ms_per_iter": ms / iters,
+            "edges_per_s": m * iters / (ms / 1e3), "bound_ms_per_iter_i32": bound[4],
+            "bound_ms_per_iter_i64": bound[8], "device_busy_ms": busy_ms,
+            "wall_ms_profiled": wall_ms, "device_share": busy_ms / wall_ms,
+            "by_kind_ms": by_kind, "cpu_s": cpu_s, "max_abs_err": err,
+        }
+        r = rows[algo]
+        print(f"{algo} on {label} ({iters} iterations): {r['ms_per_iter']:.4f} ms an "
+              f"iteration, {r['edges_per_s'] / 1e9:.3f} G edges/s, bound {bound[4]:.4f} ms "
+              f"(int32 indices) / {bound[8]:.4f} ms (int64); device busy share "
+              f"{r['device_share']:.3f} under the profiler; host {cpu_s:.3f} s; "
+              f"{'equal' if algo in ('sssp', 'lpa') else 'within rtol 1e-4'} "
+              f"(max abs err {err:.3g})", flush=True)
+    del on
+    return rows
+
+
+def analytics_phase(report: dict, lane_graph) -> None:
+    """Phase 14: the analytics on the lane graph (with k-core on the host)
+    and on an R-MAT graph of the "tw" family at scale 20."""
+    import numpy as np
+
+    from repro_torch.core.analytics import core_decomposition
+    from repro_torch.data.synthetic import rmat_graph
+
+    t_phase = time.perf_counter()
+    out = {}
+    g = lane_graph
+    t = time.perf_counter()
+    core, rounds = core_decomposition(g.n_nodes, g.src, g.dst)
+    core_s = time.perf_counter() - t
+    print(f"lane graph: {g.n_nodes} vertices, {len(g.src)} edges; core_decomposition on "
+          f"the host {core_s:.3f} s, max core {int(core.max())}, {rounds} peel rounds",
+          flush=True)
+    out["lane"] = {"n": int(g.n_nodes), "m": int(len(g.src)), "core_s": core_s,
+                   "max_core": int(core.max()), "core_rounds": int(rounds),
+                   "algos": run_analytics("the lane graph", g)}
+    t = time.perf_counter()
+    big = rmat_graph(**RMAT_TW)
+    gen_s = time.perf_counter() - t
+    indeg = int(np.bincount(big.dst, minlength=big.n_nodes).max())
+    print(f"rmat_graph({RMAT_TW}): {big.n_nodes} vertices, {len(big.src)} edges, max "
+          f"in-degree {indeg}, generated on the host in {gen_s:.1f} s", flush=True)
+    out["rmat_tw_20"] = {"n": int(big.n_nodes), "m": int(len(big.src)), "gen_s": gen_s,
+                         "max_in_degree": indeg,
+                         "algos": run_analytics(f"R-MAT tw scale {RMAT_TW['scale']}", big)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    report["analytics"] = out
+    print(f"phase 14 (graph analytics) wall {out['wall_s']:.1f} s", flush=True)
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_attn_wgmma_kernel<2>`` from its Itanium-mangled name: the last
     component of the nested name, with its template arguments (integers,
@@ -1953,6 +2422,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     table.append(bag_phase(report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = build_inputs()
+    geo, rp_launches = competitor_phase(report, inputs)
+    for r in table:
+        if r["name"] in rp_launches:
+            r["launches_by_path"] = {"main": r["launches"], "rp_sr": rp_launches[r["name"]]}
+    offline_phase(report, geo)
+    del geo
+    analytics_phase(report, inputs[0])
 
     for r in table:
         r["launch_floor_ms"] = floor_ms

@@ -4,10 +4,11 @@
 package with the same attribute layout — into a dict of numpy arrays and
 scalars.  :func:`store_from_numpy` builds a port store from such a dict
 without running placement: it adopts ``state.delta``, rebuilds the layered
-graph, route index and demand plane around it, and checks that the carried
-``state.route`` equals the rebuilt nearest-replica table.  Two stores made
-this way serve the same placement, so serving parity does not depend on
-placement parity.
+graph, route index and demand plane around it, and, under stepwise routing,
+checks that the carried ``state.route`` equals the rebuilt nearest-replica
+table; under a table routing (``"random"``, ``"greedy"``) it adopts
+``state.route`` as it is.  Two stores made this way serve the same
+placement, so serving parity does not depend on placement parity.
 
 :func:`streaming_heat_arrays` and :func:`streaming_heat_from_numpy` do the
 same for a warm DHD field (``StreamingHeat``), so both packages' warm
@@ -68,6 +69,8 @@ def store_arrays(store) -> Dict[str, object]:
     out["patterns.items"] = [np.array(p.items) for p in pats]
     out["state.delta"] = np.array(store.state.delta)
     out["state.route"] = np.array(store.state.route)
+    out["placement"] = store.placement_name
+    out["routing"] = store.routing_name
     return out
 
 
@@ -78,8 +81,9 @@ def store_from_numpy(
     latency_interval_s: float = 0.100,
 ):
     """A port :class:`~repro_torch.core.store.GeoGraphStore` serving the
-    placement in ``arrays`` (see :func:`store_arrays` for the keys);
-    ``latency_interval_s`` must be the one the source store was built with."""
+    placement in ``arrays`` under the source store's placement and routing
+    names (see :func:`store_arrays` for the keys); ``latency_interval_s``
+    must be the one the source store was built with."""
     from .core.store import GeoGraphStore
 
     g = Graph(
@@ -108,9 +112,10 @@ def store_from_numpy(
     state = PlacementState(delta=np.array(arrays["state.delta"], dtype=bool), route=route)
     store = GeoGraphStore(
         g, env, wl, config=config, device=device, state=state,
+        placement=arrays["placement"], routing=arrays["routing"],
         latency_interval_s=latency_interval_s,
     )
-    if not np.array_equal(store.route_index.nearest, route):
+    if store.route_index is not None and not np.array_equal(store.route_index.nearest, route):
         raise ValueError("carried state.route is not the nearest-replica table of state.delta")
     return store
 

@@ -5,7 +5,12 @@ Online mode — bottom-up expanding retrieval: serve locally, then per layer
 items (minimizing participating DCs), escalating until the pattern is fully
 resolved.
 
-Offline mode (``route_offline``) comes with ROADMAP slice D.
+Offline mode — top-down localization (map required items to candidate
+replica holders) then bottom-up assembly: each DC is tested with the
+migration condition (Eq. 14); excluded DCs' data is redistributed by hashing
+to retained DCs within the same cluster, escalating upward when a cluster
+retains nobody.  The result is an execution layout for geo-distributed
+analytics (few sites, minimal WAN).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..obs import get_registry
 from .cost import PlacementState
+from .graph import Graph
 from .latency import GeoEnvironment
 from .layered_graph import LayeredGraph
 
@@ -30,6 +36,8 @@ __all__ = [
     "route_online",
     "route_online_batch",
     "pack_request_tiles",
+    "OfflineLayout",
+    "route_offline",
 ]
 
 # precomputed per-layer tag keys: the 5% telemetry budget on the batch
@@ -820,3 +828,136 @@ def _materialize_results(
         )
         lo = hi
     return results
+
+
+# ------------------------------------------------------------------ offline
+@dataclasses.dataclass
+class OfflineLayout:
+    sites: np.ndarray  # retained execution DCs
+    item_site: np.ndarray  # [I] executing DC per required item (-1 = n/a)
+    migrated: np.ndarray  # item ids moved off their primary DC
+    wan_bytes: float  # assembly traffic
+    excluded: np.ndarray  # DCs ruled out by Eq. 14
+
+
+def _boundary_vertices(g: Graph, dc: int) -> int:
+    src_dc = g.partition[g.src]
+    dst_dc = g.partition[g.dst]
+    cross = src_dc != dst_dc
+    b = np.unique(
+        np.concatenate([g.src[cross & (src_dc == dc)], g.dst[cross & (dst_dc == dc)]])
+    )
+    return int(len(b))
+
+
+def route_offline(
+    lg: LayeredGraph,
+    state: PlacementState,
+    required_items: np.ndarray,
+    n_iters: int = 15,
+    msg_bytes: float = 16.0,
+    xi_frac: float = 0.2,
+) -> OfflineLayout:
+    """Top-down localization + bottom-up assembly (paper Fig. 6, Eq. 14)."""
+    g, env = lg.g, lg.env
+    D = env.n_dcs
+    sizes = g.item_size()
+    required_items = np.asarray(required_items)
+    req_mask = np.zeros(g.n_items, dtype=bool)
+    req_mask[required_items] = True
+
+    # --- top-down localization: candidate holders per required item -------
+    # (delta already encodes all replicas; localization = restricting to it.)
+    primary = np.zeros(g.n_items, dtype=np.int64)
+    primary[: g.n_nodes] = g.partition
+    primary[g.n_nodes :] = g.partition[g.src]
+
+    # --- Eq. 14 migration test per DC --------------------------------------
+    total_boundary = sum(_boundary_vertices(g, d) for d in range(D))
+    xi = xi_frac * n_iters * msg_bytes * max(total_boundary, 1)
+    eta_l = lg.eta_L(1)
+    retained: List[int] = []
+    excluded: List[int] = []
+    for d in range(D):
+        local_req = required_items[primary[required_items] == d]
+        if len(local_req) == 0:
+            excluded.append(d)
+            continue
+        vert_req = local_req[local_req < g.n_nodes]
+        replicas_at_d = int(
+            (state.delta[vert_req, d] & (g.partition[vert_req] != d)).sum()
+        )
+        n_bs = _boundary_vertices(g, d)
+        comm_proxy = n_iters * msg_bytes * (replicas_at_d + n_bs)
+        local_size = float(sizes[local_req].sum())
+        if comm_proxy - local_size > (1.0 - eta_l) * xi:
+            excluded.append(d)
+        else:
+            retained.append(d)
+    if not retained:  # degenerate: keep the DC with the most local data
+        vols = [
+            float(sizes[required_items[primary[required_items] == d]].sum())
+            for d in range(D)
+        ]
+        retained = [int(np.argmax(vols))]
+        excluded = [d for d in range(D) if d != retained[0]]
+
+    retained_arr = np.asarray(sorted(retained))
+    # --- bottom-up assembly -------------------------------------------------
+    item_site = np.full(g.n_items, -1, dtype=np.int64)
+    load = {int(d): 0.0 for d in retained}
+    wan_bytes = 0.0
+    migrated: List[np.ndarray] = []
+
+    own = primary[required_items]
+    keep = np.isin(own, retained_arr)
+    # in-place: items whose primary DC is retained execute there
+    item_site[required_items[keep]] = own[keep]
+    for d in retained:
+        load[d] += float(sizes[required_items[keep][own[keep] == d]].sum())
+
+    # replica reuse: a displaced item already replicated at a retained DC
+    pending = required_items[~keep]
+    if len(pending):
+        rep = state.delta[pending][:, retained_arr]
+        has_rep = rep.any(axis=1)
+        choice = retained_arr[np.argmax(rep, axis=1)]
+        reuse = pending[has_rep]
+        item_site[reuse] = choice[has_rep]
+        pending = pending[~has_rep]
+
+    # remaining items migrate: hash to retained DCs within the smallest
+    # enclosing cluster, escalating per layer (Fig. 6 bottom-up)
+    if len(pending):
+        for x in pending.tolist():
+            home = int(primary[x])
+            dest = -1
+            for layer in range(1, lg.n_layers + 1):
+                comp = lg.comp_of_dc[layer, home]
+                cluster = np.where(lg.comp_of_dc[layer] == comp)[0]
+                cands = [int(d) for d in cluster if d in load]
+                if cands:
+                    # minimize comm cost, tie-break on current load balance
+                    costs = [
+                        (env.c_net[home, d] * sizes[x] + 1e-12 * load[d], d)
+                        for d in cands
+                    ]
+                    dest = min(costs)[1]
+                    break
+            if dest < 0:
+                dest = int(retained_arr[0])
+            item_site[x] = dest
+            load[dest] += float(sizes[x])
+            wan_bytes += float(sizes[x])
+        migrated.append(pending)
+
+    migrated_arr = (
+        np.concatenate(migrated) if migrated else np.zeros(0, dtype=np.int64)
+    )
+    return OfflineLayout(
+        sites=retained_arr,
+        item_site=item_site,
+        migrated=migrated_arr,
+        wan_bytes=wan_bytes,
+        excluded=np.asarray(sorted(excluded)),
+    )

@@ -9,10 +9,9 @@ field, cost-bounded replica migration, compaction and workload updates.
 The device work — the DHD diffusions of placement, pre-caching and
 maintenance, the warm DHD sweeps of streaming updates, and the fused routing
 expansion of ``serve_batch`` — runs on ``device`` (``None`` = the card,
-``"cpu"`` = the plain versions on the host).  This port carries
-``placement="geolayer"`` with ``routing="stepwise"``.  The baseline
-strategies and offline planning raise :class:`NotImplementedError` naming
-the ROADMAP slice that brings them.
+``"cpu"`` = the plain versions on the host).  The competitor strategies of
+``core.baselines`` (placement and table routing) and offline planning run
+on the host, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import baselines
 from ..demand import ODDemandLayer
 from ..device import DeviceLike, resolve_device
 from ..obs import Tracer, get_registry
@@ -39,12 +39,15 @@ from .placement import (
     step_heat_caches,
 )
 from .route_index import RouteIndex
-from .routing import RouteResult, route_online, route_online_batch
+from .routing import (
+    OfflineLayout,
+    RouteResult,
+    route_offline,
+    route_online,
+    route_online_batch,
+)
 
 __all__ = ["GeoGraphStore", "StoreStats", "UpdateReport"]
-
-_BASELINES_SLICE = "ROADMAP queue 1, slice A item 6 (core/baselines.py)"
-_OFFLINE_SLICE = "ROADMAP queue 1, slice D (offline analytics)"
 
 
 @dataclasses.dataclass
@@ -85,9 +88,17 @@ class GeoGraphStore:
     (``serve_batch`` / ``apply_updates`` / ``plan_flush`` + ``begin_flush``
     / ``maintain`` / ``compact`` / ``precache``).
 
+    Strategy knobs allow the ablation grid of paper Fig. 16:
+      placement in {"geolayer", "random", "top", "adp", "dcd"},
+      routing   in {"stepwise", "random", "greedy"}.
+    Stepwise routing serves through :func:`route_online_batch` on the
+    store's device whatever the placement; the table routings serve on the
+    host.
+
     ``state`` adopts an existing placement instead of running one (see
     :func:`repro_torch.convert.store_from_numpy`): the layered graph, route
-    index, demand plane and heat caches are built as usual around it.
+    index, demand plane and heat caches are built as usual around it; under
+    a table routing its ``route`` is adopted as it is.
     """
 
     def __init__(
@@ -107,14 +118,6 @@ class GeoGraphStore:
         device: DeviceLike = None,
         state: Optional[PlacementState] = None,
     ) -> None:
-        if placement != "geolayer":
-            raise NotImplementedError(
-                f"placement={placement!r} is not ported yet: {_BASELINES_SLICE}"
-            )
-        if routing != "stepwise":
-            raise NotImplementedError(
-                f"routing={routing!r} is not ported yet: {_BASELINES_SLICE}"
-            )
         self.g = g
         self.env = env
         self.workload = workload
@@ -141,9 +144,9 @@ class GeoGraphStore:
         # store has fully re-keyed itself, so holders of raw item rows can
         # remap instead of dangling
         self._remap_listeners: List = []
-        # memo of placement intermediates; populated by every placement
-        # run, replayed by insert_patterns_incremental, remapped in place
-        # across compaction, discarded on topology mutations
+        # memo of placement intermediates; populated by every geolayer
+        # placement run, replayed by insert_patterns_incremental, remapped
+        # in place across compaction, discarded on topology mutations
         self._placement_journal = self._fresh_journal()
         with self.tracer.span("store.build_layered_graph", track="store") as sp_build:
             self.lg: LayeredGraph = build_layered_graph(
@@ -151,11 +154,14 @@ class GeoGraphStore:
             )
         with self.tracer.span("store.place", track="store", strategy=placement) as sp_place:
             if state is None:
-                self.state, pstats = self._place()
+                self.state, pstats = self._place(placement, seed)
             else:
                 self.state, pstats = state, {"adopted": True}
         with self.tracer.span("store.route", track="store", strategy=routing):
-            self._apply_routing()
+            if state is None or routing == "stepwise":
+                self._apply_routing(routing, seed)
+            elif routing not in ("random", "greedy"):
+                raise ValueError(f"unknown routing {routing!r}")
         # demand plane: single owner of online request heat; every per-DC
         # HeatCache reads its row of the [D, I] table as a view
         self.demand = ODDemandLayer(
@@ -189,23 +195,57 @@ class GeoGraphStore:
         j.item_uid = self._item_uid
         return j
 
-    def _place(self, route: bool = True) -> Tuple[PlacementState, Dict]:
-        return overlap_centric_placement(
-            self.lg, self.workload, self.config, device=self.device,
-            journal=self._placement_journal, route=route,
-        )
+    def _place(self, name: str, seed: int, route: bool = True) -> Tuple[PlacementState, Dict]:
+        if name == "geolayer":
+            return overlap_centric_placement(
+                self.lg, self.workload, self.config, device=self.device,
+                journal=self._placement_journal, route=route,
+            )
+        if name == "random":
+            return (
+                baselines.place_random_k(self.g, self.workload, self.env, seed=seed),
+                {"baseline": "random-3"},
+            )
+        if name == "top":
+            return (
+                baselines.place_top_k(self.g, self.workload, self.env),
+                {"baseline": "top-3"},
+            )
+        if name == "adp":
+            return (
+                baselines.place_adp(self.g, self.workload, self.env),
+                {"baseline": "adp"},
+            )
+        if name == "dcd":
+            return (
+                baselines.place_dcd(self.g, self.workload, self.env),
+                {"baseline": "dcd"},
+            )
+        raise ValueError(f"unknown placement {name!r}")
 
-    def _apply_routing(self) -> None:
-        # per-item nearest-replica table; pattern requests use route_online.
-        # ``state.route`` aliases ``index.nearest`` so incremental patches
-        # are visible to every consumer without copies.
-        self.route_index = RouteIndex.build(self.state.delta, self.env)
-        self.state.route = self.route_index.nearest
+    def _apply_routing(self, name: str, seed: int) -> None:
+        self.route_index = None
+        if name == "stepwise":
+            # per-item nearest-replica table; pattern requests use
+            # route_online.  ``state.route`` aliases ``index.nearest`` so
+            # incremental patches are visible to every consumer without
+            # copies.
+            self.route_index = RouteIndex.build(self.state.delta, self.env)
+            self.state.route = self.route_index.nearest
+        elif name == "random":
+            baselines.route_random(self.state, self.workload, self.env, seed=seed)
+        elif name == "greedy":
+            baselines.route_greedy_set_cover(self.state, self.workload, self.env)
+        else:
+            raise ValueError(f"unknown routing {name!r}")
 
     # -------------------------------------------------------------- serving
     def serve_online(self, pattern: Pattern, origin: int) -> RouteResult:
         """Serve one online pattern request; returns the routing outcome."""
-        res = route_online(self.lg, self.state, pattern.items, origin)
+        if self.routing_name == "stepwise":
+            res = route_online(self.lg, self.state, pattern.items, origin)
+        else:
+            res = self._route_by_table(pattern.items, origin)
         # record the access into the demand plane (Alg. 3 injection)
         self.demand.observe(pattern.items, origin=origin, freq=1.0)
         return res
@@ -219,9 +259,10 @@ class GeoGraphStore:
 
         ``requests`` is a sequence of ``(pattern_or_items, origin)`` pairs;
         results align with the input order and match ``serve_online``
-        request-for-request.  The batch resolves through
+        request-for-request.  Stepwise routing resolves the batch through
         :func:`route_online_batch` on the store's device, where the size
-        gates pick the fused expansion.
+        gates pick the fused expansion; table-driven strategies fall back to
+        per-request table lookups on the host.
         """
         norm: List[Tuple[np.ndarray, int]] = []
         for req, origin in requests:
@@ -229,28 +270,94 @@ class GeoGraphStore:
             norm.append((items, int(origin)))
         t_serve = time.perf_counter()
         with self.tracer.span("store.serve_batch", track="store", size=len(norm)):
-            results = route_online_batch(
-                self.lg, self.state, norm, registry=self._registry,
-                device=self.device,
-            )
+            if self.routing_name == "stepwise":
+                # serving.* counters/histograms are emitted batch-granular
+                # inside route_online_batch, where the flat arrays live
+                results = route_online_batch(
+                    self.lg, self.state, norm, registry=self._registry,
+                    device=self.device,
+                )
+            else:
+                results = [self._route_by_table(it, o) for it, o in norm]
+                reg = self._reg()
+                if reg.enabled and results:
+                    self._observe_serving(reg, norm, results)
         self.last_serve_seconds = time.perf_counter() - t_serve
         if observe and norm:
             # heat injection grouped per origin inside the demand plane
             self.demand.observe_requests(norm)
         return results
 
+    def _observe_serving(self, reg, norm, results: List[RouteResult]) -> None:
+        """Serving-path counters for the table-driven fallback strategies
+        (the stepwise hot path emits these vectorized inside
+        :func:`route_online_batch`).  Per-link bytes are reconstructed from
+        Eq. 1 — the route result already paid for ``per_dc_latency``, so
+        ``(lat - rtt) * bw`` recovers each serving DC's byte volume with
+        scalar math (no re-aggregation of the batch)."""
+        reg.counter("serving.requests").inc(len(results))
+        env = self.env
+        wan_total = 0.0
+        by_link: Dict[Tuple[int, int], float] = {}
+        for (_, origin), r in zip(norm, results):
+            wan_total += r.wan_bytes
+            if r.wan_bytes <= 0.0:
+                continue
+            for dc, lat in r.per_dc_latency.items():
+                if dc == origin:
+                    continue
+                nbytes = (lat - env.rtt_s[dc, origin]) * env.bw_Bps[dc, origin]
+                key = (dc, origin)
+                by_link[key] = by_link.get(key, 0.0) + nbytes
+        reg.counter("serving.wan_bytes").inc(wan_total)
+        for (src, dst), nbytes in by_link.items():
+            reg.counter("serving.wan_bytes_link", src=src, dst=dst).inc(nbytes)
+        lat_h = reg.histogram("serving.request_latency_s")
+        for r in results:
+            lat_h.observe(r.latency_s)
+
+    def _route_by_table(self, items: np.ndarray, origin: int) -> RouteResult:
+        sizes = self.g.item_size()
+        served = self.state.route[items, origin].astype(np.int64)
+        per_dc: Dict[int, float] = {}
+        wan = 0.0
+        for dc in np.unique(served[served >= 0]):
+            s_d = float(sizes[items[served == dc]].sum())
+            per_dc[int(dc)] = self.env.request_latency(int(dc), origin, s_d)
+            if int(dc) != origin:
+                wan += s_d
+        return RouteResult(
+            served_by=served,
+            dcs=np.unique(served[served >= 0]),
+            latency_s=max(per_dc.values()) if per_dc else 0.0,
+            per_dc_latency=per_dc,
+            layers_used=0,
+            n_missing=int((served < 0).sum()),
+            wan_bytes=wan,
+        )
+
+    def plan_offline(
+        self, required_items: np.ndarray, n_iters: int = 15, msg_bytes: float = 16.0
+    ) -> OfflineLayout:
+        return route_offline(
+            self.lg, self.state, required_items, n_iters=n_iters, msg_bytes=msg_bytes
+        )
+
     # ---------------------------------------------------------- maintenance
     def _resync_route_index(self) -> None:
         """Re-adopt the routing table if external code orphaned the alias
         (a full ``state.route_nearest(env)`` replaces ``state.route``)."""
-        if self.state.route is not self.route_index.nearest:
+        if self.route_index is not None and self.state.route is not self.route_index.nearest:
             self.route_index.rebuild(self.state.delta)
             self.state.route = self.route_index.nearest
 
     def maintain(self, evict: bool = True, diffusion_steps: int = 4) -> Dict[str, float]:
         """Periodic maintenance: heat diffusion + cold-replica eviction
-        (Alg. 3), a routing refresh of the rows whose replica sets shrank,
-        and working off any warm-DHD residual."""
+        (Alg. 3), routing refresh, and working off any warm-DHD residual.
+
+        With a :class:`RouteIndex` the eviction refresh patches only the rows
+        whose replica sets actually shrank; the table routings re-derive the
+        whole table."""
         with self.tracer.span("store.maintain", track="store"):
             self._resync_route_index()
             evicted = 0
@@ -260,7 +367,10 @@ class GeoGraphStore:
                 if evict:
                     ids = cache.evict()
                     evicted += len(ids)
-                    self.route_index.drop_replicas(self.state.delta, ids, dc)
+                    if self.route_index is not None:
+                        self.route_index.drop_replicas(self.state.delta, ids, dc)
+            if self.route_index is None:
+                self.state.route_nearest(self.env)
             residual = 0.0
             if self._heat is not None and self._heat.heat is not None:
                 # budgeted apply_updates sweeps may leave the heat field short
@@ -305,7 +415,12 @@ class GeoGraphStore:
         )
         changed = np.where((self.state.delta != before).any(axis=1))[0]
         if len(changed):
-            self.route_index.patch_rows(self.state.delta, changed)
+            if self.route_index is not None:
+                self.route_index.patch_rows(self.state.delta, changed)
+            else:
+                from ..streaming.migration import _reroute_items
+
+                _reroute_items(self.state, self.env, changed)
         return changed
 
     # ----------------------------------------------------- workload updates
@@ -314,7 +429,10 @@ class GeoGraphStore:
         self._resync_route_index()
         ids = np.asarray(item_ids)
         self.state.delta[ids] = False
-        self.route_index.clear_rows(ids)
+        if self.route_index is not None:
+            self.route_index.clear_rows(ids)
+        else:
+            self.state.route[ids] = -1
 
     def insert_patterns(self, new_patterns: Sequence[Pattern]) -> None:
         """Full refresh: materialize new access patterns and re-run placement
@@ -329,8 +447,8 @@ class GeoGraphStore:
             self.workload.n_dcs,
         )
         self._placement_journal = self._fresh_journal()
-        self.state, pstats = self._place()
-        self._apply_routing()
+        self.state, pstats = self._place(self.placement_name, seed=0)
+        self._apply_routing(self.routing_name, seed=0)
         for cache in self.caches.values():
             cache.state = self.state
         self.stats.placement_stats = pstats
@@ -351,7 +469,15 @@ class GeoGraphStore:
         changed rows of the :class:`RouteIndex` are re-derived.
 
         Returns a report dict (changed rows, journal hit/miss counters,
-        wall time)."""
+        wall time).  Non-geolayer placements have no incremental structure
+        to exploit, and non-stepwise routing policies (random/greedy) derive
+        their whole table from the final placement — both fall back to
+        :meth:`insert_patterns` so the routing policy is never silently
+        mixed with nearest-replica patches.
+        """
+        if self.placement_name != "geolayer" or self.routing_name != "stepwise":
+            self.insert_patterns(new_patterns)
+            return {"fallback": "full", "n_new": len(new_patterns)}
         with self.tracer.span(
             "store.insert_patterns_incremental", track="store",
             n_new=len(new_patterns),
@@ -364,7 +490,9 @@ class GeoGraphStore:
             j = self._placement_journal
             hits0, miss0 = j.hits, j.misses
             with self.tracer.span("store.replay_placement", track="store"):
-                new_state, pstats = self._place(route=False)
+                new_state, pstats = self._place(
+                    self.placement_name, seed=0, route=False
+                )
             changed = np.where((new_state.delta != self.state.delta).any(axis=1))[0]
             self.state.delta[changed] = new_state.delta[changed]
             with self.tracer.span(
@@ -430,6 +558,7 @@ class GeoGraphStore:
             root.end()
 
     def _apply_updates_traced(self, batch, root) -> UpdateReport:
+        from ..streaming.migration import _reroute_items
         from ..streaming.mutation_log import DeltaGraph
 
         self._resync_route_index()
@@ -455,6 +584,8 @@ class GeoGraphStore:
         self._next_uid += len(born)
         self._placement_journal = self._fresh_journal()
         self.state.delta = grow_item_rows(self.state.delta, old_n, nv, ne, False)
+        if self.route_index is None:
+            self.state.route = grow_item_rows(self.state.route, old_n, nv, ne, -1)
         wl = self.workload
         r2 = grow_item_rows(wl.r_xy, old_n, nv, ne, 0.0)
         w2 = grow_item_rows(wl.w_xy, old_n, nv, ne, 0.0)
@@ -488,6 +619,8 @@ class GeoGraphStore:
             e = res.new_edge_ids
             self.state.delta[g2.n_nodes + e, g2.partition[g2.src[e]]] = True
         self.state.delta[dead_items] = False
+        if self.route_index is None:
+            self.state.route[dead_items] = -1
         r2[dead_items] = 0.0
         w2[dead_items] = 0.0
 
@@ -496,12 +629,16 @@ class GeoGraphStore:
         with self.tracer.span(
             "store.reroute", track="store", rows=int(len(changed))
         ):
-            # the index grows its own rows (edge block shifts by nv), clears
-            # the tombstoned ones and derives exactly the changed rows
-            self.route_index.apply_batch(
-                self.state.delta, old_n, nv, ne, changed, dead_items
-            )
-            self.state.route = self.route_index.nearest
+            if self.route_index is not None:
+                # the index grows its own rows (edge block shifts by nv),
+                # clears the tombstoned ones and derives exactly the changed
+                # rows
+                self.route_index.apply_batch(
+                    self.state.delta, old_n, nv, ne, changed, dead_items
+                )
+                self.state.route = self.route_index.nearest
+            else:
+                _reroute_items(self.state, self.env, changed)
 
         # --- warm-start DHD over the alive topology -----------------------
         # Migration planning only *ranks* items by heat, so the store runs a
@@ -627,8 +764,11 @@ class GeoGraphStore:
 
         # placement rows + route index
         self.state.delta = self.state.delta[keep]
-        self.route_index.take_rows(keep)
-        self.state.route = self.route_index.nearest
+        if self.route_index is not None:
+            self.route_index.take_rows(keep)
+            self.state.route = self.route_index.nearest
+        else:
+            self.state.route = self.state.route[keep]
 
         # workload: remap pattern items, row-select aggregated frequencies
         imap = np.full(old_n + len(emap), -1, dtype=np.int64)
@@ -822,9 +962,6 @@ class GeoGraphStore:
             on_wave=on_wave,
         )
         return plan
-
-    def plan_offline(self, *args, **kw):
-        raise NotImplementedError(f"plan_offline is not ported yet: {_OFFLINE_SLICE}")
 
     # -------------------------------------------------------------- costing
     def cost(self) -> CostBreakdown:

@@ -1,6 +1,5 @@
-"""Telemetry subsystem: metrics registry and span tracer (stdlib + numpy).
-
-The exporters of ``repro.obs.export`` come with a later slice."""
+"""Telemetry subsystem: metrics registry, span tracer, exporters (stdlib +
+numpy): Chrome trace-event JSON and a plain-text dashboard."""
 from .metrics import (
     Counter,
     Gauge,
@@ -12,6 +11,7 @@ from .metrics import (
     set_default_registry,
 )
 from .trace import Span, SpanRecord, Tracer
+from .export import export_chrome_trace, text_dashboard
 
 __all__ = [
     "Counter",
@@ -23,6 +23,8 @@ __all__ = [
     "Span",
     "SpanRecord",
     "Tracer",
+    "export_chrome_trace",
     "get_registry",
     "set_default_registry",
+    "text_dashboard",
 ]

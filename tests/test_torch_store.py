@@ -8,8 +8,10 @@
   (subset histogram, the tile version pinned through the autotuner, the
   kernel wrapper pinned through the autotuner) and on the numpy path — the
   contract of ``tests/test_route_kernel.py``;
-* ``maintain()`` leaves identical replica sets;
-* what the slice leaves out raises, naming the ROADMAP slice that brings it.
+* ``maintain()`` leaves identical replica sets.
+
+The competitor strategies and offline planning have their own files
+(``test_torch_baselines.py``, ``test_torch_offline.py``).
 """
 import numpy as np
 import pytest
@@ -169,33 +171,3 @@ def test_maintain_matches_jax(jax_store):
     np.testing.assert_array_equal(port.precache(), jax_store.precache())
     np.testing.assert_array_equal(port.state.delta, jax_store.state.delta)
     np.testing.assert_array_equal(port.route_index.nearest, jax_store.route_index.nearest)
-
-
-@pytest.mark.parametrize(
-    "call",
-    [
-        ("placement", "random"),
-        ("routing", "random"),
-        ("plan_offline", np.arange(3)),
-    ],
-    ids=lambda c: c[0],
-)
-def test_unported_strategies_name_their_slice(small_setup, small_store, call):
-    """What this slice leaves out raises, naming the ROADMAP slice that
-    brings it, and leaves the store as it was."""
-    from repro_torch.core.store import GeoGraphStore
-
-    g, env, csr, wl, pats = small_setup
-    name, arg = call
-    if name in ("placement", "routing"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GeoGraphStore(g, env, wl, device="cpu", **{name: arg})
-        return
-    store = store_from_numpy(
-        store_arrays(small_store), config=PlacementConfig(precache=True, dhd_steps=8),
-        device="cpu",
-    )
-    before = store.state.delta.copy()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice D"):
-        getattr(store, name)(arg)
-    np.testing.assert_array_equal(store.state.delta, before)
