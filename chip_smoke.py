@@ -109,6 +109,30 @@ Phases, each of which fails the run with a nonzero exit:
     rtol 1e-4 / atol 1e-7.  Prints ms an iteration (CUDA events around the
     whole call after a warm-up), edges a second, the byte bound of an
     iteration and the device's busy share under the profiler.
+15. The serving control plane over the sharded store (slices C and E) at
+    full width: a ``ShardedGeoGraphStore`` of the lane's inputs (5 shards,
+    int8 transfers, payload reads) beside an unsharded store from fresh
+    inputs of the same seeds, both on the card.  (a) Equal replica sets,
+    shard partitions equal to the coordinator, exact payloads; batches of
+    64, 256 and 1024 through the thread pool and serially, each
+    request-identical to the unsharded store and the numpy router; two
+    churn batches at 0.01, a flush in tight waves (``bench_scheduler.py``'s
+    window and thresholds) and ``maintain()``, with equal states, adds and
+    waves and payloads within 1/127.  (b) ``bench_scheduler.py``'s control
+    plane (adaptive batching, a migration flush, periodic ``maintain``)
+    over its bursty trace (8,192 requests) on each store: byte-identical
+    Chrome traces, equal batches and results, a wave applied on each.
+    (c) Per-shard AIMD on the sharded store over the mixed trace (8,192
+    requests), counts set to 0 just before and read just after, with the
+    route fast path pinned from 2 requests up (the one-shard drains of
+    that trace hold 1-3 requests on the lane, under the default gate of 64): every
+    drain request-identical to the numpy router, and the route expansion,
+    the batched and the single-field DHD pairs launched and held to their
+    plain versions on inputs recorded from the path.  Prints drain sizes
+    and wall times, sim-clock latencies by class, misses by cause, waves,
+    int8 against fp32 wire bytes by link, shard busy seconds, the
+    ``_sync_payloads`` time and one drain's device share, each beside the
+    card's name and power limit.
 
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
@@ -2323,6 +2347,574 @@ def analytics_phase(report: dict, lane_graph) -> None:
     print(f"phase 14 (graph analytics) wall {out['wall_s']:.1f} s", flush=True)
 
 
+# ------------------------------------------------------- slices C and E
+# bench_scheduler.py's trace seed and flush thresholds; requests a trace,
+# one shard a DC (the sharded store's default), phase 5's churn rate twice
+CP_SEED, CP_REQUESTS, CP_SHARDS = 13, 8192, 5
+CP_PLAN_KW = dict(theta_add=0.3, theta_drop=0.15)
+CP_CHURN = (0.01, 2)
+# the route fast path's request gate during path (c): one-shard drains of
+# the mixed trace hold 1-3 requests on the lane, never the default gate's 64
+CP_FAST_MIN_REQUESTS = 2
+
+
+def cp_trace(store, regime: str, n: int, seed: int = CP_SEED) -> list:
+    """``benchmarks/bench_scheduler.py::make_trace``: ``(t, items, origin,
+    priority, deadline)`` with the 65% home / 35% remote origin mix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pats = [p for p in store.workload.patterns if len(p.items)]
+
+    def pick():
+        p = pats[int(rng.integers(0, len(pats)))]
+        home = int(np.argmax(p.r_py))
+        return p.items, home if rng.random() < 0.65 else int(rng.integers(0, store.env.n_dcs))
+
+    out, t = [], 0.0
+    if regime == "bursty":  # 80-request bursts every 0.5 s, spread over 1 ms
+        while len(out) < n:
+            for _ in range(min(80, n - len(out))):
+                items, origin = pick()
+                out.append((t + float(rng.random()) * 1e-3, items, origin, 0, 0.5))
+            t += 0.5
+    elif regime == "mixed":  # 4 ms gaps; 70% interactive (0.3 s), 30% bulk (3.0 s)
+        for _ in range(n):
+            t += float(rng.exponential(0.004))
+            items, origin = pick()
+            out.append((t, items, origin, 0, 0.3) if rng.random() < 0.7
+                       else (t, items, origin, 1, 3.0))
+    else:
+        raise ValueError(regime)
+    return out
+
+
+def cp_window(store) -> float:
+    """``bench_scheduler.py:166-168``: a transfer window of three median
+    items over the slowest link, so a flush splits into many waves."""
+    import numpy as np
+
+    return 3.0 * float(np.median(store.g.item_size())) / float(store.env.bw_Bps_safe().min())
+
+
+class RouteRecorder:
+    """Installed over ``kernels.ops.route_expand_batch`` (the name the
+    routing fast path calls): passes every call on and keeps, as numpy, the
+    tiles of the widest call (most item slots)."""
+
+    def __init__(self, ops) -> None:
+        import threading
+
+        self.ops = ops
+        self.fn = ops.route_expand_batch
+        self.calls = 0
+        self.widest = None
+        self._lock = threading.Lock()  # shard threads may route at once
+
+    def __call__(self, bits, sizes, lens, origin, comp, rtt, ibw, device=None):
+        import numpy as np
+
+        def host(x):
+            return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+        prob = tuple(np.ascontiguousarray(host(x)) for x in (bits, sizes, lens, origin,
+                                                              comp, rtt, ibw))
+        with self._lock:
+            self.calls += 1
+            if self.widest is None or prob[0].shape[1] > self.widest[0].shape[1]:
+                self.widest = prob
+        return self.fn(bits, sizes, lens, origin, comp, rtt, ibw, device=device)
+
+    def __enter__(self) -> "RouteRecorder":
+        self.ops.route_expand_batch = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ops.route_expand_batch = self.fn
+
+
+class CheckedStore:
+    """What the admission controller of path (c) drives: the sharded store,
+    with every drain held to the numpy router on the state it was served
+    from, and the drain's wall time, size and shard busy seconds kept.
+    Every other attribute is the store's own."""
+
+    def __init__(self, store, sync) -> None:
+        self.store = store
+        self.sync = sync
+        self.wall_s, self.sizes, self.busy = [], [], {}
+        self.largest = None
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+    def serve_batch(self, requests, observe: bool = True):
+        from repro_torch.core.routing import route_online_batch
+
+        t = time.perf_counter()
+        got = self.store.serve_batch(requests, observe=observe)
+        self.sync()
+        self.wall_s.append(time.perf_counter() - t)
+        self.sizes.append(len(requests))
+        for sid, dt in self.store.last_shard_seconds.items():
+            self.busy[sid] = self.busy.get(sid, 0.0) + dt
+        if self.largest is None or len(requests) > len(self.largest):
+            self.largest = list(requests)
+        want = route_online_batch(self.store.lg, self.store.state, requests, fast=False)
+        if not same_results(got, want):
+            fail(f"control plane: a drain of {len(requests)} requests differs from the "
+                 f"numpy router")
+        return got
+
+
+def link_bytes(snapshot: dict) -> dict:
+    """``migration.device_bytes_link`` cells of a metrics snapshot by link."""
+    return {tag: cell["value"]
+            for tag, cell in snapshot.get("migration.device_bytes_link", {}).items()}
+
+
+def run_controller(store, trace, config, window, waves: list):
+    """The control plane of ``bench_scheduler.py:171-186`` over ``trace``:
+    an ``AdmissionController`` with ``config`` and a ``MaintenancePolicy``
+    (flush armed, periodic ``maintain``); ``waves`` receives each applied
+    wave's per-link item counts.  Returns ``(controller, policy, handles)``."""
+    from repro_torch.serve import (
+        AdmissionController,
+        MaintenanceConfig,
+        MaintenancePolicy,
+        StoreClient,
+    )
+
+    def measure(wave):  # the policy's own default: the Eq. 1 estimate
+        waves.append([(b.src, b.dst, len(b.items)) for b in wave.links])
+        return wave.makespan_s
+
+    policy = MaintenancePolicy(
+        store.store if isinstance(store, CheckedStore) else store,
+        MaintenanceConfig(window_s=window, plan_kw=dict(CP_PLAN_KW), maintain_every_s=1.0,
+                          maintain_cost_s=1e-4),
+        measure_wave=measure)
+    ctl = AdmissionController(store, config, policy=policy)
+    client = StoreClient(ctl)
+    policy.request_flush()
+    for t, items, origin, prio, deadline in trace:
+        client.submit(items, origin, deadline_s=deadline, priority=prio, at=t)
+    done = ctl.run_until_idle()
+    if len(done) != len(trace):
+        fail(f"control plane: {len(done)} of {len(trace)} requests completed")
+    return ctl, policy, done
+
+
+def same_state(sh, flat, step: str, payload_tol: float) -> float:
+    """Path (a)'s invariants after ``step``: equal replica sets and routes,
+    every shard partition equal to its coordinator column, every held
+    payload row within ``payload_tol`` of its content.  Returns the payload
+    deviation."""
+    import numpy as np
+
+    if not np.array_equal(sh.state.delta, flat.state.delta):
+        fail(f"control plane, {step}: replica sets of the sharded and unsharded stores differ")
+    if not (np.array_equal(sh.route_table(), sh.state.route)
+            and np.array_equal(sh.state.route, flat.state.route)):
+        fail(f"control plane, {step}: route_table(), state.route or the unsharded routes differ")
+    if not sh.verify_partitions():
+        fail(f"control plane, {step}: a shard partition differs from its coordinator column")
+    dev = sh.verify_payloads()
+    if not dev <= payload_tol:
+        fail(f"control plane, {step}: payload deviation {dev} above {payload_tol}")
+    return dev
+
+
+def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> dict:
+    """Paths (a)-(c) of phase 15 on ``device``; returns the stores, the
+    results and what ``recording()`` (a context manager around path (c))
+    gave.  Counts are set to 0 just before path (c) and read just after."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.placement import PlacementConfig
+    from repro_torch.core.routing import (
+        RouteFastConfig,
+        get_route_fast_config,
+        route_online_batch,
+        set_route_fast_config,
+    )
+    from repro_torch.core.store import GeoGraphStore
+    from repro_torch.distributed import ShardedGeoGraphStore
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
+    from repro_torch.obs import export_chrome_trace
+    from repro_torch.serve import AdmissionConfig
+    from repro_torch.streaming import DeltaGraph, random_churn_batch
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    out: dict = {}
+    # (a) identity: build both stores from fresh inputs of the same seeds
+    t = time.perf_counter()
+    sh = ShardedGeoGraphStore(*inputs_fn(), config=PlacementConfig(), n_shards=CP_SHARDS,
+                              fetch_payload=True, telemetry=True, compress="int8",
+                              device=device)
+    sync()
+    out["build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    flat = GeoGraphStore(*inputs_fn(), config=PlacementConfig(), device=device)
+    sync()
+    out["flat_build_s"] = time.perf_counter() - t
+    if sh.verify_payloads() != 0.0:
+        fail("control plane, build: a payload row differs from its content")
+    same_state(sh, flat, "build", 0.0)
+    say(f"sharded store ({CP_SHARDS} shards on {sorted({str(s.device) for s in sh.shards})}, "
+        f"{sh.g.n_items} items, int8 transfers) built in {out['build_s']:.3f} s, unsharded "
+        f"in {out['flat_build_s']:.3f} s: equal replica sets and routes, partitions equal "
+        f"to the coordinator, payloads exact")
+    serve = []
+    pool = sh._pool
+    for bs in BATCHES:
+        reqs = request_stream(flat, bs, seed=bs)
+        t = time.perf_counter()
+        got = sh.serve_batch(reqs, observe=False)
+        pool_s = time.perf_counter() - t
+        busy = dict(sh.last_shard_seconds)
+        sh._pool = None  # the same store dispatching its shards serially
+        try:
+            t = time.perf_counter()
+            serial = sh.serve_batch(reqs, observe=False)
+            serial_s = time.perf_counter() - t
+            busy_serial = dict(sh.last_shard_seconds)
+        finally:
+            sh._pool = pool
+        want = flat.serve_batch(reqs, observe=False)
+        numpy = route_online_batch(flat.lg, flat.state, reqs, fast=False)
+        for name, res in (("the thread pool", got), ("serial dispatch", serial),
+                          ("the unsharded store", want)):
+            if not same_results(res, numpy):
+                fail(f"control plane: serve_batch({bs}) through {name} differs from the "
+                     f"numpy router")
+        row = {"batch": bs, "pool_s": pool_s, "serial_s": serial_s}
+        # bench_sharded.py's rates from the shards' busy seconds, under the
+        # pool (threads share the interpreter) and under serial dispatch
+        for name, b in (("pool", busy), ("serial_dispatch", busy_serial)):
+            row[name] = {"busy_sum_s": sum(b.values()), "busy_max_s": max(b.values()),
+                         "serial_rps": bs / sum(b.values()),
+                         "aggregate_rps": bs / max(b.values())}
+        serve.append(row)
+        say(f"serve_batch({bs}): request-identical to the numpy router through the thread "
+            f"pool ({pool_s * 1e3:.3f} ms), serially ({serial_s * 1e3:.3f} ms) and on the "
+            f"unsharded store; " + "; ".join(
+                f"{name}: shard busy sum {r['busy_sum_s'] * 1e3:.3f} ms, max "
+                f"{r['busy_max_s'] * 1e3:.3f} ms, serial {r['serial_rps']:.1f}, aggregate "
+                f"{r['aggregate_rps']:.1f} requests/s"
+                for name, r in ((k, row[k]) for k in ("pool", "serial_dispatch"))))
+    out["serve"] = serve
+    rate, n_batches = CP_CHURN
+    streams = {}
+    for s in (sh, flat):
+        s._delta_graph = DeltaGraph(s.g)
+        streams[id(s)] = np.random.default_rng(7)
+    out["churn"] = []
+    for i in range(n_batches):
+        row = {}
+        for name, s in (("sharded", sh), ("flat", flat)):
+            batch = random_churn_batch(s._delta_graph, rate, streams[id(s)])
+            t = time.perf_counter()
+            s.apply_updates(batch)
+            sync()
+            row[f"{name}_apply_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        sh._sync_payloads()  # what apply_updates ran last, timed alone
+        sync()
+        row["sync_payloads_s"] = time.perf_counter() - t
+        row["payload_dev"] = same_state(sh, flat, f"churn batch {i + 1}", 1.0 / 127)
+        out["churn"].append(row)
+        say(f"churn batch {i + 1} at {rate:g}: sharded apply_updates {row['sharded_apply_s']:.3f}"
+            f" s, unsharded {row['flat_apply_s']:.3f} s; _sync_payloads "
+            f"{row['sync_payloads_s'] * 1e3:.3f} ms ({len(sh.shards)} blocks of "
+            f"{sh.g.n_items} x {sh.payload_width} f32); states equal")
+    window = cp_window(flat)
+    t = time.perf_counter()
+    p_sh = sh.flush_migrations(window_s=window, **CP_PLAN_KW)
+    sync()
+    flush_s = time.perf_counter() - t
+    p_flat = flat.flush_migrations(window_s=window, **CP_PLAN_KW)
+    if (p_sh.n_adds, p_sh.schedule.n_waves) != (p_flat.n_adds, p_flat.schedule.n_waves):
+        fail(f"control plane, flush: the sharded store planned {p_sh.n_adds} adds in "
+             f"{p_sh.schedule.n_waves} waves, the unsharded {p_flat.n_adds} in "
+             f"{p_flat.schedule.n_waves}")
+    dev = same_state(sh, flat, "flush", 1.0 / 127)
+    m_sh, m_flat = sh.maintain(), flat.maintain()
+    if m_sh != m_flat:
+        fail(f"control plane, maintain: {m_sh} against the unsharded store's {m_flat}")
+    dev = max(dev, same_state(sh, flat, "maintain", 1.0 / 127))
+    out["flush"] = {"window_s": window, "adds": p_sh.n_adds, "waves": p_sh.schedule.n_waves,
+                    "flush_s": flush_s, "payload_dev": dev, "maintain": m_sh}
+    say(f"flush (window {window:.3g} s): {p_sh.n_adds} adds in {p_sh.schedule.n_waves} "
+        f"waves on both stores, {flush_s:.3f} s sharded; maintain() {m_sh} on both; payload "
+        f"deviation {dev:.3g} (bound 1/127)")
+
+    # (b) the control plane over each store on one bursty trace
+    trace = cp_trace(flat, "bursty", n_req)
+    runs = {}
+    for name, s in (("flat", flat), ("sharded", sh)):
+        before = link_bytes(s.merged_metrics()) if name == "sharded" else {}
+        waves: list = []
+        t = time.perf_counter()
+        ctl, policy, done = run_controller(s, trace, AdmissionConfig(policy="adaptive"),
+                                           window, waves)
+        sync()
+        wall = time.perf_counter() - t
+        text = export_chrome_trace(ctl.tracer)
+        runs[name] = (ctl, policy, done, text)
+        if policy.n_waves < 1:
+            fail(f"control plane, bursty trace on the {name} store: no migration wave applied")
+        out[f"bursty_{name}"] = {
+            "wall_s": wall, "sha256": hashlib.sha256(text.encode()).hexdigest(),
+            "metrics": ctl.metrics(), "policy": policy.stats(),
+            "waves_by_link_items": _items_by_link(waves)}
+        if name == "sharded":
+            out["bursty_sharded"]["device_bytes_link"] = _diff(
+                link_bytes(s.merged_metrics()), before)
+    (c1, p1, d1, t1), (c2, p2, d2, t2) = runs["flat"], runs["sharded"]
+    if t1 != t2:
+        fail("control plane, bursty trace: the chrome traces of the two stores differ")
+    if [(h.rid, h.t_dispatch) for h in d1] != [(h.rid, h.t_dispatch) for h in d2] or [
+            (b.t_dispatch, b.size, b.target) for b in c1.history] != [
+            (b.t_dispatch, b.size, b.target) for b in c2.history]:
+        fail("control plane, bursty trace: the formed batches of the two stores differ")
+    same_state(sh, flat, "bursty trace", 1.0 / 127)
+    alone, rel = bursty_results_match(d1, d2)
+    out["bursty_alone_in_sub_batch"] = {"requests": alone, "max_rel_dev": rel}
+    say(f"bursty trace ({n_req} requests, adaptive): chrome traces byte-identical (sha256 "
+        f"{out['bursty_sharded']['sha256'][:16]}), {c2.metrics()['n_batches']} equal batches, "
+        f"results equal (floats of the {alone} requests alone in their origin's sub-batch "
+        f"within rtol {SCALAR_RTOL:g}, max {rel:.3g}: the scalar router sums bytes in f32), "
+        f"{p2.n_waves} waves and {p2.n_maintains} maintains on each store (flush in progress "
+        f"at the end: {p2.flush_in_progress}; int8 wire bytes by link "
+        f"{out['bursty_sharded']['device_bytes_link']} against fp32 "
+        f"{_fp32_bytes(out['bursty_sharded']['waves_by_link_items'], sh.payload_width)}); wall "
+        f"{out['bursty_flat']['wall_s']:.2f} s unsharded, {out['bursty_sharded']['wall_s']:.2f}"
+        f" s sharded")
+
+    # (c) per-shard AIMD on the sharded store over the mixed trace: the
+    # kernels' path, every drain held to the numpy router
+    trace = cp_trace(flat, "mixed", n_req)
+    checked = CheckedStore(sh, sync)
+    before = link_bytes(sh.merged_metrics())
+    wave_s0 = sh.registry.snapshot().get("migration.device_wave_s", {}).get("-", {})
+    waves = []
+    old = get_route_fast_config()
+    set_route_fast_config(RouteFastConfig(min_requests=CP_FAST_MIN_REQUESTS))
+    try:
+        with recording(sh) as recorded:
+            reset_launch_counters()
+            t = time.perf_counter()
+            ctl, policy, done = run_controller(
+                checked, trace, AdmissionConfig(policy="adaptive", per_shard_aimd=True,
+                                                max_batch=256), window, waves)
+            sync()
+            wall = time.perf_counter() - t
+            launches = launch_counts()
+    finally:
+        set_route_fast_config(old)
+    m = ctl.metrics()
+    sizes = np.asarray(checked.sizes)
+    lat = {p: np.asarray([h.latency_s for h in done if h.priority == p]) for p in (0, 1)}
+    wave_s1 = sh.registry.snapshot().get("migration.device_wave_s", {}).get("-", {})
+    dev_wave_s = wave_s1.get("sum", 0.0) - wave_s0.get("sum", 0.0)
+    busy = checked.busy
+    c = {
+        "wall_s": wall, "launches": launches, "metrics": m, "policy": policy.stats(),
+        "drains": int(len(sizes)), "drain_median_wall_s": float(np.median(checked.wall_s)),
+        "drain_wall_s_p99": float(np.quantile(checked.wall_s, 0.99)),
+        "drain_sizes": {str(k): int(v) for k, v in zip(*np.unique(sizes, return_counts=True))},
+        "drains_at_default_gate": int((sizes >= old.min_requests).sum()),
+        "sim_p50_p99_s": {("interactive", "bulk")[p]: [float(np.quantile(v, 0.5)),
+                                                       float(np.quantile(v, 0.99))]
+                          for p, v in lat.items() if len(v)},
+        "device_wave_s": dev_wave_s,
+        "waves_by_link_items": _items_by_link(waves),
+        "device_bytes_link": _diff(link_bytes(sh.merged_metrics()), before),
+        "busy_sum_s": sum(busy.values()), "busy_max_s": max(busy.values()),
+        "serial_rps": len(done) / sum(busy.values()),
+        "aggregate_rps": len(done) / max(busy.values()),
+        "straggler": sh.straggler.snapshot(),
+    }
+    out["control_plane"] = c
+    fp32 = _fp32_bytes(c["waves_by_link_items"], sh.payload_width)
+    say(f"path (c), per-shard AIMD over the mixed trace ({n_req} requests): {c['drains']} "
+        f"drains, each request-identical to the numpy router; drain wall median "
+        f"{c['drain_median_wall_s'] * 1e3:.3f} ms (p99 {c['drain_wall_s_p99'] * 1e3:.3f}); "
+        f"drain sizes {c['drain_sizes']} ({c['drains_at_default_gate']} at or above the "
+        f"default gate of {old.min_requests}; the route fast path was pinned from "
+        f"{CP_FAST_MIN_REQUESTS} requests up); wall {wall:.2f} s")
+    say(f"path (c): sim-clock p50/p99 by class {c['sim_p50_p99_s']}; deadline misses "
+        f"{m['deadline_misses']} by cause {m['misses_by_cause']}; targets by shard "
+        f"{m.get('batch_target_by_shard')}; flagged shards {m.get('straggler_shards')}")
+    say(f"path (c): {policy.n_waves} waves, {policy.n_maintains} maintains, device wave "
+        f"seconds {dev_wave_s:.4f}; int8 wire bytes by link {c['device_bytes_link']} against "
+        f"fp32 {fp32}; shard busy sum {c['busy_sum_s']:.3f} s, max {c['busy_max_s']:.3f} s: "
+        f"serial {c['serial_rps']:.1f}, aggregate {c['aggregate_rps']:.1f} requests/s")
+    say(f"path (c) launches: {launches}")
+    return {"store": sh, "flat": flat, "out": out, "launches": launches,
+            "recorded": recorded, "largest_drain": checked.largest}
+
+
+# a request alone in its origin's sub-batch of a sharded drain takes the
+# scalar router, which sums item bytes in f32 where the batch router's fold
+# sums them in f64 (as in the JAX package): its latencies and WAN bytes
+# agree with the unsharded batch to f32 summation, not to the bit
+SCALAR_RTOL = 1e-5
+
+
+def bursty_results_match(flat_done, sharded_done) -> tuple:
+    """Path (b)'s results, request by request: picks, layers, misses and
+    DCs equal; latencies and WAN bytes equal, except for requests alone in
+    their origin's sub-batch of a drain of several requests, which hold
+    within ``SCALAR_RTOL``.  Returns (how many such requests, their largest
+    relative deviation)."""
+    import numpy as np
+
+    drains: dict = {}
+    for h in sharded_done:
+        drains.setdefault(h.t_dispatch, []).append(h.origin)
+    alone, worst = 0, 0.0
+    for hf, hs in zip(flat_done, sharded_done):
+        a, b = hf.result, hs.result
+        if not (np.array_equal(a.served_by, b.served_by) and a.layers_used == b.layers_used
+                and a.n_missing == b.n_missing
+                and np.array_equal(np.sort(a.dcs), np.sort(b.dcs))
+                and sorted(a.per_dc_latency) == sorted(b.per_dc_latency)):
+            fail(f"control plane, bursty trace: request {hs.rid}'s picks differ between "
+                 f"the stores")
+        floats = [(a.latency_s, b.latency_s), (a.wan_bytes, b.wan_bytes)] + [
+            (a.per_dc_latency[d], b.per_dc_latency[d]) for d in a.per_dc_latency]
+        if all(x == y for x, y in floats):
+            continue
+        origins = drains[hs.t_dispatch]
+        if len(origins) < 2 or origins.count(hs.origin) != 1:
+            fail(f"control plane, bursty trace: request {hs.rid}'s latencies differ between "
+                 f"the stores, and it was not alone in its origin's sub-batch")
+        rel = max(abs(x - y) / max(abs(x), 1e-30) for x, y in floats)
+        if rel > SCALAR_RTOL:
+            fail(f"control plane, bursty trace: request {hs.rid}, alone in its sub-batch, "
+                 f"deviates by {rel:.3g} (rtol {SCALAR_RTOL:g})")
+        alone, worst = alone + 1, max(worst, rel)
+    return alone, worst
+
+
+def _items_by_link(waves: list) -> dict:
+    by: dict = {}
+    for wave in waves:
+        for src, dst, n in wave:
+            key = f"src={src},dst={dst}"
+            by[key] = by.get(key, 0) + n
+    return by
+
+
+def _fp32_bytes(items_by_link: dict, width: int) -> dict:
+    """What the same transfers would put on the wire uncompressed."""
+    return {k: n * width * 4 for k, n in items_by_link.items()}
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items() if v - before.get(k, 0.0)}
+
+
+# the kernels path (c) must launch: the route expansion, the batched DHD
+# pair (maintain's 5 heat fields) and the single-field pair (the warm field)
+CP_KERNELS = MAIN_KERNELS + SINGLE_KERNELS
+
+
+def control_plane_phase(report: dict, card: str) -> dict:
+    """Phase 15: slices C and E at full width on the card.  Returns the
+    control-plane path's launches by kernel."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core.routing import (
+        RouteFastConfig,
+        get_route_fast_config,
+        set_route_fast_config,
+    )
+    from repro_torch.kernels import ops
+
+    def say(msg: str) -> None:
+        print(f"[{card}] {msg}", flush=True)
+
+    @contextlib.contextmanager
+    def recording(store):
+        with DHDRecorder(ops) as dhd, SweepRecorder(ops, store) as sweep, \
+                RouteRecorder(ops) as route:
+            dhd.phase = sweep.phase = "control plane"
+            yield {"dhd": dhd, "sweep": sweep, "route": route}
+
+    t_phase = time.perf_counter()
+    res = _drive_control_plane(build_inputs, DEVICE, CP_REQUESTS, say, recording)
+    sh, out, launches, rec = res["store"], res["out"], res["launches"], res["recorded"]
+    for name in CP_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the control-plane path: {launches}")
+
+    r = check_route_expand("control plane, widest tile", rec["route"].widest, timed=True)
+    checks = {"route_expand": r}
+    say(f"route_expand on path (c)'s widest tile {r['shape']} (R, K, D, L; slots_instance "
+        f"{r['slots_instance']}): exact, max abs err {r['max_abs_err']:.3g}, kernel "
+        f"{r['ms']:.4f} ms (host loop {r['host_loop_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.3g} ms; {rec['route'].calls} launches recorded")
+    dkey = ("control plane", sh.env.n_dcs, False)
+    if dkey not in rec["dhd"].kept:
+        fail(f"path (c) ran no batched DHD step over the per-DC heat fields: "
+             f"{sorted(rec['dhd'].kept)}")
+    heat, cols, vals, q, params = rec["dhd"].kept[dkey]
+    d = check_dhd(f"control plane maintain, call {min(rec['dhd'].calls[dkey], rec['dhd'].KEEP_AT)}"
+                  f" of {rec['dhd'].calls[dkey]}", heat, cols, vals, q, params)
+    checks["dhd"] = d
+    say(f"dhd {d['case']} {d['shape']}: counts equal, flows within atol 1e-5 / rtol 1e-4 "
+        f"(max abs err {d['flow']['max_abs_err']:.3g}); count kernel {d['count']['ms']:.4f} ms "
+        f"(bound {d['count']['bound_ms']:.5f}), flow kernel {d['flow']['ms']:.4f} ms (bound "
+        f"{d['flow']['bound_ms']:.5f})")
+    skeys = sorted(k for k in rec["sweep"].kept if k[1] == "global")
+    if not skeys:
+        fail(f"path (c) ran no single-field sweep: {sorted(rec['sweep'].kept)}")
+    skey = skeys[-1]
+    heat, cols, vals, q, params = rec["sweep"].kept[skey]
+    d1 = check_dhd_single(f"control plane, {skey[1]} sweep, call "
+                          f"{min(rec['sweep'].calls[skey], rec['sweep'].KEEP_AT)} of "
+                          f"{rec['sweep'].calls[skey]}", heat, cols, vals, q, params)
+    checks["dhd_single"] = d1
+    say(f"dhd single {d1['case']} {d1['shape']}: counts equal, flows within atol 1e-5 / "
+        f"rtol 1e-4 (max abs err {d1['flow']['max_abs_err']:.3g}); count kernel "
+        f"{d1['count']['ms']:.4f} ms (bound {d1['count']['bound_ms']:.5f}), flow kernel "
+        f"{d1['flow']['ms']:.4f} ms (bound {d1['flow']['bound_ms']:.5f})")
+
+    # one drain of path (c) under the profiler, with path (c)'s routing gate
+    drain = res["largest_drain"]
+    old = get_route_fast_config()
+    set_route_fast_config(RouteFastConfig(min_requests=CP_FAST_MIN_REQUESTS))
+    try:
+        sh.serve_batch(drain, observe=False)
+        torch.cuda.synchronize()
+        wall_ms, busy_ms, by_kind, _ = profiled(lambda: sh.serve_batch(drain, observe=False),
+                                                reps=5)
+    finally:
+        set_route_fast_config(old)
+    out["drain_profile"] = {"requests": len(drain), "wall_ms_profiled": wall_ms,
+                            "device_ms": busy_ms, "device_share": busy_ms / wall_ms,
+                            "by_kind_ms": by_kind}
+    say(f"one drain of {len(drain)} requests under the profiler: device busy {busy_ms:.4f} ms "
+        f"of {wall_ms:.3f} ms, share {busy_ms / wall_ms:.4f}; "
+        + ", ".join(f"{k.strip()} {v:.4f}" for k, v in by_kind.items()))
+    out["checks"] = checks
+    out["wall_s"] = time.perf_counter() - t_phase
+    report["control_plane"] = out
+    say(f"phase 15 (control plane over the sharded store) wall {out['wall_s']:.1f} s")
+    return {k: launches.get(k, 0) for k in CP_KERNELS}
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_attn_wgmma_kernel<2>`` from its Itanium-mangled name: the last
     component of the nested name, with its template arguments (integers,
@@ -2432,6 +3024,13 @@ def main() -> None:
     offline_phase(report, geo)
     del geo
     analytics_phase(report, inputs[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cp_launches = control_plane_phase(report, card)
+    for r in table:
+        if r["name"] in cp_launches:
+            paths = r.setdefault("launches_by_path", {"streaming": r["launches"]})
+            paths["control_plane"] = cp_launches[r["name"]]
 
     for r in table:
         r["launch_floor_ms"] = floor_ms

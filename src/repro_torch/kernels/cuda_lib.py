@@ -8,6 +8,9 @@ The library lands in ``build/`` at the repository root under a name derived
 from the sources' content, so an edited source rebuilds and an unchanged one
 is reused.
 
+Shards of a sharded store launch from several threads at once, so the
+library is built and loaded under a lock, and a counter's bump takes one.
+
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a nonzero code into an exception.
 """
@@ -20,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -72,9 +76,17 @@ class LaunchCounter:
     def __init__(self, name: str) -> None:
         self.name = name
         self.n = 0
+        self._lock = threading.Lock()
+
+    def bump(self) -> None:
+        """Count one launch (``n += 1`` is a read-modify-write that two
+        launching threads could interleave)."""
+        with self._lock:
+            self.n += 1
 
     def reset(self) -> None:
-        self.n = 0
+        with self._lock:
+            self.n = 0
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}
@@ -116,6 +128,7 @@ class KernelLibrary:
         self.build_s = 0.0  # seconds spent compiling in this process (0 = reused)
         self.build_log = ""  # nvcc's ptxas report (registers, spills)
         self.path: Optional[pathlib.Path] = None
+        self._lock = threading.Lock()  # one build and one load per process
 
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -153,7 +166,11 @@ class KernelLibrary:
         self.build_s = time.perf_counter() - t0
 
     def get(self) -> ctypes.CDLL:
-        if self._lib is None:
+        if self._lib is not None:
+            return self._lib
+        with self._lock:
+            if self._lib is not None:  # another thread built it meanwhile
+                return self._lib
             out = BUILD_DIR / f"repro_torch_kernels_{self._digest()}.so"
             if not out.exists():
                 self._build(out)
@@ -162,7 +179,8 @@ class KernelLibrary:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-            self._lib, self.path = lib, out
+            self.path = out
+            self._lib = lib  # published last: a reader never sees it half set up
         return self._lib
 
 

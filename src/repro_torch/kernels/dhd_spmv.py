@@ -112,7 +112,7 @@ def dhd_ell_step_batch(
             ),
             "dhd_count_batch",
         )
-        COUNT_LAUNCHES.n += 1
+        COUNT_LAUNCHES.bump()
         check(
             lib.dhd_flow_batch(
                 heat.data_ptr(), nout.data_ptr(), cols.data_ptr(), vals.data_ptr(),
@@ -121,7 +121,7 @@ def dhd_ell_step_batch(
             ),
             "dhd_flow_batch",
         )
-        FLOW_LAUNCHES.n += 1
+        FLOW_LAUNCHES.bump()
     return out
 
 
@@ -154,7 +154,7 @@ def dhd_ell_step(
             ),
             "dhd_count_single",
         )
-        COUNT_SINGLE_LAUNCHES.n += 1
+        COUNT_SINGLE_LAUNCHES.bump()
         check(
             lib.dhd_flow_single(
                 heat.data_ptr(), nout.data_ptr(), cols.data_ptr(), vals.data_ptr(),
@@ -163,5 +163,5 @@ def dhd_ell_step(
             ),
             "dhd_flow_single",
         )
-        FLOW_SINGLE_LAUNCHES.n += 1
+        FLOW_SINGLE_LAUNCHES.bump()
     return out

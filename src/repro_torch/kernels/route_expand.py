@@ -131,5 +131,5 @@ def route_expand(
             ),
             "route_expand_launch",
         )
-        LAUNCHES.n += 1
+        LAUNCHES.bump()
     return served, bytes_rd, layers_used, miss_after, straggler, wan
