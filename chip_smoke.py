@@ -133,6 +133,31 @@ Phases, each of which fails the run with a nonzero exit:
     int8 against fp32 wire bytes by link, shard busy seconds, the
     ``_sync_payloads`` time and one drain's device share, each beside the
     card's name and power limit.
+16. Slice F2, dense/GQA LM serving and BST (between phases 10 and 11;
+    F1's model is released first), counts set to 0 just before each
+    engine runs and read just after.  (a) ``gemma3-27b`` at full width (62
+    layers, GQA 32/16, head width 128, a 1,024-token window on five of
+    every six layers, 27.0 B parameters, bf16, seed 0) behind
+    ``Engine(4, 2048)``: 8 requests of 96-1,900 prompt tokens (four past
+    the window), 16 new tokens each; every request completes with finite
+    logits and every prefill launches ``flash_attention`` once a layer
+    (496, 416 of them windowed).  Prints tokens/s, prefill ms by length,
+    decode-step ms beside the weights-read floor, peak memory, and one
+    1,900-token prefill and one decode step under the profiler.  (b) A
+    6-layer full-width f32 gemma3 (5 local, 1 global), one 1,300-token
+    prefill with the kernel against the plain attention, within
+    atol/rtol 1e-3.  (d) ``qwen3-0.6b``, ``yi-6b`` and
+    ``granite-moe-3b-a800m`` at full width, each in ``Engine(4, 1024)``
+    serving 4 requests of 64-605 tokens, 8 new tokens each, with a launch
+    in every prefill layer.  (c) The kernel on the q, k, v recorded from
+    (a) (layers 0 and 5 at 1,900 tokens) and (d) (layer 0 at 605) within
+    phase 10's tolerances, graph-replayed in turns with SDPA
+    (``enable_gqa``; an explicit mask for the window) beside its bound.
+    (e) BST at full width (2^22 x 32 items, 16,384 categories, Zipf(1.1)
+    ids): ``bst_forward`` at 512 and 262,144, user state and retrieval
+    over 1,000,448 candidates, held against the host (batch 512,
+    retrieval) and the bulk batch's first rows against batch 512 within
+    2e-2; ms a call and peak memory.
 
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
@@ -198,6 +223,20 @@ E2E_TOL = dict(atol=1e-3, rtol=1e-3)
 BAG_V, BAG_D, BAG_L = 1 << 22, 32, 20
 BAG_BATCHES = (512, 262_144)
 BAG_TOL = dict(atol=1e-4, rtol=1e-4)
+# phase 16, slice F2: gemma3-27b (GQA, 5 local : 1 global) at full width,
+# 8 prompts of which four outrun the 1,024-token window
+GQA_ARCH = "gemma3-27b"
+GQA_SLOTS, GQA_MAX_LEN, GQA_NEW = 4, 2048, 16
+GQA_PROMPTS = (1900, 96, 1300, 605, 1025, 350, 1717, 777)
+GQA_E2E_LAYERS, GQA_E2E_TOKENS = 6, 1300
+# the other GQA archs, each in its own engine
+GQA_OTHERS = ("qwen3-0.6b", "yi-6b", "granite-moe-3b-a800m")
+GQA_OTHER_SLOTS, GQA_OTHER_MAX_LEN, GQA_OTHER_NEW = 4, 1024, 8
+GQA_OTHER_PROMPTS = (605, 64, 389, 235)
+# BST at RECSYS_SHAPES' serving batches and retrieval candidates (pad_to 512)
+BST_BATCHES = (512, 262_144)
+BST_CANDIDATES = 1_000_448
+BST_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 def fail(msg: str) -> None:
@@ -1265,21 +1304,29 @@ def cpu_build_diff(inputs, built_delta, report: dict) -> None:
 
 # ---------------------------------------------------------------- slice F1
 class AttentionRecorder:
-    """Installed over ``kernels.ops.attention`` (the name the MLA prefill
-    calls) for the LM serving run: passes every call on unchanged and keeps
-    q, k, v of layer 0 of each prefill (every ``n_layers``-th call), keyed
-    by prompt length.  Prefill never writes into them."""
+    """Installed over ``kernels.ops.attention`` (the name every LM prefill
+    calls on the card) for an LM serving run: passes every call on
+    unchanged, counts the calls by (layer, window), and keeps q, k, v of
+    layer 0 of each prefill (every ``n_layers``-th call) in ``kept`` and
+    those of each of ``layers`` in ``kept_by_layer``, keyed by prompt
+    length.  Prefill never writes into them."""
 
-    def __init__(self, ops, n_layers: int) -> None:
+    def __init__(self, ops, n_layers: int, layers=(0,)) -> None:
+        import collections
+
         self.ops = ops
         self.fn = ops.attention
         self.n_layers = n_layers
         self.calls = 0
-        self.kept: dict = {}
+        self.kept_by_layer: dict = {layer: {} for layer in layers}
+        self.kept = self.kept_by_layer.setdefault(0, {})
+        self.by_layer_window = collections.Counter()
 
     def __call__(self, q, k, v, causal=True, window=None):
-        if self.calls % self.n_layers == 0:
-            self.kept[int(q.shape[2])] = (q, k, v, causal, window)
+        layer = self.calls % self.n_layers
+        if layer in self.kept_by_layer:
+            self.kept_by_layer[layer][int(q.shape[2])] = (q, k, v, causal, window)
+        self.by_layer_window[(layer, window)] += 1
         self.calls += 1
         return self.fn(q, k, v, causal=causal, window=window)
 
@@ -1336,6 +1383,12 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
+def _tree_to(tree, device):
+    """A copy of nested dicts of tensors on ``device``."""
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def lm_serving_phase(report: dict) -> dict:
     """Phase 8: ``deepseek-v2-lite-16b`` at full width in bf16 (random
     weights drawn on the card from seed 0), served through ``Engine`` with
@@ -1347,88 +1400,57 @@ def lm_serving_phase(report: dict) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
-    from repro_torch.models import transformer as tf
-    from repro_torch.serve.engine import Engine, Request, ServeConfig
 
     cfg = get_arch(LM_ARCH).cfg
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
-    n_params = sum(x.numel() for x in _leaves(params))
-    print(f"{LM_ARCH}: {n_params / 1e9:.3f} B parameters ({weight_bytes / 1e9:.2f} GB at rest) "
-          f"drawn on the card in {init_s:.2f} s", flush=True)
-
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0)  # lengths, then token ids, from one stream
     lens = [int(n) for n in rng.integers(64, 701, LM_REQUESTS)]
     if not (any(n % 64 for n in lens) and any(n >= 512 for n in lens)):
         fail(f"prompt lengths {lens} miss a ragged or a >= 512-token prompt")
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-    eng = Engine(params, cfg, ServeConfig(n_slots=LM_SLOTS, max_len=LM_MAX_LEN), device=DEVICE)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_NEW))
-    with AttentionRecorder(ops, cfg.n_layers) as rec, StepTimer(tf) as timer:
-        reset_launch_counters()
-        t = time.perf_counter()
-        done = eng.run_to_completion()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t
-        launches = {k: c.n for k, c in launch_counters().items() if c.n}
-    if sorted(r.rid for r in done) != list(range(LM_REQUESTS)):
-        fail(f"the engine completed {sorted(r.rid for r in done)} of {LM_REQUESTS} requests")
-    if any(len(r.out_tokens) != LM_NEW for r in done):
-        fail("a request completed without its 16 new tokens")
-    want = cfg.n_layers * LM_REQUESTS
-    if launches.get("flash_attention", 0) <= 0:
-        fail("kernel flash_attention was not launched on the LM serving path")
-    if launches.get("flash_attention") != want or set(launches) != {"flash_attention"}:
-        fail(f"LM serving launches {launches}, want flash_attention {want} and nothing else")
-    gen_tokens = LM_REQUESTS * LM_NEW
-    dec_ms = [d["ms"] for d in timer.decodes]
-    peak = torch.cuda.max_memory_allocated()
-    print(f"LM serving: {LM_REQUESTS} requests, {gen_tokens} new tokens in {wall_s:.3f} s "
-          f"({gen_tokens / wall_s:.1f} tokens/s); {len(timer.prefills)} prefills, "
-          f"{len(dec_ms)} decode steps; launches {launches}; peak memory "
-          f"{peak / 1e9:.2f} GB", flush=True)
-    for p in timer.prefills:
-        print(f"  prefill {p['tokens']} tokens: {p['ms']:.2f} ms", flush=True)
-    print(f"  decode step ({LM_SLOTS} slots): median {float(np.median(dec_ms)):.2f} ms, "
-          f"first {dec_ms[0]:.2f}, min {min(dec_ms):.2f}, max {max(dec_ms):.2f} ms", flush=True)
+    run = _serve_arch(cfg, LM_SLOTS, LM_MAX_LEN, lens, LM_NEW, seed=0, rng=rng)
+    out = run["report"]
+    out["profiled"] = _profile_steps(run, cfg, LM_SLOTS, host=True)
+    report["lm_serving"] = out
+    longest = run["prompts"][int(np.argmax(lens))]
+    return {"cfg": cfg, "params": run["params"], "kept": run["rec"].kept,
+            "tokens": torch.as_tensor(longest[None], device=DEVICE),
+            "launches": run["launches"]}
 
-    longest = prompts[int(np.argmax(lens))]
+
+def _profile_steps(run: dict, cfg, slots: int, host: bool = False) -> dict:
+    """One prefill of the longest prompt of ``run`` (:func:`_serve_arch`)
+    and one decode step over its engine's caches under the profiler:
+    device busy against wall time, the top device ops and, with ``host``,
+    the top host ops."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    params, eng = run["params"], run["engine"]
+    longest = run["prompts"][int(np.argmax([len(p) for p in run["prompts"]]))]
     tok = torch.as_tensor(longest[None], device=DEVICE)
-    token = torch.zeros(LM_SLOTS, dtype=torch.long, device=DEVICE)
+    token = torch.zeros(slots, dtype=torch.long, device=DEVICE)
     pos = torch.as_tensor(eng.pos, dtype=torch.long, device=DEVICE)
     prof = {}
     with torch.inference_mode():
         for name, fn in (("prefill", lambda: tf.prefill(params, tok, cfg)),
                          ("decode", lambda: tf.decode(params, token, eng.caches, pos, cfg))):
             fn()
-            host: dict = {}
-            wall_ms, busy_ms, by_kind, _ = profiled(fn, host=host)
+            host_ops: dict = {}
+            wall_ms, busy_ms, by_kind, _ = profiled(fn, host=host_ops if host else None)
             top = dict(sorted(by_kind.items(), key=lambda kv: -kv[1])[:8])
             prof[name] = {"wall_ms": wall_ms, "device_ms": busy_ms,
-                          "device_share": busy_ms / wall_ms, "top_ms": top, "host_top": host}
-            print(f"  {name} ({len(longest) if name == 'prefill' else LM_SLOTS} tokens) "
+                          "device_share": busy_ms / wall_ms, "top_ms": top}
+            print(f"  {name} ({len(longest) if name == 'prefill' else slots} tokens) "
                   f"profiled: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, share "
                   f"{busy_ms / wall_ms:.4f}; top: "
                   + ", ".join(f"{k.strip()[:40]} {v:.3f}" for k, v in top.items()), flush=True)
-            print("    host ops by self CPU ms: " + ", ".join(
-                f"{k.strip()[:30]} {v['self_cpu_ms']:.2f} ({v['calls']} calls)"
-                for k, v in host.items()), flush=True)
-    report["lm_serving"] = {
-        "arch": LM_ARCH, "n_params": n_params, "weight_bytes": weight_bytes,
-        "init_s": init_s, "prompt_lens": lens, "wall_s": wall_s,
-        "tokens_per_s": gen_tokens / wall_s, "prefills": timer.prefills,
-        "decode_ms": dec_ms, "peak_memory_bytes": peak, "launches": launches,
-        "profiled": prof,
-    }
-    return {"cfg": cfg, "params": params, "tokens": tok, "kept": rec.kept,
-            "launches": launches}
+            if host:
+                prof[name]["host_top"] = host_ops
+                print("    host ops by self CPU ms: " + ", ".join(
+                    f"{k.strip()[:30]} {v['self_cpu_ms']:.2f} ({v['calls']} calls)"
+                    for k, v in host_ops.items()), flush=True)
+    return prof
 
 
 def lm_end_to_end_check(lm: dict, report: dict) -> None:
@@ -1537,6 +1559,53 @@ def attention_bound(q, k, v, causal: bool, window) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), flops, nbytes
 
 
+def hold_to_plain(label: str, q, k, v, causal: bool, window) -> dict:
+    """The flash kernel against its plain version on recorded bf16 inputs
+    and on the same inputs cast to f32, each within ``ATTN_TOL``; returns
+    the max abs errors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    errs = {}
+    for dtype, cast in (("bfloat16", lambda x: x), ("float32", lambda x: x.float())):
+        qc, kc, vc = cast(q), cast(k), cast(v)
+        got = flash_attention(qc, kc, vc, causal=causal, window=window)
+        want = attention_ref(qc, kc, vc, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            fail(f"flash_attention {label} in {dtype}: max abs err {err:.3g} outside {tol}")
+        errs[f"max_abs_err_{dtype}"] = err
+    return errs
+
+
+def flash_launch(q, k, v, causal: bool, window):
+    """A function that launches the bf16 flash kernel through its C entry
+    point on q, k, v into an output it holds, on the stream current when
+    it is called (so a graph capture takes it)."""
+    import torch
+
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+
+    lib = library().get()
+    out = torch.empty((q.shape[0], q.shape[1], q.shape[2], v.shape[3]), dtype=q.dtype,
+                      device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
+            q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(q.shape[3] ** -0.5), int(causal), int(window is not None),
+            int(window or 0), 1)
+
+    def launch():
+        lib.flash_attention_fwd(*args, stream_ptr(q.device))
+
+    launch.out = out  # keeps the output referenced while the launch lives
+    return launch
+
+
 def _sdpa(q, k, v, causal: bool):
     import torch.nn.functional as F
 
@@ -1555,27 +1624,15 @@ def attention_kernel_checks(lm: dict, report: dict) -> dict:
     import torch
     from torch.nn.attention import SDPBackend
 
-    from repro_torch.kernels.cuda_lib import library, stream_ptr
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
 
     kept = lm["kept"]
     if len(kept) != LM_REQUESTS:
         fail(f"recorded layer-0 attention inputs of {len(kept)} prefills, want {LM_REQUESTS}")
-    lib = library().get()
     checks, by_length, err_bf16 = [], [], 0.0
     for S in sorted(kept, reverse=True):
         q, k, v, causal, window = kept[S]
-        out = torch.empty((q.shape[0], q.shape[1], S, v.shape[3]), dtype=q.dtype,
-                          device=q.device)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0],
-                q.shape[1], k.shape[1], S, k.shape[2], q.shape[3], v.shape[3],
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                float(q.shape[3] ** -0.5), int(causal), int(window is not None),
-                int(window or 0), 1)
-
-        def launch():
-            lib.flash_attention_fwd(*args, stream_ptr(q.device))
+        launch = flash_launch(q, k, v, causal, window)
 
         def sdpa():
             _sdpa(q, k, v, causal)
@@ -1587,18 +1644,8 @@ def attention_kernel_checks(lm: dict, report: dict) -> dict:
         if S not in (max(kept), min(kept)):
             continue
         row = {"tokens": S, "shape": {"q": list(q.shape), "k": list(k.shape),
-                                      "v": list(v.shape)}}
-        for name, cast in (("bfloat16", lambda x: x), ("float32", lambda x: x.float())):
-            qc, kc, vc = cast(q), cast(k), cast(v)
-            got = flash_attention(qc, kc, vc, causal=causal, window=window)
-            want = attention_ref(qc, kc, vc, causal=causal, window=window)
-            torch.cuda.synchronize()
-            tol = ATTN_TOL[name]
-            err = float((got.float() - want.float()).abs().max())
-            if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-                fail(f"flash_attention at {S} tokens in {name}: max abs err {err:.3g} "
-                     f"outside {tol}")
-            row[f"max_abs_err_{name}"] = err
+                                      "v": list(v.shape)},
+               **hold_to_plain(f"at {S} tokens", q, k, v, causal, window)}
         err_bf16 = max(err_bf16, row["max_abs_err_bfloat16"])
         backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
         row.update(
@@ -1685,6 +1732,346 @@ def attention_sweep(report: dict) -> None:
           f"{max(r['max_abs_err_float32'] for r in rows):.3g}; fully masked rows 0; a "
           f"misaligned bf16 view raises", flush=True)
     report["flash_attention_sweep"] = rows
+
+
+def _serve_arch(cfg, slots: int, max_len: int, prompt_lens, new: int, seed: int,
+                layers=(0,), rng=None) -> dict:
+    """One arch at full width in bf16 (random weights drawn on the card from
+    ``seed``) behind ``Engine(slots, max_len)``: ``prompt_lens`` requests of
+    ``new`` tokens each (token ids drawn from ``rng``, by default a new
+    generator seeded with ``seed``), with the launch counts set to 0 just
+    before the run and read just after.  Every request must complete with its tokens
+    and finite logits, and every prefill must launch ``flash_attention``
+    in each layer and nothing else.  Returns the engine, params, timings,
+    launches and the recorder."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    rng = np.random.default_rng(seed) if rng is None else rng
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens]
+    eng = Engine(params, cfg, ServeConfig(n_slots=slots, max_len=max_len), device=DEVICE)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new))
+    with AttentionRecorder(ops, cfg.n_layers, layers) as rec, StepTimer(tf) as timer:
+        reset_launch_counters()
+        t = time.perf_counter()
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+    peak = torch.cuda.max_memory_allocated()
+    n = len(prompt_lens)
+    if sorted(r.rid for r in done) != list(range(n)):
+        fail(f"{cfg.name}: the engine completed {sorted(r.rid for r in done)} of {n} requests")
+    if any(len(r.out_tokens) != new for r in done):
+        fail(f"{cfg.name}: a request completed without its {new} new tokens")
+    if launches.get("flash_attention", 0) <= 0:
+        fail(f"{cfg.name}: kernel flash_attention was not launched on the GQA prefill path")
+    want = cfg.n_layers * n
+    if launches.get("flash_attention") != want or set(launches) != {"flash_attention"}:
+        fail(f"{cfg.name}: launches {launches}, want flash_attention {want} and nothing else")
+    # a local layer's window is the config's; a global layer passes none
+    want_calls = {(i, w if w == cfg.sliding_window else None): n
+                  for i, w in enumerate(cfg.layer_windows())}
+    if dict(rec.by_layer_window) != want_calls:
+        fail(f"{cfg.name}: attention calls by (layer, window) {dict(rec.by_layer_window)}, "
+             f"want {want_calls}")
+    dec_ms = [d["ms"] for d in timer.decodes]
+    gen = n * new
+    print(f"{cfg.name}: {sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters "
+          f"({weight_bytes / 1e9:.2f} GB) drawn in {init_s:.2f} s; {n} requests, {gen} new "
+          f"tokens in {wall_s:.3f} s ({gen / wall_s:.1f} tokens/s); launches {launches}; "
+          f"peak memory {peak / 1e9:.2f} GB", flush=True)
+    print("  prefill ms by prompt length: " + ", ".join(
+        f"{p['tokens']}: {p['ms']:.2f}" for p in sorted(timer.prefills, key=lambda p: p["tokens"])),
+        flush=True)
+    print(f"  decode step ({slots} slots): median {float(np.median(dec_ms)):.2f} ms, min "
+          f"{min(dec_ms):.2f}, max {max(dec_ms):.2f} ms over {len(dec_ms)} steps", flush=True)
+    return {"params": params, "engine": eng, "prompts": prompts, "rec": rec,
+            "launches": launches, "report": {
+                "arch": cfg.name, "n_params": sum(x.numel() for x in _leaves(params)),
+                "weight_bytes": weight_bytes, "init_s": init_s,
+                "prompt_lens": list(prompt_lens), "wall_s": wall_s, "tokens_per_s": gen / wall_s,
+                "prefills": timer.prefills, "decode_ms": dec_ms,
+                "decode_median_ms": float(np.median(dec_ms)), "peak_memory_bytes": peak,
+                "launches": launches,
+                "attention_calls_windowed": sum(c for (_, w), c in rec.by_layer_window.items()
+                                                if w is not None),
+                "attention_calls_global": sum(c for (_, w), c in rec.by_layer_window.items()
+                                              if w is None)}}
+
+
+def gqa_serving(report: dict) -> tuple:
+    """Phase 16 (a): ``gemma3-27b`` at full width (62 layers, GQA 32/16, a
+    1,024-token window on five of every six layers, 27.0 B parameters in
+    bf16) behind ``Engine(4, 2048)``: 8 requests of 96-1,900 prompt tokens,
+    four past the window, 16 new tokens each.  Then one 1,900-token prefill
+    and one decode step under the profiler.  Returns the recorded
+    attention inputs of layers 0 and 5 at the longest prompt and the
+    launches."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(GQA_ARCH).cfg
+    if sum(n > cfg.sliding_window for n in GQA_PROMPTS) < 3:
+        fail(f"prompts {GQA_PROMPTS} hold fewer than three past the window")
+    run = _serve_arch(cfg, GQA_SLOTS, GQA_MAX_LEN, GQA_PROMPTS, GQA_NEW, seed=0,
+                      layers=(0, 5))
+    out = run["report"]
+    cache_bytes = sum(c.numel() * c.element_size() for c in run["engine"].caches.values())
+    floor_ms = out["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    out.update(cache_bytes=cache_bytes, decode_floor_ms=floor_ms)
+    print(f"  weights {out['weight_bytes'] / 1e9:.2f} GB + cache {cache_bytes / 1e9:.2f} GB; "
+          f"peak {out['peak_memory_bytes'] / 1e9:.2f} GB; decode floor (weights read once at "
+          f"3.35 TB/s) {floor_ms:.2f} ms against the median step {out['decode_median_ms']:.2f} "
+          f"ms; attention calls windowed {out['attention_calls_windowed']}, global "
+          f"{out['attention_calls_global']}", flush=True)
+    out["profiled"] = _profile_steps(run, cfg, GQA_SLOTS)
+    report["gqa_serving"] = out
+    S = max(GQA_PROMPTS)
+    kept = {f"{GQA_ARCH} layer {layer}": run["rec"].kept_by_layer[layer][S] for layer in (0, 5)}
+    return cfg, kept, run["launches"]["flash_attention"]
+
+
+def gqa_end_to_end_check(cfg, report: dict) -> None:
+    """Phase 16 (b): a 6-layer ``gemma3-27b`` at full width in f32 (5 local
+    layers, 1 global; seed 1), one 1,300-token prefill with the flash
+    kernel against the same prefill with ``ops.attention`` swapped for its
+    plain version: last logits within atol/rtol 1e-3, and 6 launches, 5 of
+    them windowed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import transformer as tf
+
+    cfg6 = dataclasses.replace(cfg, n_layers=GQA_E2E_LAYERS, dtype=torch.float32)
+    params = tf.init_params(cfg6, torch.Generator(device=DEVICE).manual_seed(1), DEVICE)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                            (1, GQA_E2E_TOKENS)), device=DEVICE)
+    kernel_fn = ops.attention
+    with torch.inference_mode(), AttentionRecorder(ops, GQA_E2E_LAYERS) as rec:
+        reset_launch_counters()
+        got = tf.prefill(params, tok, cfg6)[0].float()
+        torch.cuda.synchronize()
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+    ops.attention = lambda q, k, v, causal=True, window=None: attention_ref(
+        q, k, v, causal=causal, window=window)
+    try:
+        with torch.inference_mode():
+            want = tf.prefill(params, tok, cfg6)[0].float()
+    finally:
+        ops.attention = kernel_fn
+    del params
+    windowed = sum(c for (_, w), c in rec.by_layer_window.items() if w is not None)
+    if launches != {"flash_attention": GQA_E2E_LAYERS} or windowed != GQA_E2E_LAYERS - 1:
+        fail(f"the f32 {GQA_E2E_LAYERS}-layer prefill launched {launches} ({windowed} windowed)")
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **E2E_TOL))
+    print(f"end to end, {GQA_ARCH} {GQA_E2E_LAYERS} layers at full width in f32, "
+          f"{GQA_E2E_TOKENS}-token prefill ({windowed} windowed layers): last logits max abs "
+          f"diff kernel vs plain {err:.3g} ({'within' if ok else 'OUTSIDE'} atol/rtol 1e-3)",
+          flush=True)
+    report["gqa_end_to_end"] = {"layers": GQA_E2E_LAYERS, "tokens": GQA_E2E_TOKENS,
+                                "max_abs_diff": err, "ok": ok, "launches": launches}
+    if not ok:
+        fail(f"the f32 {GQA_E2E_LAYERS}-layer {GQA_ARCH} prefill with the flash kernel "
+             "differs from the plain version")
+
+
+def gqa_other_archs(report: dict) -> tuple:
+    """Phase 16 (d): ``qwen3-0.6b`` (group 2, qk-norm), ``yi-6b`` (group 8)
+    and ``granite-moe-3b-a800m`` (group 3, head width 64, 48 padded experts
+    of which 40 are active) at full width, each in its own
+    ``Engine(4, 1024)`` serving 4 requests of 64-605 tokens, 8 new tokens
+    each, released before the next.  Returns layer 0's recorded attention
+    inputs at the longest prompt of each and the launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    kept, launches, out = {}, {}, {}
+    for i, arch in enumerate(GQA_OTHERS):
+        cfg = get_arch(arch).cfg
+        run = _serve_arch(cfg, GQA_OTHER_SLOTS, GQA_OTHER_MAX_LEN, GQA_OTHER_PROMPTS,
+                          GQA_OTHER_NEW, seed=10 + i)
+        out[arch] = run["report"]
+        kept[f"{arch} layer 0"] = run["rec"].kept[max(GQA_OTHER_PROMPTS)]
+        launches[arch] = run["launches"]["flash_attention"]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["gqa_other_archs"] = out
+    return kept, launches
+
+
+def _sdpa_window(q, k, v, window):
+    """SDPA of a causal sliding-window attention, by an explicit mask
+    (suffix-aligned positions, as the kernel masks)."""
+    import torch
+    import torch.nn.functional as F
+
+    Sq, Skv = q.shape[2], k.shape[2]
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def gqa_kernel_checks(kept: dict, launches: dict, report: dict) -> dict:
+    """Phase 16 (c): the flash kernel against its plain version on the q, k
+    and v recorded from the GQA prefills (gemma3's layer 0, windowed, and
+    layer 5, global, at 1,900 tokens; layer 0 of each other arch at 605),
+    in bf16 (2e-2) and cast to f32 (2e-5); each graph-replayed in turns
+    with ``scaled_dot_product_attention(..., enable_gqa=True)`` (windowed
+    rows by an explicit mask) beside its byte bound.  Returns the kernel
+    table's "LM GQA prefill" path."""
+    from repro_torch.kernels.ref import attention_ref
+
+    rows = []
+    for name, (q, k, v, causal, window) in kept.items():
+        row = {"input": name, "shape": {"q": list(q.shape), "k": list(k.shape),
+                                        "v": list(v.shape)}, "window": window,
+               **hold_to_plain(f"on {name}", q, k, v, causal, window)}
+        launch = flash_launch(q, k, v, causal, window)
+        sdpa = _sdpa_window(q, k, v, window) if window else (lambda: _sdpa(q, k, v, causal))
+        ms, sdpa_ms = cuda_ms_in_turns([launch, sdpa], reps=9)
+        bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, causal, window)
+        row.update(ms=ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes, host_loop_ms=host_loop_ms(launch),
+                   plain_ms=host_loop_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                                               window=window), iters=5))
+        rows.append(row)
+        print(f"flash_attention on {name} q {tuple(q.shape)} k {tuple(k.shape)} window "
+              f"{window}: max abs err bf16 {row['max_abs_err_bfloat16']:.3g} (f32 "
+              f"{row['max_abs_err_float32']:.3g}); kernel {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms in "
+              f"turns, plain {row['plain_ms']:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
+              f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    report["gqa_flash_attention_checks"] = rows
+    top = rows[0]
+    return {"launches": sum(launches.values()), "launches_by_arch": launches,
+            "max_abs_err": max(r["max_abs_err_bfloat16"] for r in rows),
+            "ms": top["ms"], "host_loop_ms": top["host_loop_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["sdpa_ms"], "rows": {r["input"]: {
+                k: r[k] for k in ("ms", "sdpa_ms", "bound_ms", "plain_ms")} for r in rows}}
+
+
+def bst_phase(report: dict) -> None:
+    """Phase 16 (e): BST at full width (``configs/bst.py``: 2^22 x 32 item
+    table, 16,384 categories; seed 4) with Zipf(1.1) ids: ``bst_forward``
+    at 512 and 262,144, then ``bst_user_state`` + ``retrieval_score`` at
+    1 x 1,000,448 candidates.  Batch 512 and the retrieval are held against
+    the same calls on the host (the port on the CPU), and the bulk batch's
+    first 512 rows against batch 512, within 2e-2.  ms a call by CUDA
+    events around 10 calls; peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys.bst import (
+        bst_forward, bst_init, bst_user_state, retrieval_score,
+    )
+
+    spec = get_arch("bst").spec
+    torch.cuda.reset_peak_memory_stats()
+    params = bst_init(torch.Generator(device=DEVICE).manual_seed(4), spec, DEVICE)
+    host_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(4)
+    B = max(BST_BATCHES)
+
+    def zipf(n, shape):
+        return torch.as_tensor(rng.zipf(1.1, shape) % n, dtype=torch.long)
+
+    host = {"hist_items": zipf(spec.n_items, (B, spec.seq_len)),
+            "hist_cats": zipf(spec.n_cats, (B, spec.seq_len)),
+            "target_item": zipf(spec.n_items, (B,)), "target_cat": zipf(spec.n_cats, (B,))}
+    cand = torch.as_tensor(rng.integers(0, spec.n_items, (1, BST_CANDIDATES)))
+    batches = {n: {k: v[:n].to(DEVICE) for k, v in host.items()} for n in BST_BATCHES}
+    small = min(BST_BATCHES)
+    cand_dev = cand.to(DEVICE)
+
+    def retrieve(p, batch, c):
+        user = bst_user_state(p, {k: v[:1] for k, v in batch.items()}, spec)
+        return retrieval_score(p, user, c)
+
+    out = {}
+    with torch.inference_mode():
+        logits = {n: bst_forward(params, batches[n], spec) for n in BST_BATCHES}
+        scores = retrieve(params, batches[small], cand_dev)
+        torch.cuda.synchronize()
+        host_logits = bst_forward(host_params, {k: v[:small] for k, v in host.items()}, spec)
+        host_scores = retrieve(host_params, {k: v[:small] for k, v in host.items()}, cand)
+        checks = {
+            f"forward {small} vs host": (logits[small].cpu(), host_logits),
+            f"forward {B} first {small} rows vs forward {small}": (logits[B][:small].cpu(),
+                                                                   logits[small].cpu()),
+            "retrieval vs host": (scores.cpu(), host_scores),
+        }
+        for name, (got, want) in checks.items():
+            err = float((got - want).abs().max())
+            if not (torch.isfinite(got).all() and torch.allclose(got, want, **BST_TOL)):
+                fail(f"BST {name}: max abs diff {err:.3g} outside {BST_TOL}")
+            out[f"max_abs_diff, {name}"] = err
+        for n in BST_BATCHES:
+            out[f"forward_{n}_ms"] = host_loop_ms(lambda: bst_forward(params, batches[n], spec),
+                                                  warmup=2, iters=10)
+        out["retrieval_ms"] = host_loop_ms(lambda: retrieve(params, batches[small], cand_dev),
+                                           warmup=2, iters=10)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["table_bytes"] = params["item_table"].numel() * 4
+    print(f"BST at full width (item table {spec.n_items} x {spec.embed_dim}): forward "
+          + ", ".join(f"{n}: {out[f'forward_{n}_ms']:.4f} ms" for n in BST_BATCHES)
+          + f"; user state + retrieval over {BST_CANDIDATES} candidates "
+          f"{out['retrieval_ms']:.4f} ms; peak memory {out['peak_memory_bytes'] / 1e9:.2f} GB; "
+          + "; ".join(f"{k} {v:.3g}" for k, v in out.items() if k.startswith("max_abs")),
+          flush=True)
+    report["bst"] = out
+
+
+def gqa_phase(report: dict) -> dict:
+    """Phase 16, slice F2 on the card: (a) ``gemma3-27b`` served at full
+    width, (b) its f32 6-layer prefill against the plain attention, (d)
+    the other three GQA archs served at full width, (c) the flash kernel on
+    the inputs recorded from (a) and (d), (e) BST at full width.  Returns
+    the kernel table's "LM GQA prefill" path of ``flash_attention``."""
+    import gc
+
+    import torch
+
+    t = time.perf_counter()
+    cfg, kept, n_gemma = gqa_serving(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gqa_end_to_end_check(cfg, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept_others, launches = gqa_other_archs(report)
+    kept.update(kept_others)
+    path = gqa_kernel_checks(kept, {GQA_ARCH: n_gemma, **launches}, report)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    bst_phase(report)
+    report["gqa_phase_s"] = time.perf_counter() - t
+    print(f"phase 16 (slice F2: GQA serving, BST) wall {report['gqa_phase_s']:.1f} s", flush=True)
+    return path
 
 
 def bag_inputs():
@@ -3008,9 +3395,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm = lm_serving_phase(report)
     lm_end_to_end_check(lm, report)
-    table.append(attention_kernel_checks(lm, report))
+    flash_row = attention_kernel_checks(lm, report)
+    table.append(flash_row)
     del lm
     attention_sweep(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gqa_path = gqa_phase(report)
+    flash_row["launches_by_path"] = {"lm_prefill": flash_row["launches"],
+                                     "lm_gqa_prefill": gqa_path["launches"]}
+    flash_row["paths"] = {"LM GQA prefill": gqa_path}
     gc.collect()
     torch.cuda.empty_cache()
     table.append(bag_phase(report))

@@ -47,7 +47,7 @@ ENV_FIELDS = ("rtt_s", "bw_Bps", "c_store", "c_read", "c_write", "c_net")
 HEAT_FIELDS = ("cols", "vals", "heat", "q")
 # LM params the JAX package uses in f32 (the router's logits, norm gains);
 # every other weight is only ever used cast to the config's dtype
-F32_PARAMS = frozenset({"router", "g", "kv_norm"})
+F32_PARAMS = frozenset({"router", "g", "kv_norm", "q_norm", "k_norm"})
 
 
 def store_arrays(store) -> Dict[str, object]:

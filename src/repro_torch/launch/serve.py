@@ -1,6 +1,8 @@
 """Serving launcher: continuous-batching engine on an LM arch's smoke config.
 
-``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --requests 8``
+``python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8``
+
+``--arch`` takes any LM-family arch of the registry (MLA or GQA).
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -20,7 +22,8 @@ from ..serve.engine import Engine, Request, ServeConfig
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="deepseek-v2-lite-16b", choices=list_archs())
+    lm_archs = [a for a in list_archs() if get_arch(a).family == "lm"]
+    ap.add_argument("--arch", default="deepseek-v2-lite-16b", choices=lm_archs)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

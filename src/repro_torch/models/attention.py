@@ -1,8 +1,12 @@
-"""MLA attention (DeepSeek-V2 latent KV compression) for the LM zoo.
+"""Attention variants for the LM zoo: GQA (+qk-norm) and MLA (DeepSeek-V2
+latent KV compression).
 
 Port of ``repro/models/attention.py``: ``chunked_attention``, ``_attend``,
-the head merge helper and ``mla_init`` / ``mla_forward`` /
-``mla_decode``.  The GQA variants wait for the dense-LM slice.
+the head split and merge helpers, ``gqa_init`` / ``gqa_forward`` /
+``gqa_decode`` and ``mla_init`` / ``mla_forward`` / ``mla_decode``.  The
+decoder's layer loop (:mod:`.transformer`) runs GQA through its own
+per-layer-window functions; ``gqa_forward`` and ``gqa_decode`` are the
+single-layer entry points, as in the JAX package.
 
 Execution paths:
   * ``ops.attention``     — the CUDA flash kernel on the card (prefill), its
@@ -11,10 +15,10 @@ Execution paths:
     the JAX package computes it outside any Pallas kernel; decode takes it
     (its ``kv_valid`` mask is per batch row).
 
-KV caches are dicts of tensors.  ``mla_decode`` writes the new token's
-latent and rope key into the caller's cache tensors in place (the JAX
-package returns updated copies); at 1,024 slots x 27 layers a copy per
-step would move the whole cache.
+KV caches are dicts of tensors.  ``mla_decode`` and ``gqa_decode`` write
+the new token's cache entries into the caller's cache tensors in place
+(the JAX package returns updated copies); at 1,024 slots x 27 layers a
+copy per step would move the whole cache.
 """
 from __future__ import annotations
 
@@ -26,10 +30,13 @@ import torch
 from ..device import DeviceLike
 from ..kernels import ops
 from ..kernels.ref import attention_ref
-from .layers import Params, normal, rmsnorm, rmsnorm_init, rope
+from .layers import Params, dense_init, normal, rmsnorm, rmsnorm_init, rope
 
 __all__ = [
     "chunked_attention",
+    "gqa_decode",
+    "gqa_forward",
+    "gqa_init",
     "mla_decode",
     "mla_forward",
     "mla_init",
@@ -115,9 +122,104 @@ def _attend(q, k, v, causal: bool, window: Optional[int], kv_valid=None) -> torc
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1).transpose(1, 2)  # [B, H, S, D]
+
+
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _write_position(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor) -> None:
+    """``cache[b, ..., position[b], :] = new[b, ..., 0, :]`` for each batch
+    row, the position clamped into the cache as ``dynamic_update_slice``
+    clamps it; the sequence axis is ``-2``."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = position.long().clamp(0, cache.shape[-2] - 1)
+    cache.transpose(1, -2)[rows, at] = new.transpose(1, -2)[:, 0].to(cache.dtype)
+
+
+# ------------------------------------------------------------------- GQA
+def gqa_init(
+    generator: torch.Generator,
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    qk_norm: bool = False,
+    device: DeviceLike = None,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """GQA params with the JAX package's scales; the projections in
+    ``dtype``, ``q_norm`` / ``k_norm`` in f32."""
+    p: Params = {
+        "wq": dense_init(generator, d_model, n_heads * head_dim, device=device)["w"],
+        "wk": dense_init(generator, d_model, n_kv_heads * head_dim, device=device)["w"],
+        "wv": dense_init(generator, d_model, n_kv_heads * head_dim, device=device)["w"],
+        "wo": dense_init(generator, n_heads * head_dim, d_model, device=device)["w"],
+    }
+    p = {k: w.to(dtype) for k, w in p.items()}
+    if qk_norm:
+        p["q_norm"] = rmsnorm_init(head_dim, device)["g"]
+        p["k_norm"] = rmsnorm_init(head_dim, device)["g"]
+    return p
+
+
+def _gqa_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, n_heads: int,
+             n_kv_heads: int, rope_base: float, dtype: torch.dtype):
+    """q ``[B, Hq, S, D]``, k and v ``[B, Hkv, S, D]``: projected, qk-normed
+    when the params carry the gains, q and k rotated."""
+    xd = x.to(dtype)
+    q = _split_heads(xd @ p["wq"].to(dtype), n_heads)
+    k = _split_heads(xd @ p["wk"].to(dtype), n_kv_heads)
+    v = _split_heads(xd @ p["wv"].to(dtype), n_kv_heads)
+    if "q_norm" in p:
+        q = rmsnorm({"g": p["q_norm"]}, q)
+        k = rmsnorm({"g": p["k_norm"]}, k)
+    return rope(q, positions, rope_base), rope(k, positions, rope_base), v
+
+
+def gqa_forward(
+    p: Params,
+    x: torch.Tensor,  # [B, S, d_model]
+    positions: torch.Tensor,  # [S] or [B, S]
+    n_heads: int,
+    n_kv_heads: int,
+    causal: bool = True,
+    window: Optional[int] = None,
+    rope_base: float = 10000.0,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention (prefill).  Returns (out, kv_cache)."""
+    q, k, v = _gqa_qkv(p, x, positions, n_heads, n_kv_heads, rope_base, dtype)
+    o = _attend(q, k, v, causal, window)
+    out = _merge_heads(o).to(dtype) @ p["wo"].to(dtype)
+    return out, {"k": k, "v": v}
+
+
+def gqa_decode(
+    p: Params,
+    x: torch.Tensor,  # [B, 1, d_model]
+    cache: Dict[str, torch.Tensor],  # k/v: [B, Hkv, Smax, D]
+    position: torch.Tensor,  # [B] current absolute position
+    n_heads: int,
+    n_kv_heads: int,
+    window: Optional[int] = None,
+    rope_base: float = 10000.0,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode; writes the token's k and v into the caller's
+    cache in place at ``position`` and returns ``(out, cache)``."""
+    q, k_new, v_new = _gqa_qkv(p, x, position[:, None], n_heads, n_kv_heads, rope_base,
+                               dtype)
+    kc, vc = cache["k"], cache["v"]
+    _write_position(kc, k_new, position)
+    _write_position(vc, v_new, position)
+    o = _attend(q, kc, vc, causal=False, window=window, kv_valid=position + 1)
+    out = _merge_heads(o).to(dtype) @ p["wo"].to(dtype)
+    return out, {"k": kc, "v": vc}
 
 
 # ------------------------------------------------------------------- MLA
@@ -205,10 +307,8 @@ def mla_decode(
     kr_new = rope((xd @ p["w_krope"].to(dtype))[:, None], position[:, None])[:, 0]  # [B,1,dr]
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     s_max = c_kv.shape[1]
-    rows = torch.arange(b, device=x.device)
-    at = position.long().clamp(0, s_max - 1)
-    c_kv[rows, at] = c_new[:, 0].to(c_kv.dtype)
-    k_rope[rows, at] = kr_new[:, 0].to(k_rope.dtype)
+    _write_position(c_kv, c_new, position)
+    _write_position(k_rope, kr_new, position)
     k_nope = (c_kv @ p["w_uk"].to(dtype)).reshape(b, s_max, n_heads, qk_nope_dim).transpose(1, 2)
     v = (c_kv @ p["w_uv"].to(dtype)).reshape(b, s_max, n_heads, v_head_dim).transpose(1, 2)
     q_full = torch.cat([q_nope, q_rope], dim=-1)

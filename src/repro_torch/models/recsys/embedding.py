@@ -28,8 +28,10 @@ def table_init(
 def lookup(
     table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype = torch.bfloat16
 ) -> torch.Tensor:
-    """Plain row gather (single-id fields)."""
-    return table.to(dtype)[ids]
+    """Plain row gather (single-id fields), cast to ``dtype`` after the
+    gather (the JAX package casts the table first: the same values, without
+    a copy of the whole table a call)."""
+    return table[ids].to(dtype)
 
 
 def bag_lookup(

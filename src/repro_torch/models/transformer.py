@@ -1,12 +1,24 @@
-"""Decoder-only LM assembled from the MLA and MoE/SwiGLU blocks.
+"""Decoder-only LM assembled from the attention (GQA or MLA) and MoE/SwiGLU
+blocks.
 
-Port of ``repro/models/transformer.py`` for inference: ``LMConfig``,
-``init_params``, ``forward``, ``prefill`` and ``decode``.  Per-layer params
-are stacked on a leading ``[L, ...]`` axis as in the JAX package, and the
-layers run as a Python loop (inference needs neither ``scan`` nor remat).
+Port of ``repro/models/transformer.py`` for inference: ``LMConfig`` (with
+``layer_windows``), ``init_params``, ``forward``, ``prefill`` and
+``decode``, for every LM arch of the JAX package.  Per-layer params are
+stacked on a leading ``[L, ...]`` axis as in the JAX package, and the layers
+run as a Python loop (inference needs neither ``scan`` nor remat).
 Training (``train_loss``, ``chunked_ce_loss``, ``hidden_forward``) waits for
-the training slice, and the dense/GQA attention branch (``_gqa_*_window``)
-for the dense-LM slice: a config without MLA raises.
+the training slice.
+
+Per-layer windows (gemma3's 5 local : 1 global) are plain ints here: the
+JAX package carries them as data through ``lax.scan``, so its GQA prefill
+masks with a traced window in dense einsums (``_window_attention``, chunked
+past 2,048 positions by ``_chunked_dyn_window``).  The eager loop knows each
+layer's window, so a GQA prefill goes through ``_attend`` with that window
+(``None`` on a global layer), the dispatch the JAX package's ``_attend``
+takes on a TPU for a static window: the flash kernel on the card, and on
+the CPU the same masked f32 softmax as ``_window_attention`` (dense up to
+2,048 positions, chunked past them).  Decode attends in plain PyTorch
+(``_decode_attend``), as MLA decode does.
 
 Weights at rest: the JAX package keeps params in f32 and casts each matmul
 weight to ``cfg.dtype`` at use; the port stores those weights (attention
@@ -18,12 +30,15 @@ that is 32 GB of bf16 instead of 64 GB of f32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .attention import mla_decode, mla_forward, mla_init
+from .attention import (
+    _attend, _gqa_qkv, _merge_heads, _write_position, gqa_init, mla_decode, mla_forward,
+    mla_init,
+)
 from .layers import Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
 from .moe import moe_forward, moe_init
 
@@ -33,8 +48,9 @@ __all__ = [
     "forward",
     "init_params",
     "prefill",
-    "require_mla",
 ]
+
+_GLOBAL_WINDOW = 1 << 30  # "window" that never masks = global attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +89,16 @@ class LMConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def layer_windows(self) -> List[int]:
+        """Per-layer attention window (gemma3 5:1 pattern; global = huge)."""
+        if self.local_global_ratio <= 0 or self.sliding_window is None:
+            return [self.sliding_window or _GLOBAL_WINDOW] * self.n_layers
+        r = self.local_global_ratio
+        return [
+            self.sliding_window if (i % (r + 1)) != r else _GLOBAL_WINDOW
+            for i in range(self.n_layers)
+        ]
+
     def param_count(self) -> int:
         """Analytic parameter count."""
         d, hd = self.d_model, self.hd
@@ -102,15 +128,6 @@ class LMConfig:
         return self.param_count() - self.n_layers * (routed_all - routed_active)
 
 
-def require_mla(cfg: LMConfig) -> None:
-    """Raise for a config the port cannot run yet (no MLA)."""
-    if not cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: only MLA configs are ported; the dense/GQA attention branch "
-            "(_gqa_*_window, layer_windows) waits for ROADMAP.md slice F's dense-LM item"
-        )
-
-
 def _tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of nested dicts (``rest`` shaped like ``tree``)."""
     if isinstance(tree, dict):
@@ -121,10 +138,16 @@ def _tree_map(fn: Callable, tree, *rest):
 # ---------------------------------------------------------------- parameters
 def _layer_init(generator: torch.Generator, cfg: LMConfig, device: torch.device) -> Params:
     dt = cfg.dtype
-    attn = mla_init(
-        generator, cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
-        cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, device=device, dtype=dt,
-    )
+    if cfg.mla:
+        attn = mla_init(
+            generator, cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+            cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, device=device, dtype=dt,
+        )
+    else:
+        attn = gqa_init(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.qk_norm,
+            device=device, dtype=dt,
+        )
     if cfg.moe:
         ffn = moe_init(
             generator, cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
@@ -146,7 +169,6 @@ def init_params(
     """Random params with the JAX package's scales, drawn on ``device`` from
     ``generator`` (which must live there), one layer at a time so the f32
     draws stay one tensor wide; weights at rest as the module docstring says."""
-    require_mla(cfg)
     dev = resolve_device(device)
     embed = embedding_init(generator, cfg.vocab_size, cfg.d_model, device=dev)
     embed["table"] = embed["table"].to(cfg.dtype)
@@ -176,13 +198,16 @@ def _unembed(params: Params, cfg: LMConfig) -> torch.Tensor:
 
 # ------------------------------------------------------------------- forward
 def _block(
-    lp: Params, x: torch.Tensor, positions: torch.Tensor, cfg: LMConfig
+    lp: Params, x: torch.Tensor, positions: torch.Tensor, window: int, cfg: LMConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
     h = rmsnorm(lp["ln1"], x)
-    a, cache = mla_forward(
-        lp["attn"], h, positions, cfg.n_heads,
-        cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, dtype=cfg.dtype,
-    )
+    if cfg.mla:
+        a, cache = mla_forward(
+            lp["attn"], h, positions, cfg.n_heads,
+            cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, dtype=cfg.dtype,
+        )
+    else:
+        a, cache = _gqa_forward_window(lp["attn"], h, positions, window, cfg)
     x = x + a
     h = rmsnorm(lp["ln2"], x)
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -197,6 +222,17 @@ def _block(
     return x + f, cache, aux_loss
 
 
+def _gqa_forward_window(p: Params, h: torch.Tensor, positions: torch.Tensor, window: int,
+                        cfg: LMConfig):
+    """GQA forward of one layer with its window (``_GLOBAL_WINDOW`` on a
+    global layer) through ``_attend``: the flash kernel on the card, the
+    plain masked softmax on the CPU.  Returns (out, kv_cache)."""
+    q, k, v = _gqa_qkv(p, h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.rope_base, cfg.dtype)
+    o = _attend(q, k, v, causal=True, window=None if window >= _GLOBAL_WINDOW else window)
+    out = _merge_heads(o).to(cfg.dtype) @ p["wo"].to(cfg.dtype)
+    return out, {"k": k, "v": v}
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,  # [B, S]
@@ -204,13 +240,12 @@ def forward(
     collect_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
     """Returns (logits [B, S, V], caches stacked [L, ...] or None, aux loss)."""
-    require_mla(cfg)
     s = tokens.shape[1]
     x = params["embed"]["table"].to(cfg.dtype)[tokens]
     positions = torch.arange(s, device=x.device)
     caches, auxes = [], []
-    for i in range(cfg.n_layers):
-        x, cache, aux = _block(_layer(params, i), x, positions, cfg)
+    for i, w in enumerate(cfg.layer_windows()):
+        x, cache, aux = _block(_layer(params, i), x, positions, w, cfg)
         if collect_cache:
             caches.append(cache)
         auxes.append(aux)
@@ -236,16 +271,22 @@ def decode(
     cfg: LMConfig,
 ):
     """One-token serve step over stacked caches, which it updates in place.
-    Returns (logits [B, V], caches)."""
-    require_mla(cfg)
+    Returns (logits [B, V], caches).
+
+    As in the JAX package, the MoE layers route without ``n_active``: at
+    decode the router may pick a padded expert (ROADMAP queue 3)."""
     x = params["embed"]["table"].to(cfg.dtype)[token][:, None]  # [B,1,d]
-    for i in range(cfg.n_layers):
+    for i, w in enumerate(cfg.layer_windows()):
         lp = _layer(params, i)
+        cache = {k: c[i] for k, c in caches.items()}
         h = rmsnorm(lp["ln1"], x)
-        a, _ = mla_decode(
-            lp["attn"], h, {k: c[i] for k, c in caches.items()}, position, cfg.n_heads,
-            cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, dtype=cfg.dtype,
-        )
+        if cfg.mla:
+            a, _ = mla_decode(
+                lp["attn"], h, cache, position, cfg.n_heads,
+                cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, dtype=cfg.dtype,
+            )
+        else:
+            a = _gqa_decode_window(lp["attn"], h, cache, position, w, cfg)
         x = x + a
         h = rmsnorm(lp["ln2"], x)
         if cfg.moe:
@@ -256,3 +297,58 @@ def decode(
     x = rmsnorm(params["ln_f"], x)
     logits = (x @ _unembed(params, cfg).T)[:, 0]
     return logits, caches
+
+
+def _gqa_decode_window(p: Params, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+                       position: torch.Tensor, window: int, cfg: LMConfig) -> torch.Tensor:
+    """One-token GQA step of one layer: writes k and v at ``position`` into
+    the layer's cache in place and attends over it, window- and
+    valid-masked.  Returns the attention output ``[B, 1, d]``."""
+    q, k_new, v_new = _gqa_qkv(p, h, position[:, None], cfg.n_heads, cfg.n_kv_heads,
+                               cfg.rope_base, cfg.dtype)
+    kc, vc = cache["k"], cache["v"]
+    _write_position(kc, k_new, position)
+    _write_position(vc, v_new, position)
+    o = _decode_attend(q, kc, vc, position, window, cfg.n_heads // cfg.n_kv_heads,
+                       cfg.hd ** -0.5)
+    return _merge_heads(o).to(cfg.dtype) @ p["wo"].to(cfg.dtype)
+
+
+def _decode_attend(q, kc, vc, position: torch.Tensor, window: int, group: int, scale: float,
+                   chunk: int = 8192) -> torch.Tensor:
+    """One query a batch row against its cache, masked to ``position`` and
+    the window: dense f32 up to ``chunk`` slots, online softmax over chunks
+    past them.  Each kv head's ``group`` q heads attend as one block, so the
+    cache is never repeated over the group."""
+    b, hq, _, d = q.shape
+    hkv, skv = kc.shape[1], kc.shape[2]
+    qg = q.float().reshape(b, hkv, group, d)
+    pos = position.long()[:, None, None, None]
+
+    def logits(k0: int, n: int) -> torch.Tensor:
+        s = torch.einsum("bhgd,bhkd->bhgk", qg, kc[:, :, k0:k0 + n].float()) * scale
+        k_pos = (k0 + torch.arange(n, device=q.device))[None, None, None, :]
+        mask = (k_pos <= pos) & (k_pos > pos - window)
+        return torch.where(mask, s, torch.full((), -1e30, device=q.device))
+
+    def values(p_: torch.Tensor, k0: int, n: int) -> torch.Tensor:
+        return torch.einsum("bhgk,bhkd->bhgd", p_, vc[:, :, k0:k0 + n].float())
+
+    if skv <= chunk:
+        o = values(torch.softmax(logits(0, skv), dim=-1), 0, skv)
+    else:
+        if skv % chunk:
+            raise ValueError(f"{skv} cache slots must be a multiple of {chunk}")
+        m = torch.full((b, hkv, group, 1), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, group, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, skv, chunk):
+            s = logits(k0, chunk)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p_ = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(dim=-1, keepdim=True)
+            acc = acc * corr + values(p_, k0, chunk)
+            m = m_new
+        o = acc / l.clamp_min(1e-30)
+    return o.reshape(b, hq, 1, d).to(q.dtype)

@@ -8,12 +8,14 @@ counterpart of the paper's online mode: the request router (GeoGraphStore)
 picks the serving site; this engine is what runs inside each site.
 
 On the card, every prefill runs the flash-attention kernel in each layer
-(MLA); decode attends through the chunked path with per-slot valid
-lengths.  The caches live on the engine's device and are updated in place:
-an admitted request's prefilled cache is written into its slot, with every
-position past its prompt zeroed, and each decode step writes one position
-per slot.  Free slots still decode token 0 at their position, as in the JAX
-package; greedy sampling takes the first maximum.
+(MLA, or GQA with the layer's window); decode attends in plain PyTorch
+with per-slot valid lengths.  The caches live on the engine's device and
+are updated in place: an admitted request's prefilled cache is written
+into its slot along the sequence axis (``-2`` in both layouts: MLA
+``[L, B, S, r]``, GQA ``[L, B, Hkv, S, hd]``), with every position past its
+prompt zeroed, and each decode step writes one position per slot.  Free
+slots still decode token 0 at their position, as in the JAX package;
+greedy sampling takes the first maximum.
 """
 from __future__ import annotations
 
@@ -51,7 +53,6 @@ class Engine:
         self, params: tf.Params, cfg: tf.LMConfig, scfg: ServeConfig,
         device: DeviceLike = None,
     ) -> None:
-        tf.require_mla(cfg)
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -68,12 +69,13 @@ class Engine:
     def _empty_caches(self) -> Dict[str, torch.Tensor]:
         c = self.cfg
         b, s = self.scfg.n_slots, self.scfg.max_len
-        return {
-            "c_kv": torch.zeros((c.n_layers, b, s, c.kv_lora_rank), dtype=c.dtype,
-                                device=self.device),
-            "k_rope": torch.zeros((c.n_layers, b, s, c.qk_rope_dim), dtype=c.dtype,
-                                  device=self.device),
-        }
+        if c.mla:
+            shapes = {"c_kv": (c.n_layers, b, s, c.kv_lora_rank),
+                      "k_rope": (c.n_layers, b, s, c.qk_rope_dim)}
+        else:
+            shapes = {key: (c.n_layers, b, c.n_kv_heads, s, c.hd) for key in ("k", "v")}
+        return {key: torch.zeros(shape, dtype=c.dtype, device=self.device)
+                for key, shape in shapes.items()}
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -126,8 +128,8 @@ class Engine:
             prompt = torch.as_tensor(np.asarray(req.prompt, dtype=np.int64), device=self.device)
             _, pc = tf.prefill(self.params, prompt[None], self.cfg)
             for key, c_all in self.caches.items():
-                c_all[:, i, :plen] = pc[key][:, 0]
-                c_all[:, i, plen:] = 0
+                c_all[:, i, ..., :plen, :] = pc[key][:, 0]
+                c_all[:, i, ..., plen:, :] = 0
             self.slots[i] = req
             self.pos[i] = plen
             self.budget[i] = req.max_new_tokens

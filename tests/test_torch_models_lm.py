@@ -32,7 +32,6 @@ from repro_torch.convert import F32_PARAMS, lm_params_from_numpy
 from repro_torch.models import layers as tl
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
-from repro_torch.serve.engine import Engine, ServeConfig
 
 ARCH = "deepseek-v2-lite-16b"
 # the "mla" variant of tests/test_models_lm.py: MLA attention, dense SwiGLU
@@ -283,31 +282,26 @@ def test_init_params_tree_matches_jax(variant):
     assert torch.equal(again["layers"]["attn"]["wq"], tp["layers"]["attn"]["wq"])
 
 
-def test_configs_match_jax():
-    assert list_archs() == [ARCH]
-    ours, theirs = get_arch(ARCH), jax_arch(ARCH)
-    assert ours.family == theirs.family == "lm"
+LM_ARCHS = ("deepseek-v2-lite-16b", "gemma3-27b", "granite-moe-3b-a800m", "qwen3-0.6b",
+            "yi-6b")
+# published sizes (param_count, billions, one decimal)
+LM_SIZES = {"deepseek-v2-lite-16b": 16.0, "gemma3-27b": 27.0, "granite-moe-3b-a800m": 3.9,
+            "qwen3-0.6b": 0.6, "yi-6b": 5.8}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS + ("bst",))
+def test_configs_match_jax(arch):
+    ours, theirs = get_arch(arch), jax_arch(arch)
+    assert ours.family == theirs.family
+    assert list_archs() == sorted(LM_ARCHS + ("bst",))
+    if arch == "bst":
+        assert ours.family == "recsys"
+        assert (ours.spec.__dict__, ours.smoke_spec.__dict__) == (
+            theirs.spec.__dict__, theirs.smoke_spec.__dict__)
+        return
+    assert ours.family == "lm"
     for c_ours, c_theirs in ((ours.cfg, theirs.cfg), (ours.smoke_cfg, theirs.smoke_cfg)):
         assert c_ours == port_cfg(c_theirs, torch.bfloat16)
         assert c_ours.param_count() == c_theirs.param_count()
         assert c_ours.active_param_count() == c_theirs.active_param_count()
-    assert round(ours.cfg.param_count() / 1e9, 1) == 16.0
-    with pytest.raises(KeyError, match="ported"):
-        get_arch("qwen3-0.6b")
-
-
-def test_non_mla_config_names_its_roadmap_item():
-    dense = port_cfg(jtf.LMConfig(name="d", n_layers=2, d_model=64, n_heads=4,
-                                  n_kv_heads=2, d_ff=128, vocab_size=256), torch.float32)
-    cfg = port_cfg(VARIANTS["mla"], torch.float32)
-    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.long)
-    calls = [
-        lambda: ttf.init_params(dense, torch.Generator(), device="cpu"),
-        lambda: ttf.forward(params, tok, dense),
-        lambda: ttf.decode(params, tok[:, 0], {}, tok[:, 0], dense),
-        lambda: Engine(params, dense, ServeConfig(), device="cpu"),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert round(ours.cfg.param_count() / 1e9, 1) == LM_SIZES[arch]

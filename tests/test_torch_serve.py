@@ -115,3 +115,20 @@ def test_launch_serve_runs_on_the_cpu(monkeypatch, capsys):
                                       "--slots", "2", "--max-new", "3"])
     serve.main()
     assert "served 3 requests, 9 tokens" in capsys.readouterr().out
+
+
+def test_launch_serve_runs_a_gqa_arch_on_the_cpu(monkeypatch, capsys):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen3-0.6b", "--device", "cpu",
+                                      "--requests", "3", "--slots", "2", "--max-new", "3"])
+    serve.main()
+    assert "[qwen3-0.6b] served 3 requests, 9 tokens" in capsys.readouterr().out
+
+
+def test_launch_serve_offers_only_lm_archs(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "bst", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.main()
