@@ -149,15 +149,43 @@ Phases, each of which fails the run with a nonzero exit:
     atol/rtol 1e-3.  (d) ``qwen3-0.6b``, ``yi-6b`` and
     ``granite-moe-3b-a800m`` at full width, each in ``Engine(4, 1024)``
     serving 4 requests of 64-605 tokens, 8 new tokens each, with a launch
-    in every prefill layer.  (c) The kernel on the q, k, v recorded from
-    (a) (layers 0 and 5 at 1,900 tokens) and (d) (layer 0 at 605) within
-    phase 10's tolerances, graph-replayed in turns with SDPA
-    (``enable_gqa``; an explicit mask for the window) beside its bound.
+    in every prefill layer.  (c) The kernel at every shape those
+    prefills launched it on, on the q, k, v recorded there (gemma3's
+    layers 0, windowed, and 5, global, at each of its 8 prompt lengths;
+    layer 0 of each other arch at each of its 4), within phase 10's
+    tolerances, graph-replayed in turns with SDPA (``enable_gqa``; an
+    explicit mask for the window) beside its bound, weighted by the
+    launches at each shape, so launches x (ms - bound) sums over the path.
     (e) BST at full width (2^22 x 32 items, 16,384 categories, Zipf(1.1)
     ids): ``bst_forward`` at 512 and 262,144, user state and retrieval
     over 1,000,448 candidates, held against the host (batch 512,
     retrieval) and the bulk batch's first rows against batch 512 within
     2e-2; ms a call and peak memory.
+17. Slice G, training (after phase 16), counts set to 0 just before each
+    run and read just after.  (a) ``qwen3-0.6b`` at full width and depth
+    (0.596 B parameters, f32 at rest, bf16 compute, remat) trained by
+    ``Trainer`` for 6 steps of 8 ``TokenPipeline`` sequences of 4,096
+    tokens (``train_4k``'s length; its 256-sequence batch cut to 8) in 4
+    microbatches, AdamW with 2 warm-up steps, a checkpoint at step 3 in a
+    temporary directory under ``build/`` and a failure at step 5 that
+    restores it: every loss finite, the restored params and moments equal
+    to the step-3 state bit for bit, ``flash_attention`` launched steps x
+    4 x 28 x 2 times (forward and remat recompute) and nothing else, peak
+    memory under 80 GB; step ms, tokens/s, checkpoint seconds, the loss
+    trajectory, and one step under the profiler (busy share; flash kernel,
+    GEMM and other time), with the plain attention backward and the CE
+    chunks timed alone at the step's shapes.  (b) Its gradient at 2 layers
+    in f32 on one 4,096-token sequence with the kernel against the same
+    step with the plain attention: loss and every gradient leaf within
+    atol/rtol 1e-3, each q/k/v projection with a gradient; the bf16 step's
+    relative loss gap reported.  (c) The same for ``deepseek-v2-lite-16b``
+    at 1 MoE layer (MLA 192/128, a strided v, the aux loss in the loss).
+    (d) BST at full width on ``RecsysPipeline`` batches of 65,536: the
+    first step's loss and gradients on the card within 2e-2 of the host's
+    (the loss relatively, each leaf by its relative RMS gap), then 4
+    ``Trainer`` steps, no kernel launched (plain gathers).  (e) The flash
+    kernel at (a)'s shape against its plain version, graph-replayed in
+    turns with SDPA beside its bound, and the plain backward's time.
 
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
@@ -237,6 +265,23 @@ GQA_OTHER_PROMPTS = (605, 64, 389, 235)
 BST_BATCHES = (512, 262_144)
 BST_CANDIDATES = 1_000_448
 BST_TOL = dict(atol=2e-2, rtol=2e-2)
+# phase 17, slice G: training.  qwen3-0.6b at full width and depth on
+# train_4k's sequence length (configs/base.py:87); its global batch of 256
+# sequences cut to 8 (32,768 tokens a step), accumulated in 4 microbatches
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH = 4096, 8, 4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 5
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+GRAD_TOL = E2E_TOL  # the LM gate, on the loss and every gradient leaf in f32
+# beside it, each leaf's relative RMS gap (its difference's RMS over its
+# RMS), in f32 and in the bf16 step; set about 15x and 6x over the worst
+# leaves read on an H100 (6.8e-7, MLA's wq; 3.3e-3, qwen3's embedding)
+GRAD_REL_RMS, BF16_TRAIN_GAP = 1e-5, 2e-2
+GRAD_LAYERS, MLA_ARCH, MLA_GRAD_LAYERS = 2, "deepseek-v2-lite-16b", 1
+CARD_BYTES = 80e9  # H100 SXM device memory
+# BST at full width on RECSYS_SHAPES' train_batch (configs/base.py:140)
+BST_TRAIN_BATCH, BST_TRAIN_STEPS = 65_536, 4
+BST_GRAD_GAP = 2e-2  # phase 16 (e)'s gate, on the loss and each leaf's relative RMS gap
 
 
 def fail(msg: str) -> None:
@@ -1838,8 +1883,15 @@ def gqa_serving(report: dict) -> tuple:
           f"{out['attention_calls_global']}", flush=True)
     out["profiled"] = _profile_steps(run, cfg, GQA_SLOTS)
     report["gqa_serving"] = out
-    S = max(GQA_PROMPTS)
-    kept = {f"{GQA_ARCH} layer {layer}": run["rec"].kept_by_layer[layer][S] for layer in (0, 5)}
+    # layer 0 is windowed and layer 5 global; every prefill layer of one
+    # kind launches at its prompt's shape
+    windows = cfg.layer_windows()
+    n_windowed = sum(w == cfg.sliding_window for w in windows)
+    kept = []
+    for layer, kind, n in ((0, "windowed", n_windowed), (5, "global", len(windows) - n_windowed)):
+        kept += [{"arch": GQA_ARCH, "kind": kind, "tokens": S, "inputs": inputs,
+                  "launches": n * GQA_PROMPTS.count(S)}
+                 for S, inputs in sorted(run["rec"].kept_by_layer[layer].items())]
     return cfg, kept, run["launches"]["flash_attention"]
 
 
@@ -1899,20 +1951,23 @@ def gqa_other_archs(report: dict) -> tuple:
     of which 40 are active) at full width, each in its own
     ``Engine(4, 1024)`` serving 4 requests of 64-605 tokens, 8 new tokens
     each, released before the next.  Returns layer 0's recorded attention
-    inputs at the longest prompt of each and the launches."""
+    inputs at every prompt length of each (every layer launches at its
+    prompt's shape) and the launches."""
     import gc
 
     import torch
 
     from repro_torch.configs import get_arch
 
-    kept, launches, out = {}, {}, {}
+    kept, launches, out = [], {}, {}
     for i, arch in enumerate(GQA_OTHERS):
         cfg = get_arch(arch).cfg
         run = _serve_arch(cfg, GQA_OTHER_SLOTS, GQA_OTHER_MAX_LEN, GQA_OTHER_PROMPTS,
                           GQA_OTHER_NEW, seed=10 + i)
         out[arch] = run["report"]
-        kept[f"{arch} layer 0"] = run["rec"].kept[max(GQA_OTHER_PROMPTS)]
+        kept += [{"arch": arch, "kind": "global", "tokens": S, "inputs": inputs,
+                  "launches": cfg.n_layers * GQA_OTHER_PROMPTS.count(S)}
+                 for S, inputs in sorted(run["rec"].kept.items())]
         launches[arch] = run["launches"]["flash_attention"]
         del run
         gc.collect()
@@ -1934,43 +1989,62 @@ def _sdpa_window(q, k, v, window):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def gqa_kernel_checks(kept: dict, launches: dict, report: dict) -> dict:
-    """Phase 16 (c): the flash kernel against its plain version on the q, k
-    and v recorded from the GQA prefills (gemma3's layer 0, windowed, and
-    layer 5, global, at 1,900 tokens; layer 0 of each other arch at 605),
-    in bf16 (2e-2) and cast to f32 (2e-5); each graph-replayed in turns
-    with ``scaled_dot_product_attention(..., enable_gqa=True)`` (windowed
-    rows by an explicit mask) beside its byte bound.  Returns the kernel
-    table's "LM GQA prefill" path."""
+def gqa_kernel_checks(kept: list, launches: dict, report: dict) -> dict:
+    """Phase 16 (c): the flash kernel at every shape the GQA prefills
+    launched it on (gemma3's windowed and global layers at each of its 8
+    prompt lengths, layer 0 of each other arch at each of its 4), on the q,
+    k and v recorded there: held against its plain version in bf16 (2e-2)
+    and cast to f32 (2e-5), graph-replayed in turns with
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` (a windowed
+    layer by an explicit mask) beside its bound, and weighted by the
+    launches at that shape, so launches x (ms - bound) sums over the whole
+    GQA path.  Returns the kernel table's "LM GQA prefill" path."""
     from repro_torch.kernels.ref import attention_ref
 
+    if sum(r["launches"] for r in kept) != sum(launches.values()):
+        fail(f"the recorded GQA shapes cover {sum(r['launches'] for r in kept)} launches, the "
+             f"path made {sum(launches.values())}")
     rows = []
-    for name, (q, k, v, causal, window) in kept.items():
-        row = {"input": name, "shape": {"q": list(q.shape), "k": list(k.shape),
-                                        "v": list(v.shape)}, "window": window,
+    for r in kept:
+        q, k, v, causal, window = r["inputs"]
+        name = f"{r['arch']} {r['kind']} at {r['tokens']}"
+        row = {"input": name, "arch": r["arch"], "kind": r["kind"], "tokens": r["tokens"],
+               "launches": r["launches"], "shape": {"q": list(q.shape), "k": list(k.shape),
+                                                    "v": list(v.shape)}, "window": window,
                **hold_to_plain(f"on {name}", q, k, v, causal, window)}
         launch = flash_launch(q, k, v, causal, window)
         sdpa = _sdpa_window(q, k, v, window) if window else (lambda: _sdpa(q, k, v, causal))
         ms, sdpa_ms = cuda_ms_in_turns([launch, sdpa], reps=9)
         bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, causal, window)
         row.update(ms=ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                   bytes=nbytes, host_loop_ms=host_loop_ms(launch),
+                   bytes=nbytes, gap_ms=r["launches"] * (ms - bound_ms),
                    plain_ms=host_loop_ms(lambda: attention_ref(q, k, v, causal=causal,
                                                                window=window), iters=5))
+        if r is kept[0]:
+            row["host_loop_ms"] = host_loop_ms(launch)
         rows.append(row)
-        print(f"flash_attention on {name} q {tuple(q.shape)} k {tuple(k.shape)} window "
-              f"{window}: max abs err bf16 {row['max_abs_err_bfloat16']:.3g} (f32 "
-              f"{row['max_abs_err_float32']:.3g}); kernel {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms in "
-              f"turns, plain {row['plain_ms']:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
-              f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    for r in rows:
+        print(f"flash_attention on {r['input']} q {tuple(r['shape']['q'])} window "
+              f"{r['window']}, {r['launches']} launches: max abs err bf16 "
+              f"{r['max_abs_err_bfloat16']:.3g} (f32 {r['max_abs_err_float32']:.3g}); kernel "
+              f"{r['ms']:.4f} ms, SDPA {r['sdpa_ms']:.4f} ms in turns, plain {r['plain_ms']:.4f} "
+              f"ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}", flush=True)
+    gap = sum(r["gap_ms"] for r in rows)
+    sdpa_total = sum(r["launches"] * r["sdpa_ms"] for r in rows)
+    kernel_total = sum(r["launches"] * r["ms"] for r in rows)
+    print(f"flash_attention over the GQA path: {sum(r['launches'] for r in rows)} launches at "
+          f"{len(rows)} shapes, kernel {kernel_total:.2f} ms, SDPA {sdpa_total:.2f} ms, "
+          f"launches x (ms - bound) {gap:.2f} ms", flush=True)
     report["gqa_flash_attention_checks"] = rows
     top = rows[0]
     return {"launches": sum(launches.values()), "launches_by_arch": launches,
             "max_abs_err": max(r["max_abs_err_bfloat16"] for r in rows),
             "ms": top["ms"], "host_loop_ms": top["host_loop_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["sdpa_ms"], "rows": {r["input"]: {
-                k: r[k] for k in ("ms", "sdpa_ms", "bound_ms", "plain_ms")} for r in rows}}
+            "library_ms": top["sdpa_ms"], "gap_ms": gap, "kernel_total_ms": kernel_total,
+            "sdpa_total_ms": sdpa_total, "rows": {r["input"]: {
+                k: r[k] for k in ("launches", "ms", "sdpa_ms", "bound_ms", "plain_ms")}
+                for r in rows}}
 
 
 def bst_phase(report: dict) -> None:
@@ -2063,14 +2137,498 @@ def gqa_phase(report: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     kept_others, launches = gqa_other_archs(report)
-    kept.update(kept_others)
-    path = gqa_kernel_checks(kept, {GQA_ARCH: n_gemma, **launches}, report)
+    path = gqa_kernel_checks(kept + kept_others, {GQA_ARCH: n_gemma, **launches}, report)
     del kept
     gc.collect()
     torch.cuda.empty_cache()
     bst_phase(report)
     report["gqa_phase_s"] = time.perf_counter() - t
     print(f"phase 16 (slice F2: GQA serving, BST) wall {report['gqa_phase_s']:.1f} s", flush=True)
+    return path
+
+
+def _kind_of(kernel: str) -> str:
+    """A device event's share of a training step: the flash kernel, a GEMM
+    (cuBLAS names its H100 GEMMs nvjet, sm90_xmma or cutlass), a copy or
+    fill, or another kernel (elementwise, reductions, softmax)."""
+    n = kernel.lower()
+    if "flash_attn" in n:
+        return "flash_attention"
+    if any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    if "memcpy" in n or "memset" in n:
+        return "copy/fill"
+    return "other"
+
+
+def train_lm(report: dict) -> dict:
+    """Phase 17 (a): ``qwen3-0.6b`` at full width and depth (28 layers,
+    GQA 16/8, width 128, qk-norm, tied 151,936-token vocabulary), f32
+    params at rest and bf16 compute, remat on, trained by ``Trainer`` for 6
+    steps of 8 ``TokenPipeline`` sequences of 4,096 tokens in 4
+    microbatches (AdamW, lr 1e-3, 2 warm-up steps), a checkpoint at step 3
+    in a temporary directory under ``build/`` (removed at the end) and a
+    failure at step 5 that restores it.  Launch counts are set to 0 just
+    before the run and read just after: ``flash_attention`` must launch
+    steps x microbatches x 28 x 2 times (each layer's forward and its
+    remat recompute) and nothing else; every loss finite; the restored
+    params and moments equal to the step-3 state bit for bit; peak memory
+    under the card's 80 GB.  Then one more step under the profiler, with
+    layer q, k, v recorded for (e), and the plain backward's recompute and
+    the CE chunks timed alone at the step's shapes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.fault import FailureSimulator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_paths
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch(TRAIN_ARCH).cfg
+    if not cfg.remat or cfg.dtype != torch.bfloat16:
+        fail(f"{cfg.name}: training wants remat on and bf16 compute, got {cfg.remat}, {cfg.dtype}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    out = {"arch": cfg.name, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "microbatch": TRAIN_MICROBATCH, "steps": TRAIN_STEPS,
+           "disk_free_gb": shutil.disk_usage(ckpt_dir).free / 1e9}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE,
+                                at_rest=torch.float32)
+        out["n_params"] = sum(p.numel() for _, p in tree_paths(params))
+        if any(p.dtype != torch.float32 for _, p in tree_paths(params)):
+            fail("training params are not f32 at rest")
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                             ckpt_dir=ckpt_dir, microbatch=TRAIN_MICROBATCH,
+                             opt=OptConfig(**TRAIN_OPT))
+        tr = Trainer(lambda p, b: tf.train_loss(p, b, cfg), params, tcfg,
+                     failure_sim=FailureSimulator([(TRAIN_FAIL_AT, 1)]), device=DEVICE)
+        del params
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        snap, restore = {}, {}
+
+        def batches():
+            """The pipeline's batches.  The draw for step index
+            ``TRAIN_CKPT_EVERY`` comes after step 3 and its save: it keeps
+            the trainer's state.  The draw for ``TRAIN_FAIL_AT`` comes just
+            after the restore: it holds the state to the kept one."""
+            for i, b in enumerate(pipe):
+                now = dict(tree_paths({"params": tr.params, "opt": tr.opt_state}))
+                if i == TRAIN_CKPT_EVERY:
+                    snap.update((k, v.clone()) for k, v in now.items())
+                elif i == TRAIN_FAIL_AT:
+                    restore["leaves"] = len(now)
+                    restore["differing"] = sorted(
+                        k for k in set(snap) | set(now)
+                        if k not in snap or k not in now or now[k].dtype != snap[k].dtype
+                        or not torch.equal(now[k], snap[k]))
+                    snap.clear()
+                del now
+                yield b
+
+        reset_launch_counters()
+        t = time.perf_counter()
+        metrics = tr.run(batches())
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+        peak = torch.cuda.max_memory_allocated()
+        snap.clear()
+        saves = []  # each checkpoint's write seconds, from its manifest
+        for step in tr.ckpt.all_steps():
+            with open(pathlib.Path(ckpt_dir) / f"step_{step:08d}" / "MANIFEST.json") as f:
+                saves.append({"step": step, "write_s": json.load(f)["save_s"]})
+        losses = metrics["loss"]
+        steps_run = len(losses)
+        want = steps_run * TRAIN_MICROBATCH * cfg.n_layers * 2
+        rec = metrics.get("recoveries", [])
+        if steps_run != TRAIN_STEPS or not all(np.isfinite(losses)):
+            fail(f"{cfg.name} training: {steps_run} steps, losses {losses}")
+        if launches != {"flash_attention": want}:
+            fail(f"{cfg.name} training launched {launches}, want flash_attention {want} "
+                 f"({steps_run} steps x {TRAIN_MICROBATCH} microbatches x {cfg.n_layers} "
+                 "layers x 2) and nothing else")
+        if len(rec) != 1 or rec[0]["restored_step"] != TRAIN_CKPT_EVERY:
+            fail(f"{cfg.name} training: recoveries {rec}, want one from step {TRAIN_CKPT_EVERY}")
+        n_leaves = len(list(tree_paths({"params": tr.params, "opt": tr.opt_state})))
+        if restore.get("differing") != [] or restore.get("leaves") != n_leaves:
+            fail(f"{cfg.name} training: after the restore {restore.get('differing')} differ "
+                 f"from the step-{TRAIN_CKPT_EVERY} checkpoint")
+        if peak >= CARD_BYTES:
+            fail(f"{cfg.name} training: peak memory {peak / 1e9:.2f} GB")
+        step_ms = [x * 1e3 for x in metrics["step_time"]]
+        med = float(np.median(step_ms))
+        out.update(losses=losses, step_ms=step_ms, step_median_ms=med,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3, launches=launches,
+                   peak_memory_bytes=peak, saves=saves, restore_s=rec[0]["restore_s"],
+                   restored_leaves=restore["leaves"], recoveries=rec)
+        print(f"{cfg.name} training: {out['n_params'] / 1e9:.3f} B parameters (f32 at rest, bf16 "
+              f"compute, remat), {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+              f"{TRAIN_MICROBATCH} microbatches: step median {med:.1f} ms "
+              f"({out['tokens_per_s']:.0f} tokens/s; steps "
+              + ", ".join(f"{x:.0f}" for x in step_ms) + " ms); loss "
+              + " -> ".join(f"{x:.4f}" for x in losses)
+              + f"; launches {launches} (= {steps_run} x {TRAIN_MICROBATCH} x {cfg.n_layers} x 2)"
+              f"; peak memory {peak / 1e9:.2f} GB; run {out['run_s']:.1f} s", flush=True)
+        print("  checkpoints (params + mu + nu, write seconds from each manifest): "
+              + ", ".join(f"step {x['step']} {x['write_s']:.2f} s" for x in saves)
+              + f" (step {TRAIN_CKPT_EVERY} async, step {TRAIN_STEPS} blocking); restore at "
+              f"step {TRAIN_FAIL_AT} {rec[0]['restore_s']:.2f} s, {restore['leaves']} "
+              f"leaves equal to the step-{TRAIN_CKPT_EVERY} state bit for bit; disk free "
+              f"{out['disk_free_gb']:.0f} GB", flush=True)
+
+        # one more step under the profiler, layer inputs recorded for (e)
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+        with AttentionRecorder(ops, cfg.n_layers) as attn_rec:
+            wall_ms, busy_ms, by_kind, _ = profiled(
+                lambda: tr._update(tr.params, tr.opt_state, tr.comp_state, batch))
+        kinds: dict = {}
+        for name, ms in by_kind.items():
+            kinds[_kind_of(name)] = kinds.get(_kind_of(name), 0.0) + ms
+        q, k, v, causal, window = attn_rec.kept[TRAIN_SEQ]
+        q, k, v = (x.detach() for x in (q, k, v))
+        del attn_rec, batch
+        # the plain backward of one attention call and one microbatch's CE
+        # chunks, alone at the step's shapes (CUDA events)
+        g_out = torch.randn(q.shape, device=DEVICE, dtype=q.dtype)
+
+        def attn_backward():
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            o = attention_ref(qq, kk, vv, causal=causal, window=window)
+            torch.autograd.grad(o, (qq, kk, vv), g_out)
+
+        x_mb = torch.randn((TRAIN_BATCH // TRAIN_MICROBATCH, TRAIN_SEQ, cfg.d_model),
+                           device=DEVICE, dtype=cfg.dtype, requires_grad=True)
+        lab = torch.as_tensor(pipe.batch_at(0)["labels"][:TRAIN_BATCH // TRAIN_MICROBATCH],
+                              device=DEVICE)
+        table = tr.params["embed"]["table"].detach().requires_grad_()
+
+        def ce_chunks():
+            loss = tf.chunked_ce_loss(x_mb, table.to(cfg.dtype), lab)
+            torch.autograd.grad(loss, (x_mb, table))
+
+        bwd_ms = host_loop_ms(attn_backward, warmup=1, iters=3)
+        ce_ms = host_loop_ms(ce_chunks, warmup=1, iters=3)
+        per_step = TRAIN_MICROBATCH * cfg.n_layers
+        prof = {"wall_ms": wall_ms, "device_ms": busy_ms, "device_share": busy_ms / wall_ms,
+                "by_kind_ms": kinds, "top_ms": dict(sorted(by_kind.items(),
+                                                           key=lambda kv: -kv[1])[:10]),
+                "attention_backward_ms": bwd_ms, "attention_backward_per_step": per_step,
+                "attention_backward_share": per_step * bwd_ms / busy_ms,
+                "ce_chunks_ms": ce_ms, "ce_chunks_per_step": TRAIN_MICROBATCH,
+                "ce_chunks_share": TRAIN_MICROBATCH * ce_ms / busy_ms}
+        out["profiled_step"] = prof
+        print(f"  one step profiled: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms, share "
+              f"{busy_ms / wall_ms:.4f}; by kind "
+              + ", ".join(f"{k} {v:.1f} ms"
+                          for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+              + f"; plain attention backward {bwd_ms:.3f} ms a call x {per_step} = "
+              f"{per_step * bwd_ms:.1f} ms ({prof['attention_backward_share']:.3f} of busy); CE "
+              f"chunks fwd+bwd {ce_ms:.2f} ms a microbatch x {TRAIN_MICROBATCH} "
+              f"({prof['ce_chunks_share']:.3f} of busy); top: "
+              + ", ".join(f"{k.strip()[:40]} {v:.1f}" for k, v in prof["top_ms"].items()),
+              flush=True)
+        del tr, metrics, x_mb, table
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    report["train_lm"] = out
+    return {"inputs": (q, k, v, causal, window), "launches": launches["flash_attention"],
+            "attention_backward_ms": bwd_ms}
+
+
+def train_grad_hold(arch: str, n_layers: int, seed: int, report: dict, bf16_gap: bool):
+    """Phase 17 (b)/(c): ``arch`` at full width, depth cut to ``n_layers``,
+    f32 params at rest and f32 compute (remat as the config has it): one
+    value and gradient of ``train_loss`` on one ``TokenPipeline`` sequence
+    of 4,096 tokens with ``ops.attention`` (the flash kernel under its
+    autograd Function), against the same step with ``attention_ref`` in
+    its place.  The loss, its parts and every gradient leaf within
+    atol/rtol 1e-3, and each leaf's relative RMS gap (its difference's RMS
+    over its RMS) within ``GRAD_REL_RMS``; the kernel launched n_layers x
+    2 times; each layer's q, k and v projections with a non-zero gradient.
+    With ``bf16_gap``, the same step in bf16 compute: its loss gap and each
+    leaf's relative RMS gap against the plain attention's within
+    ``BF16_TRAIN_GAP``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_paths
+    from repro_torch.train.trainer import value_and_grad
+
+    cfg = dataclasses.replace(get_arch(arch).cfg, n_layers=n_layers, dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), DEVICE,
+                            at_rest=torch.float32)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in TokenPipeline(cfg.vocab_size, 1, TRAIN_SEQ, seed=seed).batch_at(0).items()}
+    def plain(q, k, v, causal=True, window=None):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    def step(c, fn=None):
+        """One value and gradient, with ``fn`` in ``ops.attention``'s place
+        when given."""
+        kernel_fn = ops.attention
+        ops.attention = fn or kernel_fn
+        try:
+            return value_and_grad(lambda p, b: tf.train_loss(p, b, c))(params, batch)
+        finally:
+            ops.attention = kernel_fn
+
+    with AttentionRecorder(ops, n_layers) as rec:
+        reset_launch_counters()
+        (loss_k, aux_k), g_k = step(cfg)
+        torch.cuda.synchronize()
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+    q, k, v, _, _ = rec.kept[TRAIN_SEQ]
+    shapes = {"q": list(q.shape), "v": list(v.shape), "v_contiguous": v.is_contiguous()}
+    del rec, q, k, v
+    (loss_p, aux_p), g_p = step(cfg, plain)
+    want = n_layers * (2 if cfg.remat else 1)
+    if launches != {"flash_attention": want}:
+        fail(f"{arch} gradient hold launched {launches}, want flash_attention {want}")
+    checks = {"loss": (loss_k, loss_p), "ce": (aux_k["ce"], aux_p["ce"]),
+              "aux": (aux_k["aux"], aux_p["aux"])}
+    gp = dict(tree_paths(g_p))
+    for key, g in tree_paths(g_k):
+        checks[key] = (g, gp[key])
+    worst, bad = {}, []
+    for key, (got, want_) in checks.items():
+        err = float((got - want_).abs().max())
+        worst[key] = err
+        if not (torch.isfinite(got).all() and torch.allclose(got, want_, **GRAD_TOL)):
+            bad.append(f"{key} (max abs diff {err:.3g})")
+    rms, gaps = rel_rms_gaps(g_k, g_p)
+    loose = [f"{key} ({gap:.3g})" for key, gap in gaps.items() if not gap <= GRAD_REL_RMS]
+    attn = g_k["layers"]["attn"]
+    proj = ["wq", "w_dkv", "w_krope", "w_uk", "w_uv"] if cfg.mla else ["wq", "wk", "wv"]
+    dead = [n for n in proj if not (attn[n].reshape(n_layers, -1).abs().amax(1) > 0).all()]
+    out = {"arch": arch, "layers": n_layers, "tokens": TRAIN_SEQ, "launches": launches,
+           "loss": float(loss_k), "aux": float(aux_k["aux"]), "attention_shapes": shapes,
+           "max_abs_diff": max(worst.values()), "worst_leaf": max(worst, key=worst.get),
+           "n_leaves": len(checks) - 3, "grad_rms": rms, "rel_rms_gap": gaps,
+           "max_rel_rms_gap": max(gaps.values())}
+    del g_k, g_p, gp, checks
+    if bf16_gap:
+        c16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+        (l16_k, _), g16_k = step(c16)
+        (l16_p, _), g16_p = step(c16, plain)
+        _, gaps16 = rel_rms_gaps(g16_k, g16_p)
+        del g16_k, g16_p
+        out["bf16_rel_loss_gap"] = abs(float(l16_k) - float(l16_p)) / abs(float(l16_p))
+        out["bf16_rel_rms_gap"] = gaps16
+        out["bf16_max_rel_rms_gap"] = max(gaps16.values())
+        if not (out["bf16_rel_loss_gap"] <= BF16_TRAIN_GAP
+                and out["bf16_max_rel_rms_gap"] <= BF16_TRAIN_GAP):
+            loose.append(f"bf16 step: loss gap {out['bf16_rel_loss_gap']:.3g}, largest relative "
+                         f"RMS gradient gap {out['bf16_max_rel_rms_gap']:.3g} at "
+                         f"{max(gaps16, key=gaps16.get)} (limit {BF16_TRAIN_GAP})")
+    del params
+    print(f"gradient hold, {arch} at full width, {n_layers} layer(s), f32, one {TRAIN_SEQ}-token "
+          f"sequence: loss {out['loss']:.6f} (aux {out['aux']:.4g}), launches {launches}, "
+          f"q {shapes['q']} v {shapes['v']} (v contiguous: {shapes['v_contiguous']}); loss and "
+          f"{out['n_leaves']} gradient leaves with the kernel vs the plain attention: max abs "
+          f"diff {out['max_abs_diff']:.3g} at {out['worst_leaf']}, largest relative RMS gap "
+          f"{out['max_rel_rms_gap']:.3g} at {max(gaps, key=gaps.get)}"
+          + (f"; bf16 step relative loss gap {out['bf16_rel_loss_gap']:.3g}, largest relative "
+             f"RMS gradient gap {out['bf16_max_rel_rms_gap']:.3g}" if bf16_gap else ""),
+          flush=True)
+    print("  each leaf: gradient RMS / relative RMS gap"
+          + ("" if not bf16_gap else " / bf16 relative RMS gap") + ": "
+          + ", ".join(f"{key} {rms[key]:.3g}/{gaps[key]:.3g}"
+                      + (f"/{out['bf16_rel_rms_gap'][key]:.3g}" if bf16_gap else "")
+                      for key in gaps), flush=True)
+    if bad or loose or dead:
+        fail(f"{arch} gradient hold: outside atol/rtol 1e-3: {bad}; relative RMS gap past "
+             f"{GRAD_REL_RMS}: {loose}; projections without a gradient: {dead}")
+    report[f"train_grad_hold_{arch}"] = out
+
+
+def rel_rms_gaps(got: dict, want: dict) -> tuple:
+    """Each gradient leaf's RMS in ``want`` and the RMS of ``got - want``
+    over it, in f64 (the gap of a leaf that is 0 in ``want`` is its
+    difference's RMS).  ``got`` may lie on another device."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_paths
+
+    flat = dict(tree_paths(want))
+    rms, gaps = {}, {}
+    for key, g in tree_paths(got):
+        w = flat[key].double()
+        rms[key] = float(w.pow(2).mean().sqrt())
+        diff = float((g.to(w.device, torch.float64) - w).pow(2).mean().sqrt())
+        gaps[key] = diff / rms[key] if rms[key] > 0 else diff
+    return rms, gaps
+
+
+def train_bst(report: dict) -> None:
+    """Phase 17 (d): BST at full width (``configs/bst.py``: 2^22 x 32 items,
+    16,384 categories), params drawn on the host from seed 5 and carried to
+    the card and back to the host through ``convert.bst_params_from_numpy``;
+    ``RecsysPipeline`` batches of ``RECSYS_SHAPES``' train_batch, 65,536.
+    The first step's loss and every gradient leaf on the card are held to
+    the same step on the host (both bf16 compute) within 2e-2 (the loss
+    relatively, each leaf by its relative RMS gap); then ``Trainer`` runs 4
+    steps on the card (the final blocking checkpoint in a temporary
+    directory, removed after), whose first loss must be the held one."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import bst_params_from_numpy
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.models.recsys.bst import bst_init, bst_loss
+    from repro_torch.train.optimizer import OptConfig, tree_map
+    from repro_torch.train.trainer import Trainer, TrainerConfig, value_and_grad
+
+    spec = get_arch("bst").spec
+    t = time.perf_counter()
+    tree = tree_map(lambda x: x.numpy(), bst_init(torch.Generator().manual_seed(5), spec, "cpu"))
+    params, host = bst_params_from_numpy(tree, DEVICE), bst_params_from_numpy(tree, "cpu")
+    del tree
+    pipe = RecsysPipeline(spec.n_items, spec.n_cats, BST_TRAIN_BATCH, spec.seq_len, seed=0)
+    b0 = pipe.batch_at(0)
+
+    def loss_fn(p, b):
+        return bst_loss(p, b, spec), {}
+
+    (lc, _), gc_ = value_and_grad(loss_fn)(params, {k: torch.as_tensor(v, device=DEVICE)
+                                                   for k, v in b0.items()})
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    (lh, _), gh = value_and_grad(loss_fn)(host, {k: torch.as_tensor(v) for k, v in b0.items()})
+    host_s = time.perf_counter() - t_host
+    _, gaps = rel_rms_gaps(gc_, gh)
+    loss_gap = abs(float(lc) - float(lh)) / abs(float(lh))
+    del gc_, gh, host
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_bst_", dir=ROOT / "build")
+    try:
+        tr = Trainer(loss_fn, params, TrainerConfig(
+            total_steps=BST_TRAIN_STEPS, ckpt_every=BST_TRAIN_STEPS + 1, ckpt_dir=ckpt_dir,
+            opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=BST_TRAIN_STEPS)), device=DEVICE)
+        del params
+        reset_launch_counters()
+        metrics = tr.run(pipe.batch_at(step) for step in range(BST_TRAIN_STEPS))
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in pipe.batch_at(BST_TRAIN_STEPS).items()}
+        wall_ms, busy_ms, by_kind, _ = profiled(
+            lambda: tr._update(tr.params, tr.opt_state, tr.comp_state, batch))
+        del tr, batch
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses, step_ms = metrics["loss"], [x * 1e3 for x in metrics["step_time"]]
+    out = {"batch": BST_TRAIN_BATCH, "loss_card": float(lc), "loss_host": float(lh),
+           "rel_loss_gap": loss_gap, "max_rel_rms_grad_gap": max(gaps.values()),
+           "worst_leaf": max(gaps, key=gaps.get), "host_step_s": host_s, "losses": losses,
+           "step_ms": step_ms, "step_median_ms": float(np.median(step_ms)),
+           "launches": launches, "phase_s": time.perf_counter() - t,
+           "profiled_step": {"wall_ms": wall_ms, "device_ms": busy_ms,
+                             "device_share": busy_ms / wall_ms, "top_ms": dict(
+                                 sorted(by_kind.items(), key=lambda kv: -kv[1])[:8])}}
+    report["train_bst"] = out
+    print(f"BST training at full width, batch {BST_TRAIN_BATCH}: first step on the card vs the "
+          f"host: loss {float(lc):.6f} vs {float(lh):.6f} (relative gap {loss_gap:.3g}), "
+          f"largest relative RMS gradient gap {out['max_rel_rms_grad_gap']:.3g} at "
+          f"{out['worst_leaf']} (host step {host_s:.1f} s); {BST_TRAIN_STEPS} steps, median "
+          f"{out['step_median_ms']:.1f} ms (" + ", ".join(f"{x:.1f}" for x in step_ms)
+          + " ms), loss " + " -> ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {launches}", flush=True)
+    print(f"  one BST step profiled: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms, share "
+          f"{busy_ms / wall_ms:.4f}; top: " + ", ".join(
+              f"{k.strip()[:40]} {v:.2f}" for k, v in out["profiled_step"]["top_ms"].items()),
+          flush=True)
+    if not (loss_gap <= BST_GRAD_GAP and out["max_rel_rms_grad_gap"] <= BST_GRAD_GAP):
+        fail(f"BST training: the card's first step is outside {BST_GRAD_GAP} of the host's")
+    if not (np.isfinite(losses).all() and len(losses) == BST_TRAIN_STEPS):
+        fail(f"BST training: losses {losses}")
+    if abs(losses[0] - float(lc)) > 1e-6 * abs(float(lc)):
+        fail(f"BST training: the trainer's first loss {losses[0]} is not the held {float(lc)}")
+    if launches:
+        fail(f"BST training launched {launches}; it trains through plain gathers")
+
+
+def train_kernel_timing(lm: dict, report: dict) -> dict:
+    """Phase 17 (e): the flash kernel on q, k, v recorded from (a)'s
+    profiled step ([2, 16, 4,096, 128] bf16, causal, GQA group 2) against
+    its plain version (bf16 2e-2, f32 2e-5), graph-replayed in turns with
+    SDPA beside its bound; the plain backward's time (a)'s beside it.
+    Returns the kernel table's "LM training" path."""
+    from repro_torch.kernels.ref import attention_ref
+
+    q, k, v, causal, window = lm["inputs"]
+    row = {"shape": {"q": list(q.shape), "k": list(k.shape), "v": list(v.shape)},
+           **hold_to_plain("at the training shape", q, k, v, causal, window)}
+    launch = flash_launch(q, k, v, causal, window)
+    ms, sdpa_ms = cuda_ms_in_turns([launch, lambda: _sdpa(q, k, v, causal)], reps=9)
+    bound_ms, bound_by, flops, nbytes = attention_bound(q, k, v, causal, window)
+    row.update(ms=ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+               bytes=nbytes, host_loop_ms=host_loop_ms(launch),
+               plain_ms=host_loop_ms(lambda: attention_ref(q, k, v, causal=causal), iters=5),
+               plain_backward_ms=lm["attention_backward_ms"], launches=lm["launches"],
+               gap_ms=lm["launches"] * (ms - bound_ms))
+    report["train_flash_attention"] = row
+    print(f"flash_attention at the training shape q {tuple(q.shape)} k {tuple(k.shape)}: max "
+          f"abs err bf16 {row['max_abs_err_bfloat16']:.3g} (f32 {row['max_abs_err_float32']:.3g}); "
+          f"kernel {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms in turns, plain {row['plain_ms']:.3f} ms, "
+          f"plain backward {row['plain_backward_ms']:.3f} ms; bound {bound_ms:.5f} ms by "
+          f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); {lm['launches']} "
+          f"launches x (ms - bound) {row['gap_ms']:.2f} ms", flush=True)
+    return {"launches": lm["launches"], "max_abs_err": row["max_abs_err_bfloat16"], "ms": ms,
+            "host_loop_ms": row["host_loop_ms"], "plain_ms": row["plain_ms"],
+            "plain_backward_ms": row["plain_backward_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": sdpa_ms, "gap_ms": row["gap_ms"]}
+
+
+def train_phase(report: dict) -> dict:
+    """Phase 17, slice G on the card: (a) qwen3-0.6b trained at full width,
+    (b) its gradient through the kernel held at 2 layers in f32, (c) the
+    same for deepseek-v2-lite-16b's MLA at 1 MoE layer, (d) BST trained at
+    full width, (e) the flash kernel at the training shape.  Returns the
+    kernel table's "LM training" path of ``flash_attention``."""
+    import gc
+
+    import torch
+
+    t = time.perf_counter()
+    lm = train_lm(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = train_kernel_timing(lm, report)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grad_hold(TRAIN_ARCH, GRAD_LAYERS, 1, report, bf16_gap=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grad_hold(MLA_ARCH, MLA_GRAD_LAYERS, 2, report, bf16_gap=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_bst(report)
+    report["train_phase_s"] = time.perf_counter() - t
+    print(f"phase 17 (slice G: training) wall {report['train_phase_s']:.1f} s", flush=True)
     return path
 
 
@@ -3405,6 +3963,11 @@ def main() -> None:
     flash_row["launches_by_path"] = {"lm_prefill": flash_row["launches"],
                                      "lm_gqa_prefill": gqa_path["launches"]}
     flash_row["paths"] = {"LM GQA prefill": gqa_path}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_path = train_phase(report)
+    flash_row["launches_by_path"]["lm_training"] = train_path["launches"]
+    flash_row["paths"]["LM training"] = train_path
     gc.collect()
     torch.cuda.empty_cache()
     table.append(bag_phase(report))

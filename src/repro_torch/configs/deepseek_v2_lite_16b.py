@@ -45,5 +45,6 @@ ARCH = LMArch(
         qk_nope_dim=16,
         qk_rope_dim=8,
         v_head_dim=16,
+        remat=False,
     ),
 )

@@ -29,5 +29,6 @@ ARCH = LMArch(
         vocab_size=512,
         sliding_window=8,
         local_global_ratio=5,
+        remat=False,
     ),
 )

@@ -39,5 +39,6 @@ ARCH = LMArch(
         n_experts=5,
         top_k=2,
         d_ff_expert=32,
+        remat=False,
     ),
 )

@@ -26,5 +26,6 @@ ARCH = LMArch(
         d_ff=128,
         vocab_size=512,
         qk_norm=True,
+        remat=False,
     ),
 )

@@ -24,5 +24,6 @@ ARCH = LMArch(
         n_kv_heads=2,
         d_ff=128,
         vocab_size=512,
+        remat=False,
     ),
 )

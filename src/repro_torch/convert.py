@@ -15,7 +15,10 @@ same for a warm DHD field (``StreamingHeat``), so both packages' warm
 updates can start from one field.
 
 :func:`lm_params_from_numpy` turns an LM's params (the JAX package's tree,
-as numpy arrays) into the port's, so both packages run one set of weights.
+as numpy arrays) into the port's, so both packages run one set of weights;
+:func:`bst_params_from_numpy` does the same for BST, and
+:func:`opt_state_from_numpy` for an AdamW state (``mu``, ``nu``, ``step``),
+so both packages can train on from one optimizer state.
 """
 from __future__ import annotations
 
@@ -35,7 +38,9 @@ __all__ = [
     "F32_PARAMS",
     "GRAPH_FIELDS",
     "HEAT_FIELDS",
+    "bst_params_from_numpy",
     "lm_params_from_numpy",
+    "opt_state_from_numpy",
     "store_arrays",
     "store_from_numpy",
     "streaming_heat_arrays",
@@ -149,13 +154,46 @@ def streaming_heat_from_numpy(arrays: Dict[str, object], device: DeviceLike = No
     return sh
 
 
-def lm_params_from_numpy(tree: Dict[str, object], cfg, device: DeviceLike = None):
+def lm_params_from_numpy(tree: Dict[str, object], cfg, device: DeviceLike = None,
+                         at_rest=None):
     """The port's LM params from the JAX package's tree of numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``), on ``device``.
 
     Leaves named in :data:`F32_PARAMS` stay f32; every other leaf is stored
-    in ``cfg.dtype``, the cast the JAX package applies at each use, done once
-    with the same rounding (round to nearest even)."""
+    in ``at_rest``: ``cfg.dtype`` when None (serving: the cast the JAX
+    package applies at each use, done once with the same rounding, round to
+    nearest even), ``torch.float32`` for training (the JAX package's f32
+    master weights, see ``models/transformer.py``)."""
+    import torch
+
+    dt = at_rest or cfg.dtype
+    return _tensors(tree, device, lambda name: torch.float32 if name in F32_PARAMS else dt)
+
+
+def bst_params_from_numpy(tree: Dict[str, object], device: DeviceLike = None):
+    """The port's BST params (f32 at rest, as the JAX package keeps them)
+    from the JAX package's tree of numpy arrays, on ``device``."""
+    import torch
+
+    return _tensors(tree, device, lambda name: torch.float32)
+
+
+def opt_state_from_numpy(state: Dict[str, object], device: DeviceLike = None):
+    """The port's AdamW state from the JAX package's (``{"mu", "nu",
+    "step"}`` as numpy): f32 moments, ``step`` a 0-d int32 tensor."""
+    import torch
+
+    from .device import resolve_device
+
+    f32 = lambda name: torch.float32  # noqa: E731
+    return {"mu": _tensors(state["mu"], device, f32), "nu": _tensors(state["nu"], device, f32),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=resolve_device(device))}
+
+
+def _tensors(tree, device: DeviceLike, dtype_of):
+    """Nested dicts of numpy arrays as tensors on ``device``, each leaf in
+    ``dtype_of(its key)``."""
     import torch
 
     from .device import resolve_device
@@ -166,6 +204,6 @@ def lm_params_from_numpy(tree: Dict[str, object], cfg, device: DeviceLike = None
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
         t = torch.from_numpy(np.array(node, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if name in F32_PARAMS else cfg.dtype)
+        return t.to(device=dev, dtype=dtype_of(name))
 
     return conv(tree)

@@ -129,6 +129,30 @@ def _tail_raise_on_card(heat: torch.Tensor) -> None:
         )
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Trainable flash attention, the port of the JAX package's
+    ``_attention_with_vjp``: the forward is :func:`flash_attention` (the
+    CUDA kernel on the card, its plain version on the CPU) and saves q, k
+    and v; the backward recomputes ``ref.attention_ref`` from them and
+    returns its VJP, so no ``S x S`` residual is stored between the passes.
+    That backward is plain PyTorch, as the reference's is plain jnp: it
+    materialises the f32 scores and probabilities of one call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.attention_ref(q, k, v, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
 def attention(
     q: torch.Tensor,  # [B, Hq, Sq, Dqk]
     k: torch.Tensor,  # [B, Hkv, Skv, Dqk]
@@ -137,11 +161,13 @@ def attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Softmax attention through :func:`flash_attention` (the CUDA kernel on
-    the card, its plain version on the CPU).  The kernel masks ragged
-    sequence ends, so every shape takes it: unlike the JAX package there is
-    no fallback for lengths its tiles do not divide."""
+    the card, its plain version on the CPU), differentiable through
+    :class:`_FlashAttention`: serving and training take the same forward.
+    The kernel masks ragged sequence ends, so every shape takes it: unlike
+    the JAX package there is no fallback for lengths its tiles do not
+    divide."""
     t0 = _obs_t0()
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = _FlashAttention.apply(q, k, v, causal, window)
     _obs_dispatch("attention", "kernel", t0)
     return out
 

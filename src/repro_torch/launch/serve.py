@@ -23,7 +23,7 @@ from ..serve.engine import Engine, Request, ServeConfig
 def main() -> None:
     ap = argparse.ArgumentParser()
     lm_archs = [a for a in list_archs() if get_arch(a).family == "lm"]
-    ap.add_argument("--arch", default="deepseek-v2-lite-16b", choices=lm_archs)
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=lm_archs)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

@@ -4,7 +4,8 @@ Port of ``repro/models/recsys/bst.py``.  The user's behavior sequence
 (item + category embeddings + learned position) and the target item pass
 through the transformer; outputs concat into the MLP and a CTR logit.
 ``retrieval_score`` scores one user state against N candidates as a single
-batched dot product.
+batched dot product; ``bst_loss`` is the training loss, the mean logistic
+loss of the CTR logits (the JAX package's ``RecsysArch.loss_fn``).
 
 Params stay f32 at rest, as in the JAX package, and every use casts to the
 compute dtype.  Lookups are plain row gathers (``embedding.lookup``); no
@@ -25,7 +26,9 @@ from ..attention import _merge_heads, _split_heads
 from ..layers import Params, layernorm, layernorm_init, mlp, mlp_init, normal
 from .embedding import lookup, table_init
 
-__all__ = ["BSTSpec", "bst_forward", "bst_init", "bst_user_state", "retrieval_score"]
+__all__ = [
+    "BSTSpec", "bst_forward", "bst_init", "bst_loss", "bst_user_state", "retrieval_score",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +111,17 @@ def bst_forward(
     x = _transformer(p, x, spec, dtype)
     flat = x.reshape(x.shape[0], -1)
     return mlp(p["head"], flat, act=F.relu, dtype=dtype)[:, 0].float()
+
+
+def bst_loss(
+    p: Params, batch: Dict[str, torch.Tensor], spec: BSTSpec,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Mean binary cross-entropy of the CTR logits against ``batch["label"]``
+    in the stable form ``max(z, 0) - z * y + log1p(exp(-|z|))``, f32."""
+    z = bst_forward(p, batch, spec, dtype)
+    y = batch["label"]
+    return (torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))).mean()
 
 
 def bst_user_state(

@@ -1,53 +1,69 @@
 """Decoder-only LM assembled from the attention (GQA or MLA) and MoE/SwiGLU
 blocks.
 
-Port of ``repro/models/transformer.py`` for inference: ``LMConfig`` (with
+Port of ``repro/models/transformer.py``: ``LMConfig`` (with
 ``layer_windows``), ``init_params``, ``forward``, ``prefill`` and
-``decode``, for every LM arch of the JAX package.  Per-layer params are
-stacked on a leading ``[L, ...]`` axis as in the JAX package, and the layers
-run as a Python loop (inference needs neither ``scan`` nor remat).
-Training (``train_loss``, ``chunked_ce_loss``, ``hidden_forward``) waits for
-the training slice.
+``decode`` for serving, and ``hidden_forward``, ``chunked_ce_loss`` and
+``train_loss`` (cross-entropy + 0.01 x the MoE aux loss) for training, for
+every LM arch of the JAX package.  Per-layer params are stacked on a
+leading ``[L, ...]`` axis as in the JAX package, and the layers run as a
+Python loop; ``forward`` unbinds the stack once, so a backward pass stacks
+each leaf's gradient once.  With ``cfg.remat`` and grad enabled, each layer
+runs under ``torch.utils.checkpoint`` (``jax.checkpoint(_block)`` in the
+JAX package): its activations are recomputed in the backward pass, so a
+GQA or MLA layer launches the flash kernel twice a training step.
 
 Per-layer windows (gemma3's 5 local : 1 global) are plain ints here: the
-JAX package carries them as data through ``lax.scan``, so its GQA prefill
+JAX package carries them as data through ``lax.scan``, so its GQA stack
 masks with a traced window in dense einsums (``_window_attention``, chunked
 past 2,048 positions by ``_chunked_dyn_window``).  The eager loop knows each
-layer's window, so a GQA prefill goes through ``_attend`` with that window
+layer's window, so a GQA layer goes through ``_attend`` with that window
 (``None`` on a global layer), the dispatch the JAX package's ``_attend``
-takes on a TPU for a static window: the flash kernel on the card, and on
-the CPU the same masked f32 softmax as ``_window_attention`` (dense up to
-2,048 positions, chunked past them).  Decode attends in plain PyTorch
-(``_decode_attend``), as MLA decode does.
+takes on a TPU for a static window: the flash kernel on the card (trainable
+through ``ops.attention``'s autograd Function), and on the CPU the same
+masked f32 softmax as ``_window_attention`` (dense up to 2,048 positions,
+chunked past them).  Decode attends in plain PyTorch (``_decode_attend``),
+as MLA decode does.
 
 Weights at rest: the JAX package keeps params in f32 and casts each matmul
-weight to ``cfg.dtype`` at use; the port stores those weights (attention
-projections, experts, shared experts, embedding table) in ``cfg.dtype``
-once, which rounds the same, and keeps f32 what the reference uses in f32
-(router, norm gains, ``kv_norm``).  At ``deepseek-v2-lite-16b``'s full width
-that is 32 GB of bf16 instead of 64 GB of f32.
+weight to ``cfg.dtype`` at use.  For serving, the port stores those weights
+(attention projections, experts, shared experts, embedding table) in
+``cfg.dtype`` once, which rounds the same, and keeps f32 what the reference
+uses in f32 (router, norm gains, ``kv_norm``): at
+``deepseek-v2-lite-16b``'s full width that is 32 GB of bf16 instead of 64 GB
+of f32.  Training keeps every param in f32 (``init_params(...,
+at_rest=torch.float32)``), as the reference does, since AdamW's small
+updates would round away on a bf16 master; the forward casts at use either
+way.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import (
     _attend, _gqa_qkv, _merge_heads, _write_position, gqa_init, mla_decode, mla_forward,
     mla_init,
 )
-from .layers import Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .layers import (
+    Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init,
+)
 from .moe import moe_forward, moe_init
 
 __all__ = [
     "LMConfig",
+    "chunked_ce_loss",
     "decode",
     "forward",
+    "hidden_forward",
     "init_params",
     "prefill",
+    "train_loss",
 ]
 
 _GLOBAL_WINDOW = 1 << 30  # "window" that never masks = global attention
@@ -84,6 +100,7 @@ class LMConfig:
     rope_base: float = 10000.0
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True  # recompute each layer in the backward pass
 
     @property
     def hd(self) -> int:
@@ -136,8 +153,8 @@ def _tree_map(fn: Callable, tree, *rest):
 
 
 # ---------------------------------------------------------------- parameters
-def _layer_init(generator: torch.Generator, cfg: LMConfig, device: torch.device) -> Params:
-    dt = cfg.dtype
+def _layer_init(generator: torch.Generator, cfg: LMConfig, device: torch.device,
+                dt: torch.dtype) -> Params:
     if cfg.mla:
         attn = mla_init(
             generator, cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
@@ -164,17 +181,21 @@ def _layer_init(generator: torch.Generator, cfg: LMConfig, device: torch.device)
 
 
 def init_params(
-    cfg: LMConfig, generator: torch.Generator, device: DeviceLike = None
+    cfg: LMConfig, generator: torch.Generator, device: DeviceLike = None,
+    at_rest: Optional[torch.dtype] = None,
 ) -> Params:
     """Random params with the JAX package's scales, drawn on ``device`` from
     ``generator`` (which must live there), one layer at a time so the f32
-    draws stay one tensor wide; weights at rest as the module docstring says."""
+    draws stay one tensor wide.  Matmul weights are stored in ``at_rest``
+    (``cfg.dtype`` when None, for serving; ``torch.float32`` for training),
+    router and norms in f32, as the module docstring says."""
     dev = resolve_device(device)
+    dt = at_rest or cfg.dtype
     embed = embedding_init(generator, cfg.vocab_size, cfg.d_model, device=dev)
-    embed["table"] = embed["table"].to(cfg.dtype)
+    embed["table"] = embed["table"].to(dt)
     stacked = None
     for i in range(cfg.n_layers):
-        lp = _layer_init(generator, cfg, dev)
+        lp = _layer_init(generator, cfg, dev, dt)
         if stacked is None:
             stacked = _tree_map(
                 lambda a: torch.empty((cfg.n_layers, *a.shape), dtype=a.dtype, device=dev), lp
@@ -184,12 +205,21 @@ def init_params(
     p: Params = {"embed": embed, "layers": stacked, "ln_f": rmsnorm_init(cfg.d_model, dev)}
     if not cfg.tie_embeddings:
         unembed = embedding_init(generator, cfg.vocab_size, cfg.d_model, device=dev)
-        p["unembed"] = {"table": unembed["table"].to(cfg.dtype)}
+        p["unembed"] = {"table": unembed["table"].to(dt)}
     return p
 
 
 def _layer(params: Params, i: int) -> Params:
     return _tree_map(lambda a: a[i], params["layers"])
+
+
+def _unstack(tree, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree, each leaf unbound once (a
+    backward pass then stacks each leaf's gradients in one op)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _unembed(params: Params, cfg: LMConfig) -> torch.Tensor:
@@ -238,23 +268,70 @@ def forward(
     tokens: torch.Tensor,  # [B, S]
     cfg: LMConfig,
     collect_cache: bool = False,
+    skip_unembed: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
-    """Returns (logits [B, S, V], caches stacked [L, ...] or None, aux loss)."""
+    """Returns (logits [B, S, V], or the final-norm hidden states [B, S, d]
+    with ``skip_unembed``; caches stacked [L, ...] or None; aux loss)."""
     s = tokens.shape[1]
     x = params["embed"]["table"].to(cfg.dtype)[tokens]
     positions = torch.arange(s, device=x.device)
+    fn = _block
+    if cfg.remat and torch.is_grad_enabled():
+        fn = functools.partial(torch.utils.checkpoint.checkpoint, _block, use_reentrant=False)
     caches, auxes = [], []
-    for i, w in enumerate(cfg.layer_windows()):
-        x, cache, aux = _block(_layer(params, i), x, positions, w, cfg)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for lp, w in zip(layers, cfg.layer_windows()):
+        x, cache, aux = fn(lp, x, positions, w, cfg)
         if collect_cache:
             caches.append(cache)
         auxes.append(aux)
     x = rmsnorm(params["ln_f"], x)
-    logits = x @ _unembed(params, cfg).T
     stacked = (
         {k: torch.stack([c[k] for c in caches]) for k in caches[0]} if collect_cache else None
     )
+    if skip_unembed:
+        return x, stacked, torch.stack(auxes).sum()
+    logits = x @ _unembed(params, cfg).T
     return logits, stacked, torch.stack(auxes).sum()
+
+
+def hidden_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig):
+    """Forward up to the final norm (no unembed); returns ([B, S, d], aux)."""
+    x, _, aux = forward(params, tokens, cfg, skip_unembed=True)
+    return x, aux
+
+
+def chunked_ce_loss(
+    x: torch.Tensor,  # [B, S, d] final hidden states
+    unemb: torch.Tensor,  # [V, d]
+    labels: torch.Tensor,  # [B, S]
+    n_chunks: int = 16,
+) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks: each chunk's logits
+    (``x @ unemb.T`` in x's dtype), then its f32 logsumexp and gold logit,
+    summed in f32.  Without autograd no ``[B, S, V]`` f32 logits exist at
+    once; under autograd each chunk's f32 logits are saved for the
+    backward, so by the end of the forward all of them are alive.
+    ``n_chunks`` halves until it divides S."""
+    b, s, _ = x.shape
+    while s % n_chunks != 0:
+        n_chunks //= 2
+    cs = s // n_chunks
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, cs):
+        logits = (x[:, c0:c0 + cs] @ unemb.T).float()  # [b, cs, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0:c0 + cs, None].long())[..., 0]
+        tot = tot + (lse - gold).sum()
+    return tot / (b * s)
+
+
+def train_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig):
+    """``(ce + 0.01 * aux, {"ce", "aux"})`` over ``batch["tokens"]`` and
+    ``batch["labels"]`` ([B, S] each), the CE in 16 sequence chunks."""
+    x, aux = hidden_forward(params, batch["tokens"], cfg)
+    loss = chunked_ce_loss(x, _unembed(params, cfg), batch["labels"], 16)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig):
