@@ -187,6 +187,30 @@ Phases, each of which fails the run with a nonzero exit:
     kernel at (a)'s shape against its plain version, graph-replayed in
     turns with SDPA beside its bound, and the plain backward's time.
 
+18. Slice H, the GNNs and the halo executor (last), counts set to 0 just
+    before each part and read just after: none may launch (the GNN path
+    reaches no kernel; its segment sums are ``index_add_``).  At
+    ``configs/base.py``'s GNN shapes and the configs' ``_FULL`` widths:
+    (a) ``equiformer-v2`` (12 layers, 128 channels, l_max 6, m_max 2, 8
+    heads, f32) trained by ``Trainer`` for 4 steps on ``molecule`` (128
+    seeded molecules of 30 atoms, 64 edges each, in 4,096 nodes and 8,192
+    edges), one step profiled, and one layer by ``layer_apply_chunked`` at
+    4 chunks against ``layer_apply`` within 1e-5; (b) ``schnet`` on
+    ``molecule``, ``egnn`` on ``full_graph_sm`` and ``meshgraphnet`` (bf16
+    messages) on ``minibatch_lg`` (``NeighborSampler`` blocks of 1,024
+    seeds at fanouts 15 and 10 over a 233,472-vertex community graph, a
+    resident 233,472 x 602 feature table on the card), 4 steps each:
+    every loss finite, peak memory under 80 GB; (c) each arch at 2
+    layers in f32, the first step's loss and every gradient leaf on the
+    card within atol/rtol 1e-3 of the host's and each leaf's relative RMS
+    gap within 1e-5, and ``equiformer-v2``'s outputs under a random
+    rotation of the positions within 2e-5; (d) phase 14's R-MAT graph in 8
+    ``balanced_bfs_partition`` shards, ``build_halo_program``, and 3
+    layers of ``run_message_passing`` at d = 100 in halo and allgather
+    mode on ``mesh_devices(8)``, each within 1e-4 of the dense message
+    passing on the card, the halo wire bytes equal to ``exchange_stats``'
+    x 8; ``plan_gnn_halo``'s resolve fractions at 4 budgets.
+
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
 between two CUDA events, so the host's launch rate does not set them; the
@@ -641,7 +665,8 @@ def profiled(fn, reps: int = 1, host: dict = None):
         us = e.self_device_time_total
         if us:
             busy_us += us
-            by_kind[e.key[:60]] = us / reps / 1e3
+            # kernels whose names share 60 characters (cuBLAS tile variants) add up
+            by_kind[e.key[:60]] = by_kind.get(e.key[:60], 0.0) + us / reps / 1e3
     return wall_ms, busy_us / reps / 1e3, by_kind, out
 
 
@@ -3258,9 +3283,10 @@ def run_analytics(label: str, g) -> dict:
     return rows
 
 
-def analytics_phase(report: dict, lane_graph) -> None:
+def analytics_phase(report: dict, lane_graph):
     """Phase 14: the analytics on the lane graph (with k-core on the host)
-    and on an R-MAT graph of the "tw" family at scale 20."""
+    and on an R-MAT graph of the "tw" family at scale 20, which it returns
+    (phase 18's halo lane runs on it)."""
     import numpy as np
 
     from repro_torch.core.analytics import core_decomposition
@@ -3290,6 +3316,7 @@ def analytics_phase(report: dict, lane_graph) -> None:
     out["wall_s"] = time.perf_counter() - t_phase
     report["analytics"] = out
     print(f"phase 14 (graph analytics) wall {out['wall_s']:.1f} s", flush=True)
+    return big
 
 
 # ------------------------------------------------------- slices C and E
@@ -3860,6 +3887,529 @@ def control_plane_phase(report: dict, card: str) -> dict:
     return {k: launches.get(k, 0) for k in CP_KERNELS}
 
 
+# ------------------------------------------------------------- slice H
+# phase 18: the GNNs at configs/base.py's GNN shapes and the configs'
+# _FULL widths, then the halo executor on phase 14's R-MAT graph
+GNN_STEPS = 4
+# EquiformerV2's OC20 learning rate (arXiv:2306.12059), for every arch
+GNN_OPT = dict(lr=2e-4, warmup_steps=1, total_steps=GNN_STEPS)
+GNN_HOLD_DEPTH = 2  # layers, interactions or steps of the card-vs-host hold
+# a gradient leaf whose host RMS is under this share of the largest leaf's
+# is zero in exact arithmetic (equiformer-v2's attention logits' last bias:
+# the segment softmax does not move when a destination's logits shift
+# alike) and is held by its gap over the largest leaf's RMS
+GNN_ZERO_LEAF = 1e-6
+EQV2_CHUNKS, EQV2_CHUNK_TOL, EQV2_ROT_TOL = 4, 1e-5, 2e-5
+# molecule: 128 graphs of 30 atoms, 64 edges each, atoms within 3 A of the
+# molecule's centre (every edge under the 8 A cutoff), each molecule in its
+# own frame near the origin as a QM9-style batch has it
+MOLECULE_ATOMS, MOLECULE_EDGES, MOLECULE_RADIUS = 30, 64, 3.0
+# minibatch_lg: NeighborSampler blocks over a community graph with the
+# resident table's vertex count and a mean degree about 32 (symmetrized), so
+# fanouts 15 and 10 fill; one block a training step, sampled ahead
+MB_FANOUTS, MB_SEEDS = (15, 10), 1024
+CITE_NODES, CITE_EDGES = 2708, 10556  # full_graph_sm's real (unpadded) Cora sizes
+MB_GRAPH = dict(n_communities=64, p_in=0.0082, p_out=1e-5, seed=0)
+HALO_SHARDS, HALO_D, HALO_LAYERS, HALO_TOL = 8, 100, 3, 1e-4
+HALO_BUDGETS = (0.05, 0.1, 0.25, 0.5)
+
+
+def gnn_shape(name: str):
+    from repro_torch.configs import GNN_SHAPES
+
+    return next(s for s in GNN_SHAPES if s.name == name)
+
+
+def molecule_batch(seed: int) -> dict:
+    """``molecule``: 128 molecules of 30 atoms (3,840 of the 4,096 padded
+    nodes), 64 edges inside each (all 8,192 edges), 16 soft-species
+    features (a Dirichlet(0.2) mix a real atom), per-graph ``energy``."""
+    import numpy as np
+
+    s = gnn_shape("molecule")
+    rng = np.random.default_rng(seed)
+    G, A, K = s.n_graphs, MOLECULE_ATOMS, MOLECULE_EDGES
+    real = G * A
+    if G * K != s.n_edges or real > s.n_nodes:
+        fail(f"molecule batch: {G} x {A} atoms, {G} x {K} edges do not fit {s}")
+    x = np.zeros((s.n_nodes, s.d_feat), np.float32)
+    x[:real] = rng.dirichlet(np.full(s.d_feat, 0.2), real)
+    centres = rng.uniform(-2.0, 2.0, (G, 3))
+    u = rng.standard_normal((real, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = MOLECULE_RADIUS * rng.random(real) ** (1 / 3)
+    pos = np.zeros((s.n_nodes, 3), np.float32)
+    pos[:real] = np.repeat(centres, A, 0) + u * r[:, None]
+    a = rng.integers(0, A, (G, K))
+    b = (a + rng.integers(1, A, (G, K))) % A
+    base = (np.arange(G) * A)[:, None]
+    gid = np.zeros(s.n_nodes, np.int32)
+    gid[:real] = np.repeat(np.arange(G), A)
+    return {"x": x, "pos": pos, "edge_src": (base + a).reshape(-1).astype(np.int32),
+            "edge_dst": (base + b).reshape(-1).astype(np.int32),
+            "edge_mask": np.ones(s.n_edges, bool), "node_mask": np.arange(s.n_nodes) < real,
+            "graph_id": gid, "energy": rng.standard_normal(G).astype(np.float32)}
+
+
+def citation_batch(seed: int) -> dict:
+    """``full_graph_sm`` (Cora's size): 2,708 of 3,072 nodes with 1,433
+    binary word features (1.27% set, Cora's mean of 18 words), 10,556 of
+    10,752 edges between distinct real nodes, 7 classes, random positions
+    (EGNN's coordinates); padding masked."""
+    import numpy as np
+
+    s = gnn_shape("full_graph_sm")
+    rng = np.random.default_rng(seed)
+    n, e = CITE_NODES, CITE_EDGES
+    x = (rng.random((s.n_nodes, s.d_feat)) < 0.0127).astype(np.float32)
+    x[n:] = 0.0
+    src = np.zeros(s.n_edges, np.int32)
+    dst = np.zeros(s.n_edges, np.int32)
+    src[:e] = rng.integers(0, n, e)
+    dst[:e] = (src[:e] + rng.integers(1, n, e)) % n
+    return {"x": x, "pos": rng.standard_normal((s.n_nodes, 3)).astype(np.float32),
+            "edge_src": src, "edge_dst": dst, "edge_mask": np.arange(s.n_edges) < e,
+            "node_mask": np.arange(s.n_nodes) < n,
+            "labels": rng.integers(0, s.n_classes, s.n_nodes).astype(np.int32)}
+
+
+def minibatch_blocks(seed: int, n_blocks: int) -> tuple:
+    """``minibatch_lg``: a community graph of the resident table's 233,472
+    vertices (``MB_GRAPH``), ``n_blocks`` ``NeighborSampler`` blocks of
+    1,024 seeds at fanouts 15 and 10 (padded to 169,984 nodes and 168,960
+    edges, ``block_capacity``), random positions and 41-class labels, and
+    the resident 233,472 x 602 f32 feature table drawn on the card.
+    Returns (blocks as numpy dicts, the table, facts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.graph import build_csr
+    from repro_torch.data.sampler import NeighborSampler, block_capacity
+    from repro_torch.data.synthetic import community_graph
+
+    s = gnn_shape("minibatch_lg")
+    t = time.perf_counter()
+    g = community_graph(s.resident_nodes, **MB_GRAPH)
+    csr = build_csr(g.n_nodes, g.src, g.dst, symmetrize=True)
+    gen_s = time.perf_counter() - t
+    deg = np.diff(csr.indptr)
+    if block_capacity(MB_SEEDS, MB_FANOUTS) != (s.n_nodes, s.n_edges):
+        fail(f"minibatch blocks {block_capacity(MB_SEEDS, MB_FANOUTS)} do not match {s}")
+    sampler = NeighborSampler(csr, MB_FANOUTS, seed=seed)
+    rng = np.random.default_rng(seed)
+    blocks, t = [], time.perf_counter()
+    for _ in range(n_blocks):
+        blk = sampler.sample(rng.choice(g.n_nodes, MB_SEEDS, replace=False))
+        blocks.append({"node_ids": blk.node_ids, "node_mask": blk.node_mask,
+                       "edge_src": blk.edge_src, "edge_dst": blk.edge_dst,
+                       "edge_mask": blk.edge_mask,
+                       "pos": rng.standard_normal((s.n_nodes, 3)).astype(np.float32),
+                       "labels": rng.integers(0, s.n_classes, s.n_nodes).astype(np.int32)})
+    sample_s = (time.perf_counter() - t) / n_blocks
+    table = torch.randn((s.resident_nodes, s.d_feat), generator=torch.Generator(
+        device=DEVICE).manual_seed(seed), device=DEVICE)
+    facts = {"graph": f"community_graph({s.resident_nodes}, **{MB_GRAPH})", "n": int(g.n_nodes),
+             "m": int(len(g.src)), "mean_degree_symmetrized": float(deg.mean()),
+             "share_under_15": float((deg < 15).mean()), "graph_s": gen_s,
+             "sample_s_per_block": sample_s,
+             "filled_nodes": [int(b["node_mask"].sum()) for b in blocks],
+             "filled_edges": [int(b["edge_mask"].sum()) for b in blocks]}
+    return blocks, table, facts
+
+
+def _gnn_kind(kernel: str) -> str:
+    """A device event's kind in a GNN step: a gather or scatter (indexing,
+    its sorted backward, ``index_add_``), else as :func:`_kind_of`."""
+    n = kernel.lower()
+    if any(w in n for w in ("index", "gather", "scatter")):
+        return "gather/scatter"
+    return _kind_of(kernel)
+
+
+def no_launches(label: str) -> None:
+    """Phase 18's path reaches no kernel of the library: every count 0."""
+    launched = {k: n for k, n in launch_counts().items() if n}
+    if launched:
+        fail(f"{label} launched {launched}; the GNN path reaches no kernel")
+
+
+def train_gnn(label: str, arch, shape: str, batches: list, report: dict,
+              profile: bool = False):
+    """``GNN_STEPS`` ``Trainer`` steps of ``arch`` at full width on
+    ``batches`` (one a step; AdamW with one warm-up step, the final
+    checkpoint in a temporary directory under ``build/``, removed after),
+    counts set to 0 just before and read just after: every loss finite,
+    peak memory under the card's, no kernel launched.  With ``profile``,
+    one more step under the profiler.  Returns the trainer."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
+    from repro_torch.train.optimizer import OptConfig, tree_paths
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    s = gnn_shape(shape)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_gnn_", dir=ROOT / "build")
+    torch.cuda.reset_peak_memory_stats()
+    params = arch.init_fn(torch.Generator(device=DEVICE).manual_seed(0), s.d_feat,
+                          arch._d_out(s), True, DEVICE)
+    n_params = sum(p.numel() for _, p in tree_paths(params))
+    try:
+        tr = Trainer(arch.loss_fn(shape), params, TrainerConfig(
+            total_steps=GNN_STEPS, ckpt_every=GNN_STEPS + 1, ckpt_dir=ckpt_dir,
+            opt=OptConfig(**GNN_OPT)), device=DEVICE)
+        del params
+        reset_launch_counters()
+        t = time.perf_counter()
+        metrics = tr.run(batches[i % len(batches)] for i in range(GNN_STEPS))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        no_launches(f"{label} training")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses, step_ms = metrics["loss"], [x * 1e3 for x in metrics["step_time"]]
+    med = float(np.median(step_ms))
+    out = {"arch": arch.name, "shape": shape, "n_params": n_params, "losses": losses,
+           "step_ms": step_ms, "step_median_ms": med, "peak_memory_bytes": peak,
+           "run_s": run_s}
+    print(f"{label} on {shape} ({s.n_nodes} nodes, {s.n_edges} edges, {n_params / 1e6:.3f} M "
+          f"parameters): {GNN_STEPS} steps, median {med:.2f} ms (" + ", ".join(
+              f"{x:.2f}" for x in step_ms) + " ms), loss " + " -> ".join(
+              f"{x:.5g}" for x in losses) + f"; peak memory {peak / 1e9:.3f} GB; no kernel "
+          f"launched", flush=True)
+    if len(losses) != GNN_STEPS or not np.isfinite(losses).all():
+        fail(f"{label} training: losses {losses}")
+    if peak >= CARD_BYTES:
+        fail(f"{label} training: peak memory {peak / 1e9:.2f} GB")
+    if profile:
+        batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batches[0].items()}
+        wall_ms, busy_ms, by_kind, _ = profiled(
+            lambda: tr._update(tr.params, tr.opt_state, tr.comp_state, batch))
+        top = dict(sorted(by_kind.items(), key=lambda kv: -kv[1])[:10])
+        kinds: dict = {}
+        for kname, ms in by_kind.items():
+            kinds[_gnn_kind(kname)] = kinds.get(_gnn_kind(kname), 0.0) + ms
+        out["profiled_step"] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                                "device_share": busy_ms / wall_ms, "by_kind_ms": kinds,
+                                "top_ms": top}
+        print(f"  one {label} step profiled: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms, "
+              f"share {busy_ms / wall_ms:.4f}; by kind " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+              + "; top: " + ", ".join(f"{k.strip()[:48]} {v:.2f}" for k, v in top.items()),
+              flush=True)
+        del batch
+    report.setdefault("gnn", {})[label] = out
+    return tr
+
+
+def gnn_rel_rms_gaps(got: dict, want: dict) -> dict:
+    """Each gradient leaf's RMS gap over its ``want`` RMS (f64), over the
+    largest leaf's RMS where its own is under ``GNN_ZERO_LEAF`` of that."""
+    from repro_torch.train.optimizer import tree_paths
+
+    flat = {k: w.double() for k, w in tree_paths(want)}
+    rms = {k: float(w.pow(2).mean().sqrt()) for k, w in flat.items()}
+    top = max(rms.values())
+    gaps = {}
+    for key, g in tree_paths(got):
+        diff = float((g.to(flat[key].device, flat[key].dtype) - flat[key]).pow(2).mean().sqrt())
+        gaps[key] = diff / (rms[key] if rms[key] >= GNN_ZERO_LEAF * top else top)
+    return gaps
+
+
+def gnn_variants() -> dict:
+    """Each arch at ``GNN_HOLD_DEPTH`` layers, interactions or steps, full
+    width, with its shape and whether its forward runs at full width in f32
+    (``full``: meshgraphnet's full forward is bf16, so its hold runs the
+    same params through the f32 forward)."""
+    from repro_torch.configs import GNNArch, get_arch
+    from repro_torch.configs import egnn as cfg_egnn
+    from repro_torch.configs import schnet as cfg_schnet
+
+    d = GNN_HOLD_DEPTH
+    return {
+        "equiformer-v2": (get_arch("equiformer-v2").variant(d), "molecule", True),
+        "schnet": (GNNArch(f"schnet@L{d}", *cfg_schnet._variant(d)), "molecule", True),
+        "egnn": (GNNArch(f"egnn@L{d}", *cfg_egnn._variant(d)), "full_graph_sm", True),
+        "meshgraphnet": (get_arch("meshgraphnet").variant(d), "minibatch_lg", False),
+    }
+
+
+def gnn_grad_hold(name: str, batch: dict, report: dict, table=None) -> None:
+    """Phase 18 (c): ``name`` at ``GNN_HOLD_DEPTH`` and full width in f32,
+    params drawn on the host (seed 3) and carried to the card: the first
+    step's loss and every gradient leaf on the card against the same step
+    on the host, within atol/rtol 1e-3 and each leaf's relative RMS gap
+    within ``GRAD_REL_RMS`` (phase 17's gates); no kernel launched."""
+    import torch
+
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
+    from repro_torch.train.optimizer import tree_map, tree_paths
+    from repro_torch.train.trainer import value_and_grad
+
+    arch, shape, full = gnn_variants()[name]
+    s = gnn_shape(shape)
+    host = arch.init_fn(torch.Generator().manual_seed(3), s.d_feat, arch._d_out(s), True, "cpu")
+    card = tree_map(lambda p: p.to(DEVICE), host)
+    grad = value_and_grad(arch.loss_fn(shape, full))
+
+    def on(dev):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if table is not None:
+            b["feats_resident"] = table.to(dev)
+        return b
+
+    reset_launch_counters()
+    (lc, _), gc_ = grad(card, on(DEVICE))
+    torch.cuda.synchronize()
+    no_launches(f"{name} gradient hold")
+    t = time.perf_counter()
+    (lh, _), gh = grad(host, on("cpu"))
+    host_s = time.perf_counter() - t
+    gaps = gnn_rel_rms_gaps(gc_, gh)
+    flat = dict(tree_paths(gh))
+    bad = [k for k, g in tree_paths(gc_)
+           if not (torch.isfinite(g).all() and torch.allclose(g.cpu(), flat[k], **GRAD_TOL))]
+    if not torch.allclose(lc.cpu(), lh, **GRAD_TOL):
+        bad.append(f"loss {float(lc)} vs {float(lh)}")
+    worst = max(gaps, key=gaps.get)
+    out = {"arch": arch.name, "shape": shape, "loss_card": float(lc), "loss_host": float(lh),
+           "n_leaves": len(gaps), "max_rel_rms_gap": gaps[worst], "worst_leaf": worst,
+           "rel_rms_gap": gaps, "host_s": host_s}
+    report.setdefault("gnn_grad_hold", {})[name] = out
+    print(f"gradient hold, {arch.name} on {shape}, f32: loss {float(lc):.7g} on the card vs "
+          f"{float(lh):.7g} on the host; {len(gaps)} leaves, largest relative RMS gap "
+          f"{gaps[worst]:.3g} at {worst} (host step {host_s:.1f} s)", flush=True)
+    loose = [f"{k} ({v:.3g})" for k, v in gaps.items() if not v <= GRAD_REL_RMS]
+    if bad or loose:
+        fail(f"{name} gradient hold: outside atol/rtol 1e-3: {bad}; relative RMS gap past "
+             f"{GRAD_REL_RMS}: {loose}")
+
+
+def eqv2_checks(tr, batch: dict, report: dict) -> None:
+    """Phase 18 (a)'s chunk check and (c)'s rotation check: with the
+    trained 12-layer params, layer 1 on layer 0's output by
+    ``layer_apply_chunked`` at ``EQV2_CHUNKS`` chunks against
+    ``layer_apply`` within ``EQV2_CHUNK_TOL``; then ``equiformer-v2`` at
+    ``GNN_HOLD_DEPTH`` layers on the batch and on its positions under a
+    random rotation, outputs within ``EQV2_ROT_TOL``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    from repro_torch.models.layers import unstack
+
+    s = gnn_shape("molecule")
+    spec = dataclasses.replace(eq.EqV2Spec(), n_species=s.d_feat)
+    b = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    reset_launch_counters()
+    with torch.no_grad():
+        lay = unstack(tr.params["layers"], spec.n_layers)
+        x = b["x"].new_zeros((s.n_nodes, spec.dim, spec.channels))
+        x[:, 0, :] = b["x"] @ tr.params["embed"]
+        geom = eq.prepare_geometry(b, spec)
+        x1 = eq.layer_apply(x, lay[0], geom, spec)
+        want = eq.layer_apply(x1, lay[1], geom, spec)
+        got = eq.layer_apply_chunked(x1, lay[1], b, spec, EQV2_CHUNKS)
+        chunk_err = float((got - want).abs().max())
+        arch, _, _ = gnn_variants()["equiformer-v2"]
+        p = arch.init_fn(torch.Generator(device=DEVICE).manual_seed(5), s.d_feat, 1, True, DEVICE)
+        q, _ = np.linalg.qr(np.random.default_rng(7).standard_normal((3, 3)))
+        if np.linalg.det(q) < 0:
+            q[:, 0] *= -1
+        rot = dict(b, pos=b["pos"] @ torch.as_tensor(q.T, dtype=torch.float32, device=DEVICE))
+        o1 = arch.forward_fn(p, b, True, "molecule")
+        o2 = arch.forward_fn(p, rot, True, "molecule")
+        rot_err = float((o1 - o2).abs().max())
+        out_max = float(o1.abs().max())
+    no_launches("equiformer-v2 chunk and rotation checks")
+    report["gnn_eqv2_checks"] = {"chunks": EQV2_CHUNKS, "chunk_edges": s.n_edges // EQV2_CHUNKS,
+                                 "chunk_max_abs_err": chunk_err,
+                                 "layer_out_max": float(want.abs().max()),
+                                 "rotation_max_abs_err": rot_err, "output_max": out_max}
+    print(f"equiformer-v2 layer 1 of the trained params, {EQV2_CHUNKS} chunks of "
+          f"{s.n_edges // EQV2_CHUNKS} edges vs unchunked: max abs err {chunk_err:.3g} (layer "
+          f"output up to {float(want.abs().max()):.3g}); {GNN_HOLD_DEPTH} layers under a random "
+          f"rotation of the positions: max abs err {rot_err:.3g} (outputs up to {out_max:.3g})",
+          flush=True)
+    if not chunk_err <= EQV2_CHUNK_TOL:
+        fail(f"equiformer-v2: chunked layer off by {chunk_err:.3g} (limit {EQV2_CHUNK_TOL})")
+    if not rot_err <= EQV2_ROT_TOL:
+        fail(f"equiformer-v2: rotation moves the outputs by {rot_err:.3g} (limit {EQV2_ROT_TOL})")
+
+
+def halo_phase(report: dict, big) -> None:
+    """Phase 18 (d): ``big`` (phase 14's R-MAT graph) in ``HALO_SHARDS``
+    ``balanced_bfs_partition`` shards; ``build_halo_program``; 3 layers of
+    ``run_message_passing`` at d = 100 in halo and in allgather mode on
+    ``mesh_devices(8)`` (every shard this card), each within ``HALO_TOL``
+    of the dense message passing over the global edges on the card, and
+    the wire bytes ``transfer_rows`` reports equal to ``exchange_stats``'
+    per-device bytes x 8; ms a layer by CUDA events, one halo layer
+    profiled; ``plan_gnn_halo``'s resolve fractions at ``HALO_BUDGETS``
+    (``examples/gnn_halo_placement.py``'s heat and 15 layers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.partition import balanced_bfs_partition, edge_cut, hash_partition
+    from repro_torch.distributed.geo_sharding import mesh_devices, plan_gnn_halo
+    from repro_torch.distributed.halo_exec import (
+        build_halo_program, exchange_stats, run_message_passing,
+    )
+    from repro_torch.kernels.cuda_lib import reset_launch_counters
+
+    P, d, L = HALO_SHARDS, HALO_D, HALO_LAYERS
+    n, m = int(big.n_nodes), int(len(big.src))
+    t = time.perf_counter()
+    part = balanced_bfs_partition(n, big.src, big.dst, P)
+    part_s = time.perf_counter() - t
+    cut, hash_cut = edge_cut(part, big.src, big.dst), edge_cut(hash_partition(n, P), big.src,
+                                                              big.dst)
+    big.partition = part
+    t = time.perf_counter()
+    prog = build_halo_program(big, P)
+    build_s = time.perf_counter() - t
+    out = {"n": n, "m": m, "shards": P, "d": d, "layers": L, "partition_s": part_s,
+           "edge_cut": cut, "hash_edge_cut": hash_cut, "build_s": build_s,
+           "n_max": prog.n_max, "s_max": prog.s_max, "e_max": prog.e_max}
+    print(f"halo lane: R-MAT {n} vertices, {m} edges in {P} shards: balanced_bfs_partition "
+          f"{part_s:.1f} s on the host, edge cut {cut:.4f} (hash {hash_cut:.4f}); "
+          f"build_halo_program {build_s:.2f} s, n_max {prog.n_max}, s_max {prog.s_max}, "
+          f"e_max {prog.e_max}", flush=True)
+
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((n, d)).astype(np.float32)
+    w = torch.as_tensor((rng.standard_normal((d, d)) * 0.1).astype(np.float32), device=DEVICE)
+    devices = mesh_devices(P, DEVICE)
+    placed = prog.place(devices)
+    sharded = torch.as_tensor(prog.scatter_features(feats), device=DEVICE)
+    src = torch.as_tensor(big.src, device=DEVICE).long()
+    dst = torch.as_tensor(big.dst, device=DEVICE).long()
+    deg = torch.zeros(n, device=DEVICE).index_add_(0, dst, torch.ones(m, device=DEVICE))
+
+    def dense(layers: int):
+        x = torch.as_tensor(feats, device=DEVICE)
+        for _ in range(layers):
+            agg = torch.zeros_like(x).index_add_(0, dst, x[src] @ w)
+            x = x + torch.tanh(agg / deg.clamp_min(1.0)[:, None])
+        return x
+
+    def timed(fn):
+        fn(1)  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        reset_launch_counters()
+        start.record()
+        res = fn(L)
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end) / L
+
+    ref, dense_ms = timed(dense)
+    no_launches("dense message passing")
+    ids = [torch.as_tensor(i, device=DEVICE) for i in prog.local_ids]
+    stats = exchange_stats(prog, d, L)
+    out["dense_ms_per_layer"] = dense_ms
+    out["exchange_stats"] = stats
+    for mode in ("halo", "allgather"):
+        (blocks, wire), ms = timed(lambda k: run_message_passing(
+            prog, devices, sharded, w, n_layers=k, mode=mode, placed=placed))
+        no_launches(f"{mode} message passing")
+        err = max(float((b[: len(i)] - ref[i]).abs().max()) for b, i in zip(blocks, ids))
+        want = stats[f"{mode}_bytes_per_device"] * P
+        out[mode] = {"ms_per_layer": ms, "wire_bytes": wire, "wire_bytes_per_layer": wire / L,
+                     "max_abs_err": err}
+        print(f"{mode} mode, {L} layers at d = {d}: {ms:.3f} ms a layer (dense {dense_ms:.3f}); "
+              f"wire {wire:.0f} bytes ({wire / L / 1e6:.1f} MB a layer; exchange_stats x {P}: "
+              f"{want}); max abs err vs dense {err:.3g}", flush=True)
+        if not err <= HALO_TOL:
+            fail(f"{mode} message passing is {err:.3g} from the dense run (limit {HALO_TOL})")
+        if wire != want:
+            fail(f"{mode} message passing moved {wire} bytes; exchange_stats x {P} says {want}")
+        del blocks
+    wall_ms, busy_ms, by_kind, _ = profiled(lambda: run_message_passing(
+        prog, devices, sharded, w, n_layers=1, mode="halo", placed=placed))
+    top = dict(sorted(by_kind.items(), key=lambda kv: -kv[1])[:8])
+    out["halo_layer_profiled"] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                                  "device_share": busy_ms / wall_ms, "top_ms": top}
+    print(f"  one halo layer profiled: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms, share "
+          f"{busy_ms / wall_ms:.4f}; top: " + ", ".join(
+              f"{k.strip()[:40]} {v:.2f}" for k, v in top.items()), flush=True)
+    del ref, sharded, placed, src, dst, deg
+
+    heat = np.minimum(np.random.default_rng(0).zipf(1.5, n).astype(float), 50)
+    plans = {}
+    for budget in HALO_BUDGETS:
+        t = time.perf_counter()
+        plan = plan_gnn_halo(big, P, vertex_heat=heat, n_layers=15, budget_frac=budget)
+        plans[budget] = {"halo_vertices": int(sum(len(h) for h in plan.halo)),
+                         "resolve_frac": plan.resolve_frac, "s": time.perf_counter() - t}
+    out["plan_gnn_halo"] = plans
+    print("plan_gnn_halo (zipf(1.5) heat capped at 50, 15 layers): " + "; ".join(
+        f"budget {b:.2f}: {v['halo_vertices']} halo vertices, {100 * v['resolve_frac']:.1f}% "
+        f"of cut edges resolved ({v['s']:.2f} s)" for b, v in plans.items()), flush=True)
+    report["halo"] = out
+
+
+def gnn_phase(report: dict, big=None) -> None:
+    """Phase 18, slice H on the card: (a) equiformer-v2 at full width and
+    depth trained on ``molecule``, one step profiled, its chunked layer
+    against the unchunked; (b) schnet on ``molecule``, egnn on
+    ``full_graph_sm``, meshgraphnet on ``minibatch_lg``; (c) each arch's
+    gradient at 2 layers held against the host, and equiformer-v2's
+    rotation invariance; (d) the halo executor on ``big`` (phase 14's R-MAT
+    graph; generated here when None)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t_phase = time.perf_counter()
+    mol, cite = molecule_batch(0), citation_batch(1)
+    tr = train_gnn("equiformer-v2", get_arch("equiformer-v2"), "molecule", [mol], report,
+                   profile=True)
+    eqv2_checks(tr, mol, report)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_gnn("schnet", get_arch("schnet"), "molecule", [mol], report, profile=True)
+    train_gnn("egnn", get_arch("egnn"), "full_graph_sm", [cite], report, profile=True)
+    blocks, table, facts = minibatch_blocks(2, GNN_STEPS)
+    report.setdefault("gnn", {})["minibatch_lg_blocks"] = facts
+    print(f"minibatch_lg: {facts['graph']}: {facts['m']} edges, mean degree "
+          f"{facts['mean_degree_symmetrized']:.2f} symmetrized ({100 * facts['share_under_15']:.2f}"
+          f"% of vertices under 15) in {facts['graph_s']:.1f} s; NeighborSampler "
+          f"{facts['sample_s_per_block']:.2f} s a block, blocks fill {facts['filled_nodes']} "
+          f"nodes and {facts['filled_edges']} edges", flush=True)
+    train_gnn("meshgraphnet", get_arch("meshgraphnet"), "minibatch_lg",
+              [dict(b, feats_resident=table) for b in blocks], report, profile=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, batch in (("equiformer-v2", mol), ("schnet", mol), ("egnn", cite)):
+        gnn_grad_hold(name, batch, report)
+    gnn_grad_hold("meshgraphnet", blocks[0], report, table=table)
+    del blocks, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    if big is None:
+        from repro_torch.data.synthetic import rmat_graph
+
+        big = rmat_graph(**RMAT_TW)
+    halo_phase(report, big)
+    report["gnn_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18 (slice H: GNNs and the halo executor) wall {report['gnn_phase_s']:.1f} s",
+          flush=True)
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_attn_wgmma_kernel<2>`` from its Itanium-mangled name: the last
     component of the nested name, with its template arguments (integers,
@@ -3980,7 +4530,7 @@ def main() -> None:
             r["launches_by_path"] = {"main": r["launches"], "rp_sr": rp_launches[r["name"]]}
     offline_phase(report, geo)
     del geo
-    analytics_phase(report, inputs[0])
+    rmat = analytics_phase(report, inputs[0])
     gc.collect()
     torch.cuda.empty_cache()
     cp_launches = control_plane_phase(report, card)
@@ -3988,6 +4538,10 @@ def main() -> None:
         if r["name"] in cp_launches:
             paths = r.setdefault("launches_by_path", {"streaming": r["launches"]})
             paths["control_plane"] = cp_launches[r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn_phase(report, rmat)
+    del rmat
 
     for r in table:
         r["launch_floor_ms"] = floor_ms

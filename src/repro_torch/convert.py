@@ -16,7 +16,8 @@ updates can start from one field.
 
 :func:`lm_params_from_numpy` turns an LM's params (the JAX package's tree,
 as numpy arrays) into the port's, so both packages run one set of weights;
-:func:`bst_params_from_numpy` does the same for BST, and
+:func:`bst_params_from_numpy` does the same for BST,
+:func:`gnn_params_from_numpy` for a GNN, and
 :func:`opt_state_from_numpy` for an AdamW state (``mu``, ``nu``, ``step``),
 so both packages can train on from one optimizer state.
 """
@@ -39,6 +40,7 @@ __all__ = [
     "GRAPH_FIELDS",
     "HEAT_FIELDS",
     "bst_params_from_numpy",
+    "gnn_params_from_numpy",
     "lm_params_from_numpy",
     "opt_state_from_numpy",
     "store_arrays",
@@ -173,6 +175,16 @@ def lm_params_from_numpy(tree: Dict[str, object], cfg, device: DeviceLike = None
 def bst_params_from_numpy(tree: Dict[str, object], device: DeviceLike = None):
     """The port's BST params (f32 at rest, as the JAX package keeps them)
     from the JAX package's tree of numpy arrays, on ``device``."""
+    import torch
+
+    return _tensors(tree, device, lambda name: torch.float32)
+
+
+def gnn_params_from_numpy(tree: Dict[str, object], device: DeviceLike = None):
+    """The port's GNN params (f32, as the JAX package keeps them) from the
+    JAX package's tree of numpy arrays, on ``device``.  Stacked leaves
+    (MeshGraphNet's ``steps``, EquiformerV2's ``layers``) keep their leading
+    layer axis."""
     import torch
 
     return _tensors(tree, device, lambda name: torch.float32)

@@ -1,5 +1,5 @@
 """The explicit device-to-device transfer the sharded store's migration
-waves run through.
+waves and the GNN halo exchange (``halo_exec.py``) run through.
 
 The collectives of the JAX package's module (``pmean_tree``,
 ``all_to_all_tokens``) run inside ``shard_map`` for training and are not
@@ -7,7 +7,7 @@ part of this module.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,12 +19,13 @@ __all__ = ["transfer_rows"]
 
 def transfer_rows(
     payload: torch.Tensor,
-    rows: np.ndarray,
+    rows: Union[np.ndarray, torch.Tensor],
     dst_device,
     compress: Optional[str] = None,
 ) -> Tuple[torch.Tensor, float]:
     """Ship ``payload[rows]`` to ``dst_device`` as an explicit
     device-to-device copy; returns ``(block on dst, wire bytes)``.
+    ``rows`` may be a tensor already on the source device (no upload).
 
     The gather runs on the source device (where ``payload`` lives); only the
     gathered block crosses the link.  ``compress="int8"`` quantizes the block
@@ -33,7 +34,10 @@ def transfer_rows(
     """
     if compress not in (None, "int8"):
         raise ValueError(f"unknown compression {compress!r} (None or 'int8')")
-    idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=payload.device)
+    if isinstance(rows, torch.Tensor):
+        idx = rows.to(payload.device, torch.int64)
+    else:
+        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=payload.device)
     block = payload.index_select(0, idx)
     if compress is None:
         out = block.to(dst_device)

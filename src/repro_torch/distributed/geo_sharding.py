@@ -121,38 +121,30 @@ def plan_gnn_halo(
     part = g.partition
     heat = vertex_heat if vertex_heat is not None else np.ones(g.n_nodes)
     cross = part[g.src] != part[g.dst]
-    # edge count from remote vertex u into shard s, both directions
-    pairs_a = np.stack([g.src[cross], part[g.dst[cross]]], 1)
-    pairs_b = np.stack([g.dst[cross], part[g.src[cross]]], 1)
-    pairs = np.concatenate([pairs_a, pairs_b], 0)
-    uniq, counts = np.unique(pairs, axis=0, return_counts=True)
-    v_ids, s_ids = uniq[:, 0], uniq[:, 1]
+    # edge count from remote vertex u into shard s, both directions; a
+    # (u, s) pair is the key u * n_keys + s, whose order is the pairs'
+    # lexicographic order
+    n_keys = int(part.max()) + 1 if len(part) else 1
+    key_a = g.src[cross].astype(np.int64) * n_keys + part[g.dst[cross]]
+    key_b = g.dst[cross].astype(np.int64) * n_keys + part[g.src[cross]]
+    uniq, counts = np.unique(np.concatenate([key_a, key_b]), return_counts=True)
+    v_ids, s_ids = uniq // n_keys, uniq % n_keys
     reads = counts.astype(np.float64) * heat[v_ids]
     # relative cost units: gather saving ~ n_layers reads; sync ~ write_rate
     gain = n_layers * reads - write_rate - 0.01  # store cost epsilon
     order = np.argsort(-gain)
     budget = int(budget_frac * g.n_nodes / max(n_shards, 1))
-    halo: List[List[int]] = [[] for _ in range(n_shards)]
-    fill = np.zeros(n_shards, dtype=np.int64)
-    resolved_pairs = set()
-    for i in order:
-        if gain[i] <= 0:
-            break
-        s = int(s_ids[i])
-        if fill[s] >= budget:
-            continue
-        halo[s].append(int(v_ids[i]))
-        fill[s] += 1
-        resolved_pairs.add((int(v_ids[i]), s))
+    # best gain first, up to the first pair without a positive gain; each
+    # shard keeps its first ``budget`` pairs in that order
+    stop = np.flatnonzero(gain[order] <= 0)
+    take = order[: stop[0] if len(stop) else len(order)]
+    by_shard = np.argsort(s_ids[take], kind="stable")
+    shard_sorted = s_ids[take][by_shard]
+    rank = np.arange(len(take)) - np.searchsorted(shard_sorted, shard_sorted)
+    kept = np.sort(take[by_shard[rank < budget]])
+    halos = [np.sort(v_ids[kept[s_ids[kept] == s]]).astype(np.int64) for s in range(n_shards)]
     # how many cut edges now have their remote endpoint local?
-    resolved = 0
-    for (u, sp), (vv, sq) in zip(
-        zip(g.src[cross].tolist(), part[g.dst[cross]].tolist()),
-        zip(g.dst[cross].tolist(), part[g.src[cross]].tolist()),
-    ):
-        if (u, sp) in resolved_pairs or (vv, sq) in resolved_pairs:
-            resolved += 1
-    halos = [np.asarray(sorted(h), dtype=np.int64) for h in halo]
+    resolved = int((np.isin(key_a, uniq[kept]) | np.isin(key_b, uniq[kept])).sum())
     return HaloPlan(
         halo=halos,
         replicated_bytes=float(sum(len(h) for h in halos)) * bytes_per_vertex,

@@ -3,12 +3,14 @@
 Trains the arch's *smoke* config with the real :class:`Trainer`
 (checkpointing, compression and failure injection all live), as the JAX
 package's launcher does on its CPU container: ``TokenPipeline`` batches for
-an LM, ``RecsysPipeline`` batches for BST.  Runs on the card unless
+an LM, ``RecsysPipeline`` batches for BST, the arch's fixed smoke graph
+every step for a GNN (full-batch training).  Runs on the card unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import tempfile
 
@@ -31,7 +33,10 @@ def make_data(arch, seed: int = 0):
         sp = arch.smoke_spec
         pipe = RecsysPipeline(sp.n_items, sp.n_cats, batch=8, seq_len=sp.seq_len, seed=seed)
         return (pipe.batch_at(step) for step in range(1 << 62))
-    raise NotImplementedError("GNNs wait for ROADMAP queue 1 item 2")
+    # gnn: fixed random graph batch each step (full-batch training)
+    batch = {k: v.numpy() for k, v in
+             arch.smoke_batch(torch.Generator().manual_seed(seed)).items()}
+    return itertools.repeat(batch)
 
 
 def main(argv=None) -> None:

@@ -11,7 +11,7 @@ matmul weight in its compute dtype (see :mod:`.transformer`).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +32,10 @@ __all__ = [
     "rmsnorm",
     "rmsnorm_init",
     "rope",
+    "stack",
     "swiglu",
     "swiglu_init",
+    "unstack",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -111,6 +113,25 @@ def mlp(
         if i < n - 1 or final_act:
             h = act(h)
     return h
+
+
+def stack(trees: Sequence) -> Params:
+    """Trees of one structure as one tree, each leaf stacked on a new
+    leading axis (``jax.vmap`` of an init over layer keys)."""
+    if isinstance(trees[0], dict):
+        return {k: stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(list(trees))
+
+
+def unstack(tree, n: int) -> List[Params]:
+    """The ``n`` layers of a tree stacked on a leading ``[n, ...]`` axis,
+    each leaf unbound once (a backward pass then stacks each leaf's
+    gradients in one op; indexing a layer out of the stack would make a
+    full-size zero gradient a layer)."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def swiglu_init(generator: torch.Generator, d: int, d_ff: int, device: DeviceLike = None) -> Params:

@@ -51,7 +51,7 @@ from .attention import (
     mla_init,
 )
 from .layers import (
-    Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init,
+    Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init, unstack,
 )
 from .moe import moe_forward, moe_init
 
@@ -213,15 +213,6 @@ def _layer(params: Params, i: int) -> Params:
     return _tree_map(lambda a: a[i], params["layers"])
 
 
-def _unstack(tree, n: int) -> List[Params]:
-    """The ``n`` layers of a stacked tree, each leaf unbound once (a
-    backward pass then stacks each leaf's gradients in one op)."""
-    if isinstance(tree, dict):
-        subs = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
-    return list(tree.unbind(0))
-
-
 def _unembed(params: Params, cfg: LMConfig) -> torch.Tensor:
     return params.get("unembed", params["embed"])["table"].to(cfg.dtype)
 
@@ -279,7 +270,7 @@ def forward(
     if cfg.remat and torch.is_grad_enabled():
         fn = functools.partial(torch.utils.checkpoint.checkpoint, _block, use_reentrant=False)
     caches, auxes = [], []
-    layers = _unstack(params["layers"], cfg.n_layers)
+    layers = unstack(params["layers"], cfg.n_layers)
     for lp, w in zip(layers, cfg.layer_windows()):
         x, cache, aux = fn(lp, x, positions, w, cfg)
         if collect_cache:

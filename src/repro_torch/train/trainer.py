@@ -6,8 +6,9 @@ checkpoints with auto-resume, and failure injection -> elastic remesh ->
 restore -> continue.  The JAX package's jitted update is an eager step
 here: gradients by ``torch.autograd.grad`` over the param leaves, then
 :func:`adamw_update` under ``no_grad``.  Everything runs on the trainer's
-explicit device (``None`` = the card); batches arrive as numpy arrays and
-are moved there, and a restore puts the checkpoint back there.
+explicit device (``None`` = the card); batches arrive as numpy arrays (or
+tensors, such as a feature table resident on the device) and are moved
+there, and a restore puts the checkpoint back there.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ class TrainerConfig:
 
 def value_and_grad(loss_fn: LossFn) -> Callable:
     """``f(params, batch) -> ((loss, aux), grads)``, ``grads`` shaped like
-    ``params`` (the counterpart of ``jax.value_and_grad(..., has_aux=True)``).
+    ``params`` (the counterpart of ``jax.value_and_grad(..., has_aux=True)``;
+    a leaf the loss does not reach gets zeros).
     The params themselves are not touched: the loss runs on detached
     leaves that require grad."""
 
@@ -53,8 +55,9 @@ def value_and_grad(loss_fn: LossFn) -> Callable:
         with torch.enable_grad():
             loss, aux = loss_fn(live, batch)
             leaves = tree_leaves(live)
-            grads = torch.autograd.grad(loss, leaves)
-        by_id = {id(p): g for p, g in zip(leaves, grads)}
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss does not use has a zero gradient, as in JAX
+        by_id = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)}
         aux = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()}
         return (loss.detach(), aux), tree_map(lambda p: by_id[id(p)], live)
 
@@ -147,7 +150,8 @@ class Trainer:
                     # node failure: restore from last checkpoint, remesh
                     self.recover_from_failure(ev)
             t0 = time.perf_counter()
-            batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
+            batch = {k: torch.as_tensor(v if isinstance(v, torch.Tensor) else np.asarray(v),
+                                        device=self.device)
                      for k, v in next(it).items()}
             self.params, self.opt_state, self.comp_state, loss, info = self._update(
                 self.params, self.opt_state, self.comp_state, batch

@@ -293,7 +293,8 @@ LM_SIZES = {"deepseek-v2-lite-16b": 16.0, "gemma3-27b": 27.0, "granite-moe-3b-a8
 def test_configs_match_jax(arch):
     ours, theirs = get_arch(arch), jax_arch(arch)
     assert ours.family == theirs.family
-    assert list_archs() == sorted(LM_ARCHS + ("bst",))
+    assert list_archs() == sorted(LM_ARCHS + ("bst", "egnn", "equiformer-v2", "meshgraphnet",
+                                              "schnet"))
     if arch == "bst":
         assert ours.family == "recsys"
         assert (ours.spec.__dict__, ours.smoke_spec.__dict__) == (

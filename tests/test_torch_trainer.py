@@ -158,10 +158,20 @@ def test_train_launcher_on_the_cpu(tmp_path, arch):
 
 
 def test_train_launcher_gnn_branch_waits():
+    """The GNN branch no longer waits: it yields the arch's fixed smoke
+    graph (numpy) every step, as the JAX package's launcher does."""
+    from repro_torch.configs import get_arch
     from repro_torch.launch import train as launch_train
 
-    with pytest.raises(NotImplementedError, match="GNNs wait for ROADMAP queue 1 item 2"):
-        launch_train.make_data(argparse.Namespace(family="gnn"))
+    arch = get_arch("schnet")
+    data = launch_train.make_data(arch)
+    first, second = next(data), next(data)
+    want = arch.smoke_batch(torch.Generator().manual_seed(0))
+    assert set(first) == set(want)
+    for k, v in want.items():
+        assert isinstance(first[k], np.ndarray)
+        np.testing.assert_array_equal(first[k], v.numpy())
+        np.testing.assert_array_equal(second[k], first[k])
 
 
 def _default_arch(main):
