@@ -211,6 +211,35 @@ Phases, each of which fails the run with a nonzero exit:
     passing on the card, the halo wire bytes equal to ``exchange_stats``'
     x 8; ``plan_gnn_halo``'s resolve fractions at 4 budgets.
 
+19. Slice I, the production mesh (last).  (a) The dry run
+    (``repro_torch.launch.dryrun``) of one cell a family on the
+    single-pod ``(16, 16)`` mesh, in this process as rank 0 of a ``fake``
+    process group of 256 ranks with a CUDA mesh, the state and inputs
+    fake DTensors: ``qwen3-0.6b/train_4k``, ``deepseek-v2-lite-16b/
+    prefill_32k`` (MLA, MoE), ``gemma3-27b/decode_32k``,
+    ``schnet/full_graph_sm`` and ``bst/train_batch``.  Each record must be
+    complete, with a collective census; prints state GiB a device, FLOPs a
+    device against ``model_flops / 256``, and collective counts and wire
+    bytes by kind.  (b) A real one-rank mesh: an NCCL process group of one
+    rank, a ``(1, 1)`` ``("data", "model")`` mesh on the card, and one
+    training step of ``qwen3-0.6b`` at full width and depth on phase 17's
+    batch (8 sequences of 4,096 tokens in 4 microbatches) with the params,
+    the AdamW state and the batch as DTensors under ``param_partition``
+    and the step under ``use_mesh``, counts set to 0 just before and read
+    just after: ``flash_attention`` launched 4 x 28 x 2 times through the
+    registered op; the loss, every gradient leaf and every updated param
+    held to the same step on plain tensors bit for bit (one rank computes
+    what the plain step does, op for op; on a difference the phase fails,
+    printing the relative RMS gaps beside ``BF16_TRAIN_GAP``).
+    (c) Rank 0 of the production mesh on the card: a fake group of 256
+    ranks, a ``(16, 16)`` CUDA mesh, and ``qwen3-0.6b/train_4k``'s step on
+    rank 0's real local shards (16 sequences of 4,096 tokens); the fake
+    collectives write nothing, so it yields the step's wall time, its
+    device-busy share and ``max_memory_allocated`` beside (a)'s state and
+    argument bytes for the cell.  (d) The roofline's two measured
+    constants: a cuBLAS bf16 GEMM of 8192^3 (a yardstick, no port of a
+    kernel) and a device-to-device copy of 4 GiB.
+
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
 between two CUDA events, so the host's launch rate does not set them; the
@@ -4410,6 +4439,303 @@ def gnn_phase(report: dict, big=None) -> None:
           flush=True)
 
 
+# phase 19, slice I: the production mesh.  One dry-run cell a family on the
+# single-pod mesh; (b) and (c) take phase 17's arch, batch and microbatches
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-v2-lite-16b", "prefill_32k"),
+                ("gemma3-27b", "decode_32k"), ("schnet", "full_graph_sm"),
+                ("bst", "train_batch"))
+PEAK_GEMM_N, HBM_COPY_BYTES = 8192, 4 << 30
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_cells(report: dict) -> dict:
+    """Phase 19 (a): the dry run of ``DRYRUN_CELLS`` on the single-pod mesh
+    in this process.  Returns the records by cell key."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    records = {}
+    with fake_world(256):
+        mesh = make_production_mesh(device_type=DEVICE)
+        for name, shape in DRYRUN_CELLS:
+            arch = get_arch(name)
+            cell = next(c for c in arch.cells() if c.shape == shape)
+            t = time.perf_counter()
+            rec = dryrun.run_cell(cell, mesh, "single")
+            rec["ok"], rec["wall_s"] = True, time.perf_counter() - t
+            p = rec["production"]
+            mem = p["memory"]
+            if not (p["flops_per_device"] > 0 and p["state_bytes_per_device"] > 0
+                    and p["collectives"] and mem["argument_bytes"] > 0):
+                fail(f"dry run {cell.key}: incomplete record {p}")
+            mf = roofline.model_flops(name, shape, arch.family) / 256
+            a = roofline.analyze(rec)
+            records[cell.key] = rec
+            print(f"dry run {cell.key} on (16, 16) in {rec['wall_s']:.1f} s: state "
+                  f"{p['state_bytes_per_device'] / 2**30:.3f} GiB a device, args "
+                  f"{mem['argument_bytes'] / 2**30:.3f} GiB, temp {mem['temp_bytes'] / 2**30:.2f} "
+                  f"GiB; {p['flops_per_device']:.4e} FLOPs a device against model_flops / 256 "
+                  f"{mf:.4e} ({p['flops_per_device'] / mf:.2f}x); {p['local_ops']} local ops; "
+                  f"dominant {a['dominant']}; collectives "
+                  + ", ".join(f"{k} {int(v['count'])} ({v['wire_bytes']:.4e} wire B)"
+                              for k, v in sorted(p["collectives"].items())), flush=True)
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for rec in records.values():
+        cell = next(c for c in get_arch(rec["arch"]).cells() if c.shape == rec["shape"])
+        (out_dir / pathlib.Path(dryrun.result_path("single", cell)).name).write_text(
+            json.dumps(rec, indent=1))
+    report["mesh_dryrun"] = records
+    return records
+
+
+def accumulated_grads(loss_fn, params, batch, microbatch: int):
+    """Phase 17's step before the optimizer (``Trainer._update``): the
+    batch in ``microbatch`` slices, each slice's loss and gradients summed
+    in f32, then divided by ``microbatch``."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.trainer import value_and_grad
+
+    grad_fn = value_and_grad(loss_fn)
+    loss = torch.zeros((), dtype=torch.float32, device=DEVICE)
+    grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    for i in range(microbatch):
+        sub = {k: x[i * (x.shape[0] // microbatch):(i + 1) * (x.shape[0] // microbatch)]
+               for k, x in batch.items()}
+        (l, _), g = grad_fn(params, sub)
+        loss = loss + l
+        grads = tree_map(torch.add, grads, g)
+        del g
+    return loss / microbatch, tree_map(lambda g: g / microbatch, grads)
+
+
+def sharded_train_step(report: dict) -> dict:
+    """Phase 19 (b): one ``qwen3-0.6b`` training step on a real one-rank
+    mesh of DTensors against the same step on plain tensors.  Returns the
+    kernel table's path entry."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Cell
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.constraints import use_mesh
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update, tree_paths
+
+    arch = get_arch(TRAIN_ARCH)
+    cfg = arch.cfg
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_cpu_mesh((1, 1), device_type=DEVICE)
+        params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE,
+                                at_rest=torch.float32)
+        opt = adamw_init(params)
+        batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in TokenPipeline(
+            cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0).items()}
+        loss_fn = lambda p, b: tf.train_loss(p, b, cfg)  # noqa: E731
+        ocfg = OptConfig(**TRAIN_OPT)
+        t = time.perf_counter()
+        loss_u, grads_u = accumulated_grads(loss_fn, params, batch, TRAIN_MICROBATCH)
+        new_u, _, _ = adamw_update(grads_u, opt, params, ocfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+
+        pspec, ospec = arch.param_partition((params, opt))
+        cell = Cell(TRAIN_ARCH, "train_4k", "train")
+        (_,), (bspec,) = arch.inputs(cell, mesh)
+        dparams = distribute_tree(params, mesh, pspec)
+        dopt = distribute_tree(opt, mesh, ospec)
+        dbatch = distribute_tree(batch, mesh, bspec)
+        if not all(isinstance(x, DTensor) for _, x in tree_paths({"p": dparams, "o": dopt})):
+            fail("phase 19 (b): a param or moment is not a DTensor")
+        reset_launch_counters()
+        t = time.perf_counter()
+        with use_mesh(mesh):
+            loss_s, grads_s = accumulated_grads(loss_fn, dparams, dbatch, TRAIN_MICROBATCH)
+            new_s, _, _ = adamw_update(grads_s, dopt, dparams, ocfg)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+        want = TRAIN_MICROBATCH * cfg.n_layers * (2 if cfg.remat else 1)
+        if DEVICE == "cuda" and launches != {"flash_attention": want}:
+            fail(f"phase 19 (b) launched {launches}, want flash_attention {want}")
+        local = lambda t_: t_.to_local() if isinstance(t_, DTensor) else t_  # noqa: E731
+        got_g = {k: local(v) for k, v in tree_paths(grads_s)}
+        got_p = {k: local(v) for k, v in tree_paths(new_s)}
+        rms, gaps = rel_rms_gaps(got_g, dict(tree_paths(grads_u)))
+        _, pgaps = rel_rms_gaps(got_p, dict(tree_paths(new_u)))
+        want_g, want_p = dict(tree_paths(grads_u)), dict(tree_paths(new_u))
+        equal_g = sum(bool(torch.equal(got_g[k], want_g[k])) for k in want_g)
+        equal_p = sum(bool(torch.equal(got_p[k], want_p[k])) for k in want_p)
+        lu, ls = float(loss_u), float(local(loss_s))
+        loss_gap = abs(ls - lu) / abs(lu)
+        bit_equal = (bool(torch.equal(local(loss_s), loss_u)) and equal_g == len(want_g)
+                     and equal_p == len(want_p))
+        out = {"arch": cfg.name, "mesh": [1, 1], "backend": backend, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "microbatch": TRAIN_MICROBATCH, "launches": launches,
+               "loss_plain": lu, "loss_sharded": ls, "rel_loss_gap": loss_gap,
+               "grad_leaves": len(want_g), "grad_leaves_bit_equal": equal_g,
+               "param_leaves_bit_equal": equal_p, "bit_equal": bit_equal,
+               "max_rel_rms_gap": max(gaps.values()),
+               "max_param_rel_rms_gap": max(pgaps.values()), "plain_step_s": plain_s,
+               "sharded_step_s": sharded_s}
+        print(f"{cfg.name} one training step on a (1, 1) {backend} mesh of DTensors vs plain "
+              f"tensors ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_MICROBATCH} microbatches): "
+              f"loss {ls:.6f} vs {lu:.6f} (relative gap {loss_gap:.3g}); gradient leaves "
+              f"bit-equal {equal_g}/{len(want_g)}, largest relative RMS gap "
+              f"{out['max_rel_rms_gap']:.3g}; updated params bit-equal {equal_p}/{len(want_p)}, "
+              f"largest gap {out['max_param_rel_rms_gap']:.3g}; flash launches {launches}; step "
+              f"{sharded_s:.2f} s (plain {plain_s:.2f} s)", flush=True)
+        if not bit_equal:  # one rank computes what the plain step does, op for op
+            within = max(loss_gap, out["max_rel_rms_gap"], out["max_param_rel_rms_gap"])
+            fail(f"phase 19 (b): the (1, 1) sharded step is not bit-equal to the plain one "
+                 f"(largest relative gap {within:.3g}, BF16_TRAIN_GAP {BF16_TRAIN_GAP}): {out}")
+        del params, opt, dparams, dopt, grads_u, grads_s, new_u, new_s, got_g, got_p
+    finally:
+        dist.destroy_process_group()
+    report["mesh_sharded_step"] = out
+    return {"launches": sum(launches.values()), "step_s": sharded_s,
+            "grad_leaves_bit_equal": equal_g, "grad_leaves": len(want_g)}
+
+
+def rank0_step(report: dict, rec: dict) -> None:
+    """Phase 19 (c): ``qwen3-0.6b/train_4k``'s step as rank 0 of the
+    ``(16, 16)`` mesh, on the card, over a fake group of 256 ranks."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Cell
+    from repro_torch.distributed.constraints import use_mesh
+    from repro_torch.distributed.sharding import distribute_tree, placements
+    from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_init, tree_map
+
+    arch = get_arch(TRAIN_ARCH)
+    cfg = arch.cfg
+    cell = Cell(TRAIN_ARCH, "train_4k", "train")
+    with fake_world(256):
+        mesh = make_production_mesh(device_type=DEVICE)
+        full = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE,
+                              at_rest=torch.float32)
+        opt = adamw_init(full)
+        pspec, ospec = arch.param_partition((full, opt))
+
+        def own(d):  # rank 0's shard in storage of its own
+            return DTensor.from_local(d.to_local().clone(), mesh, d.placements,
+                                      shape=d.shape, stride=d.stride())
+
+        params = tree_map(own, distribute_tree(full, mesh, pspec))
+        dopt = tree_map(own, distribute_tree(opt, mesh, ospec))
+        del full, opt
+        (sds,), (bspec,) = arch.inputs(cell, mesh)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        batch = {}
+        for k, s in sds.items():
+            ids = torch.randint(0, cfg.vocab_size, s.shape, generator=gen, device=DEVICE,
+                                dtype=s.dtype)
+            batch[k] = own(distribute_tensor(ids, mesh, placements(bspec[k], mesh),
+                                             src_data_rank=None))
+        del ids
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = arch.make_step(cell)
+        with use_mesh(mesh):
+            step(params, dopt, batch)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counters()
+            wall_ms, busy_ms, by_kind, _ = profiled(lambda: step(params, dopt, batch))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: c.n for k, c in launch_counters().items() if c.n}
+        local_tokens = tuple(batch["tokens"].to_local().shape)
+        del params, dopt, batch
+    p = rec["production"]
+    top = sorted(by_kind.items(), key=lambda kv: -kv[1])[:6]
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+           "peak_memory_bytes": peak, "launches": launches, "local_tokens": list(local_tokens),
+           "dryrun_state_bytes": p["state_bytes_per_device"],
+           "dryrun_argument_bytes": p["memory"]["argument_bytes"],
+           "dryrun_temp_bytes": p["memory"]["temp_bytes"], "top_device_ms": dict(top)}
+    print(f"rank 0 of (16, 16), {cell.key} on the card (fake collectives): local tokens "
+          f"{list(local_tokens)}, step {wall_ms:.1f} ms wall, {busy_ms:.1f} ms device busy "
+          f"(share {out['busy_share']:.3f}); max_memory_allocated {peak / 2**30:.3f} GiB beside "
+          f"the dry run's state {p['state_bytes_per_device'] / 2**30:.4f} GiB, arguments "
+          f"{p['memory']['argument_bytes'] / 2**30:.4f} GiB and peak live temp "
+          f"{p['memory']['temp_bytes'] / 2**30:.3f} GiB; launches {launches}; top device: "
+          + ", ".join(f"{k.strip()[:40]} {v:.1f} ms" for k, v in top), flush=True)
+    if not launches.get("flash_attention"):
+        fail(f"phase 19 (c): the step launched no flash kernel ({launches})")
+    report["mesh_rank0_step"] = out
+
+
+def roofline_constants(report: dict) -> None:
+    """Phase 19 (d): the roofline's measured constants: a cuBLAS bf16
+    GEMM of ``PEAK_GEMM_N``^3 and a device-to-device copy of
+    ``HBM_COPY_BYTES`` (read once, written once)."""
+    import torch
+
+    n = PEAK_GEMM_N
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    a = torch.randn((n, n), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    b = torch.randn((n, n), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    c = torch.empty((n, n), device=DEVICE, dtype=torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: torch.mm(a, b, out=c), warmup=3, iters=10)
+    del a, b, c
+    src = torch.empty(HBM_COPY_BYTES, dtype=torch.uint8, device=DEVICE).fill_(1)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), warmup=2, iters=5)
+    del src, dst
+    out = {"gemm_n": n, "gemm_ms": gemm_ms, "peak_flops": 2 * n ** 3 / (gemm_ms / 1e3),
+           "copy_bytes": HBM_COPY_BYTES, "copy_ms": copy_ms,
+           "hbm_bw": 2 * HBM_COPY_BYTES / (copy_ms / 1e3), "card": gpu_line()}
+    print(f"roofline constants on {out['card']}: bf16 GEMM {n}^3 {gemm_ms:.4f} ms = "
+          f"{out['peak_flops']:.6e} FLOP/s; copy of {HBM_COPY_BYTES} bytes {copy_ms:.4f} ms = "
+          f"{out['hbm_bw']:.6e} B/s (read + write)", flush=True)
+    report["roofline_constants"] = out
+
+
+def mesh_phase(report: dict) -> dict:
+    """Phase 19, slice I: the dry run, the one-rank sharded step, rank 0 of
+    the production mesh and the roofline constants.  Returns the kernel
+    table's path entry of (b)."""
+    import torch
+
+    t = time.perf_counter()
+    records = dryrun_cells(report)
+    gc.collect()
+    path = sharded_train_step(report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank0_step(report, records["qwen3-0.6b/train_4k"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    roofline_constants(report)
+    report["mesh_phase_s"] = time.perf_counter() - t
+    print(f"phase 19 (slice I: the production mesh) wall {report['mesh_phase_s']:.1f} s",
+          flush=True)
+    return path
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_attn_wgmma_kernel<2>`` from its Itanium-mangled name: the last
     component of the nested name, with its template arguments (integers,
@@ -4542,6 +4868,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     gnn_phase(report, rmat)
     del rmat
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_path = mesh_phase(report)
+    flash_row["launches_by_path"]["lm_sharded_training"] = mesh_path["launches"]
+    flash_row["paths"]["LM sharded training (1 x 1 mesh)"] = mesh_path
 
     for r in table:
         r["launch_floor_ms"] = floor_ms

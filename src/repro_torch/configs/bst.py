@@ -2,7 +2,7 @@
 embed_dim=32, seq_len=20, 1 block, 8 heads, MLP 1024-512-256.
 Item vocab 2^22 (4.2M rows).  The values of the JAX package's config."""
 from ..models.recsys.bst import BSTSpec
-from . import RecsysArch
+from .base import RecsysArch
 
 ARCH = RecsysArch(
     "bst",

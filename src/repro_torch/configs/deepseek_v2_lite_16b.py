@@ -4,7 +4,7 @@ vocab=102400, MoE: 64 routed experts top-6 + 2 shared, d_ff_expert=1408
 every layer is MoE (the published V2-Lite's first layer is dense)."""
 
 from ..models.transformer import LMConfig
-from . import LMArch
+from .base import LMArch
 
 ARCH = LMArch(
     name="deepseek-v2-lite-16b",
@@ -47,4 +47,6 @@ ARCH = LMArch(
         v_head_dim=16,
         remat=False,
     ),
+    sub_quadratic=False,  # MLA is still full attention
+    ep_divisible=True,  # 64 % 16 == 0
 )

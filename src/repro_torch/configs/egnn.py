@@ -5,7 +5,7 @@ import torch
 from ..device import resolve_device
 from ..models.gnn.egnn import egnn_forward, egnn_init
 from ..models.layers import mlp, mlp_init
-from . import GNNArch
+from .base import GNNArch
 
 _FULL = dict(n_layers=4, d_hidden=64)
 _SMOKE = dict(n_layers=2, d_hidden=16)

@@ -4,7 +4,7 @@ edge-chunked online-softmax path.  The values of the JAX package's config."""
 import dataclasses
 
 from ..models.gnn.equiformer_v2 import EqV2Spec, eqv2_forward, eqv2_init
-from . import GNNArch
+from .base import GNNArch
 
 _FULL = EqV2Spec(n_layers=12, channels=128, l_max=6, m_max=2, n_heads=8, n_rbf=32)
 _SMOKE = EqV2Spec(n_layers=2, channels=8, l_max=2, m_max=1, n_heads=2, n_rbf=8)
@@ -45,6 +45,7 @@ ARCH = GNNArch(
     "equiformer-v2",
     _init,
     _forward,
+    flops_correction=(("ogb_products", 28.0),),
     variant_builder=_variant,
     depth_full=_FULL.n_layers,
 )

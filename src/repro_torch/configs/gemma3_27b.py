@@ -3,7 +3,7 @@ vocab=262144, 5:1 local:global attention (sliding window 1024), 128k ctx
 [hf:google/gemma-3-*; unverified].  The values of the JAX package's
 config; layer i is global when i % 6 == 5 (``LMConfig.layer_windows``)."""
 from ..models.transformer import LMConfig
-from . import LMArch
+from .base import LMArch
 
 ARCH = LMArch(
     name="gemma3-27b",
@@ -31,4 +31,5 @@ ARCH = LMArch(
         local_global_ratio=5,
         remat=False,
     ),
+    sub_quadratic=True,  # hybrid local:global
 )

@@ -6,7 +6,7 @@ The values of the JAX package's config, which pads the experts to 48 for
 16-way expert sharding: the 8 dummies are masked from the router in
 prefill (``n_experts_active``), not in decode (ROADMAP queue 3)."""
 from ..models.transformer import LMConfig
-from . import LMArch
+from .base import LMArch
 
 ARCH = LMArch(
     name="granite-moe-3b-a800m",
@@ -41,4 +41,6 @@ ARCH = LMArch(
         d_ff_expert=32,
         remat=False,
     ),
+    sub_quadratic=False,
+    ep_divisible=True,  # 48 % 16 == 0 after padding
 )

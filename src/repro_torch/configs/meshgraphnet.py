@@ -4,7 +4,8 @@ norm), the standard MGN encoding.  The values of the JAX package's config."""
 import torch
 
 from ..models.gnn.meshgraphnet import mgn_forward, mgn_init
-from . import GNNArch
+from ..models.layers import take_rows
+from .base import GNNArch
 
 _FULL = dict(n_steps=15, d_hidden=128, mlp_layers=2)
 _SMOKE = dict(n_steps=3, d_hidden=16, mlp_layers=2)
@@ -19,7 +20,7 @@ def _init(generator, d_in, d_out, full, device=None):
 
 def _forward(params, batch, full, shape_name=None):
     pos = batch["pos"].float()
-    rel = pos[batch["edge_dst"].long()] - pos[batch["edge_src"].long()]
+    rel = take_rows(pos, batch["edge_dst"].long()) - take_rows(pos, batch["edge_src"].long())
     norm = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
     b = dict(batch, edge_attr=torch.cat([rel, norm], -1))
     # full-scale runs use bf16 messages: halves the cross-shard gather bytes

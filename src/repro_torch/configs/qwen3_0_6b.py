@@ -2,7 +2,7 @@
 vocab=151936, qk_norm [hf:Qwen/Qwen3-*; hf].  The values of the JAX
 package's config."""
 from ..models.transformer import LMConfig
-from . import LMArch
+from .base import LMArch
 
 ARCH = LMArch(
     name="qwen3-0.6b",
@@ -28,4 +28,5 @@ ARCH = LMArch(
         qk_norm=True,
         remat=False,
     ),
+    sub_quadratic=False,
 )

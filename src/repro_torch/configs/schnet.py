@@ -3,7 +3,7 @@
 values of the JAX package's config."""
 from ..models.gnn.schnet import schnet_forward, schnet_init
 from ..models.layers import mlp_init
-from . import GNNArch
+from .base import GNNArch
 
 _FULL = dict(n_interactions=3, d_hidden=64, n_rbf=300, cutoff=10.0)
 _SMOKE = dict(n_interactions=2, d_hidden=16, n_rbf=16, cutoff=5.0)

@@ -2,7 +2,7 @@
 llama-arch GQA [arXiv:2403.04652; hf].  The values of the JAX package's
 config."""
 from ..models.transformer import LMConfig
-from . import LMArch
+from .base import LMArch
 
 ARCH = LMArch(
     name="yi-6b",
@@ -26,4 +26,5 @@ ARCH = LMArch(
         vocab_size=512,
         remat=False,
     ),
+    sub_quadratic=False,
 )

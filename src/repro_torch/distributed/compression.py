@@ -11,9 +11,9 @@ compression state so the bias vanishes over steps):
 Tensor functions over ``torch.Tensor`` on any device; a compression state
 is a dict of tensors in place of a pytree.  The sharded store's migration
 transfers use the int8 pair (:func:`repro_torch.distributed.collectives.
-transfer_rows`).  The reduction that composes them with an all-reduce over
-the pod axis (``compressed_psum`` in the JAX package) belongs to training
-and is not part of this module.
+transfer_rows`).  :func:`compressed_psum` composes quantize -> all-reduce ->
+dequantize over one mesh axis (the pod axis), on each rank's local
+gradients, where the JAX package runs it inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ __all__ = [
     "decompress_int8",
     "compress_topk",
     "apply_error_feedback",
+    "compressed_psum",
 ]
 
 
@@ -80,3 +81,36 @@ def apply_error_feedback(
     else:
         raise ValueError(method)
     return out.to(g.dtype), x - out
+
+
+# ------------------------------------------------------- mesh-axis reduction
+def compressed_psum(
+    grads: Dict[str, torch.Tensor],
+    residuals: Dict[str, torch.Tensor],
+    mesh,
+    axis: str = "pod",
+    method: str = "int8",
+    topk_frac: float = 0.05,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Per entry: error-feedback compress, all-reduce over ``axis`` of
+    ``mesh``, average.  Returns (averaged decompressed grads, new
+    residuals).  ``int8`` re-quantizes so the wire payload is int8, sums the
+    quantized values in int32 and the scales in f32, and takes
+    ``qsum * (ssum / n) / n`` (the mean scale stands in for each rank's,
+    the reference's arithmetic); ``topk`` is an f32 sum over ``n``."""
+    from .collectives import _all_reduce
+
+    group = mesh.get_group(axis)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    outs, new_res = {}, {}
+    for k, g in grads.items():
+        c, new_res[k] = apply_error_feedback(g, residuals[k], method, topk_frac)
+        if method == "int8":
+            q, s = compress_int8(c.to(torch.float32))
+            qsum = _all_reduce(q.to(torch.int32), "sum", group)
+            ssum = _all_reduce(s.reshape(1), "sum", group)[0]
+            out = qsum.to(torch.float32) * (ssum / n) / n
+        else:
+            out = _all_reduce(c.to(torch.float32), "sum", group) / n
+        outs[k] = out.to(g.dtype)
+    return outs, new_res

@@ -4,20 +4,20 @@ straggler detection and mitigation.
 On a real cluster, failures surface as missing heartbeats; here the
 ``FailureSimulator`` injects them deterministically.  The sharded store
 feeds each shard's measured serve time to a :class:`StragglerDetector`,
-which the admission controller reads.  Placing a checkpoint onto a new
-mesh (``reshard_tree`` in the JAX package) belongs to training and is not
-part of this module.
+which the admission controller reads.  :func:`reshard_tree` places a
+host-resident checkpoint onto a (new) mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 __all__ = [
     "FailureSimulator",
     "elastic_mesh_shape",
+    "reshard_tree",
     "StragglerDetector",
     "StragglerMitigator",
 ]
@@ -57,6 +57,25 @@ def elastic_mesh_shape(
     if multi_pod and rest % 2 == 0 and rest >= 2:
         return (2, rest // 2, model), ("pod", "data", "model")
     return (rest, model), ("data", "model")
+
+
+def reshard_tree(tree: Any, mesh, spec_tree: Any) -> Any:
+    """Place a host-resident (numpy) tree of nested dicts onto a (new) mesh
+    with the given specs: each rank keeps its own slice of each leaf as a
+    DTensor.  The elastic-restart path: checkpoints are stored unsharded,
+    so any surviving mesh shape can load them."""
+    import torch
+
+    from .sharding import distribute_tree
+
+    dev = mesh.device_type
+
+    def to_torch(t):
+        if isinstance(t, dict):
+            return {k: to_torch(v) for k, v in t.items()}
+        return torch.as_tensor(np.asarray(t), device=dev)
+
+    return distribute_tree(to_torch(tree), mesh, spec_tree)
 
 
 class StragglerDetector:

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..device import DeviceLike, on_cuda, resolve_device
 from ..obs import get_registry
@@ -28,6 +29,8 @@ from .route_expand import route_expand as _route_expand_kernel
 
 __all__ = [
     "attention",
+    "attention_pairs",
+    "flash_attention_op",
     "bag_lookup",
     "dhd_step",
     "dhd_step_batch",
@@ -129,28 +132,120 @@ def _tail_raise_on_card(heat: torch.Tensor) -> None:
         )
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Trainable flash attention, the port of the JAX package's
-    ``_attention_with_vjp``: the forward is :func:`flash_attention` (the
-    CUDA kernel on the card, its plain version on the CPU) and saves q, k
-    and v; the backward recomputes ``ref.attention_ref`` from them and
-    returns its VJP, so no ``S x S`` residual is stored between the passes.
-    That backward is plain PyTorch, as the reference's is plain jnp: it
-    materialises the f32 scores and probabilities of one call."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: Optional[int]) -> torch.Tensor:
+    """:func:`flash_attention` as a registered op: the CUDA kernel for
+    tensors on the card (it raises there when the kernel does not build),
+    its plain version on the CPU.  Registered so that ``FakeTensorMode``
+    (the dry run) can run it by its fake form, the flop counter can count
+    it, and autograd can differentiate it, the port of the JAX package's
+    ``_attention_with_vjp``: the backward recomputes ``ref.attention_ref``
+    from q, k and v and returns its VJP, so no ``S x S`` residual is stored
+    between the passes.  That backward is plain PyTorch, as the
+    reference's is plain jnp: it materialises the f32 scores and
+    probabilities of one call."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return flash_attention(q, k, v, causal=causal, window=window)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = ref.attention_ref(q, k, v, causal=ctx.causal, window=ctx.window)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
-        return dq, dk, dv, None, None
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return q.new_empty((q.shape[0], q.shape[1], q.shape[2], v.shape[3]))
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.window = causal, window
+
+
+def _flash_backward(ctx, g):
+    q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+    with torch.enable_grad():
+        out = ref.attention_ref(q, k, v, causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    # dense gradients: a DTensor region's caller may view them as its own
+    # layout (the values are those of autograd's strided ones)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous(), None, None
+
+
+flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: Optional[int]) -> int:
+    """Unmasked (query, key) pairs of one head: queries suffix-aligned
+    (query ``i`` sits at ``i + skv - sq``), causal keys at or before it,
+    windowed keys within ``window`` of it."""
+    q_pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(q_pos, skv - 1) if causal else np.full(sq, skv - 1, np.int64)
+    lo = np.maximum(q_pos - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None,
+                 **kwargs) -> int:
+    """``2 * B * Hq * pairs * (Dqk + Dv)``: the q.k and p.v products over
+    the unmasked pairs, the work the kernel's tiles need (the flash
+    kernel's bound counts the same)."""
+    b, hq, sq, dqk = q_shape
+    return 2 * b * hq * attention_pairs(sq, k_shape[2], causal, window) * (dqk + v_shape[3])
+
+
+def sharded_attention(q, k, v, fn, *rows):
+    """``fn(q, k, v, *rows)`` (attention on ``[B, H, S, D]`` tensors) on
+    DTensors, as a ``local_map`` region: batch over the data-parallel mesh
+    dims, heads over ``model`` (the reference's ``constrain(q, dp, "model",
+    None, None)`` and the same for the output), each dim only where the
+    mesh axes divide it, as ``constrain`` fits; ``rows`` (per batch row,
+    e.g. valid lengths) follow the batch split.  When the kv heads do not
+    divide ``model`` but the q heads do, k and v are replicated over
+    ``model`` and each rank takes the kv heads its q heads read (their
+    gradients are then partial sums over ``model``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import fitted_spec, mesh_sizes
+
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = mesh_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    qspec = fitted_spec(q.shape, (dp, "model", None, None), names, sizes) or (None,) * 4
+    kspec = fitted_spec(k.shape, (dp, "model", None, None), names, sizes) or (None,) * 4
+    heads_split = qspec[1] is not None
+    kv_split = heads_split and kspec[1] is not None
+    b_axes = qspec[0] if isinstance(qspec[0], tuple) else (qspec[0],)
+
+    def pl(heads: bool):
+        return tuple(
+            Shard(0) if a in b_axes else Shard(1) if (a == "model" and heads) else Replicate()
+            for a in names
+        )
+
+    kv_grad = tuple(Partial() if (a == "model" and heads_split and not kv_split) else p
+                    for a, p in zip(names, pl(kv_split)))
+    row_pl = tuple(Shard(0) if a in b_axes else Replicate() for a in names)
+    group = q.shape[1] // k.shape[1]
+
+    def local(q_, k_, v_, *rows_):
+        if heads_split and not kv_split:  # the kv heads this rank's q heads read
+            hq = q_.shape[1]
+            h0 = mesh.get_local_rank("model") * hq
+            if hq % group == 0:
+                k_, v_ = k_[:, h0 // group:(h0 + hq) // group], v_[:, h0 // group:(h0 + hq) // group]
+            else:
+                k_ = k_.repeat_interleave(group, dim=1)[:, h0:h0 + hq]
+                v_ = v_.repeat_interleave(group, dim=1)[:, h0:h0 + hq]
+        return fn(q_, k_, v_, *rows_)
+
+    region = local_map(
+        local, out_placements=(pl(heads_split),),
+        in_placements=(pl(heads_split), pl(kv_split), pl(kv_split)) + (row_pl,) * len(rows),
+        in_grad_placements=(pl(heads_split), kv_grad, kv_grad) + (row_pl,) * len(rows),
+        device_mesh=mesh, redistribute_inputs=True,
+    )
+    return region(q, k, v, *rows)
 
 
 def attention(
@@ -160,14 +255,20 @@ def attention(
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Softmax attention through :func:`flash_attention` (the CUDA kernel on
-    the card, its plain version on the CPU), differentiable through
-    :class:`_FlashAttention`: serving and training take the same forward.
-    The kernel masks ragged sequence ends, so every shape takes it: unlike
-    the JAX package there is no fallback for lengths its tiles do not
-    divide."""
+    """Softmax attention through :func:`flash_attention_op` (the CUDA
+    kernel on the card, its plain version on the CPU), differentiable:
+    serving and training take the same forward.  On DTensors it runs
+    sharded (:func:`sharded_attention`).  The kernel masks ragged sequence
+    ends, so every shape takes it: unlike the JAX package there is no
+    fallback for lengths its tiles do not divide."""
+    from torch.distributed.tensor import DTensor
+
     t0 = _obs_t0()
-    out = _FlashAttention.apply(q, k, v, causal, window)
+    if isinstance(q, DTensor):
+        out = sharded_attention(
+            q, k, v, lambda q_, k_, v_: flash_attention_op(q_, k_, v_, causal, window))
+    else:
+        out = flash_attention_op(q, k, v, causal, window)
     _obs_dispatch("attention", "kernel", t0)
     return out
 

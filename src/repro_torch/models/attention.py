@@ -28,6 +28,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import DeviceLike
+from ..distributed.constraints import constrain, is_dtensor, pinned, splittable
+from ..distributed.sharding import axis_rank
 from ..kernels import ops
 from ..kernels.ref import attention_ref
 from .layers import Params, dense_init, normal, rmsnorm, rmsnorm_init, rope
@@ -114,31 +116,108 @@ def chunked_attention(
 
 
 def _attend(q, k, v, causal: bool, window: Optional[int], kv_valid=None) -> torch.Tensor:
-    """Dispatch: flash kernel (card) -> chunked (long or masked) -> dense plain."""
-    if kv_valid is None and q.device.type == "cuda":
+    """Dispatch: flash kernel (card, or any DTensor: the registered op runs
+    sharded) -> chunked (long or masked) -> dense plain."""
+    if kv_valid is None and (q.device.type == "cuda" or is_dtensor(q)):
         return ops.attention(q, k, v, causal=causal, window=window)
+    if is_dtensor(q):  # masked decode: the chunked form, sharded as the op is
+        return ops.sharded_attention(
+            q, k, v, lambda q_, k_, v_, kv_: chunked_attention(
+                q_, k_, v_, causal=causal, window=window, kv_valid=kv_), kv_valid)
     if k.shape[2] > 2048 or kv_valid is not None:
         return chunked_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
+_DP = ("pod", "data")
+
+
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: DTensor runs
+    a reshape's backward as a view of the local gradient, which a
+    transpose's backward leaves strided."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a clone, not .contiguous(): a DTensor's global strides may call a
+        # strided local contiguous
+        return g.clone(memory_format=torch.contiguous_format)
+
+
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n, -1).transpose(1, 2)  # [B, H, S, D]
+    y = splittable(x, -1, n).reshape(b, s, n, -1)
+    if is_dtensor(y):
+        y = _DenseGrad.apply(y)
+    return y.transpose(1, 2)  # [B, H, S, D]
+
+
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """Pin a ``[B, H, S, D]`` activation: batch over the data-parallel
+    axes, heads over ``model``."""
+    return constrain(x, _DP, "model", None, None)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, h, s, d = x.shape
+    if is_dtensor(x):  # DTensor may take the reshape for a view of a strided local
+        y = x.transpose(1, 2).clone(memory_format=torch.contiguous_format)
+        return pinned(y.reshape(b, s, h * d))
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
 def _write_position(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor) -> None:
     """``cache[b, ..., position[b], :] = new[b, ..., 0, :]`` for each batch
     row, the position clamped into the cache as ``dynamic_update_slice``
-    clamps it; the sequence axis is ``-2``."""
+    clamps it; the sequence axis is ``-2``.  A DTensor cache is written in
+    place by :func:`_write_position_sharded`."""
+    if is_dtensor(cache):
+        _write_position_sharded(cache, new, position)
+        return
     rows = torch.arange(cache.shape[0], device=cache.device)
     at = position.long().clamp(0, cache.shape[-2] - 1)
     cache.transpose(1, -2)[rows, at] = new.transpose(1, -2)[:, 0].to(cache.dtype)
+
+
+def _write_position_sharded(cache, new, position) -> None:
+    """:func:`_write_position` on a DTensor cache, as a ``local_map`` region
+    on its own placements (``new`` and ``position`` follow its batch
+    split): each rank writes its rows into its local slice.  Where the
+    sequence axis is split (long-context decode), the rank whose slice
+    holds the position writes it and every other rank writes back the value
+    it already holds."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    seq = cache.dim() - 2
+    pl = tuple(cache.placements)
+    seq_axes = [names[i] for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == seq]
+    new_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == seq else p for p in pl)
+    pos_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl)
+    s_global = cache.shape[seq]
+
+    def local(c, n, pos):
+        s_local = c.shape[seq]
+        at = pos.long().clamp(0, s_global - 1) - axis_rank(mesh, seq_axes) * s_local
+        inside = (at >= 0) & (at < s_local)
+        at = at.clamp(0, s_local - 1)
+        rows = torch.arange(c.shape[0], device=c.device)
+        view = c.transpose(1, -2)
+        val = n.transpose(1, -2)[:, 0].to(c.dtype)
+        if seq_axes:
+            keep = inside.reshape((-1,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, view[rows, at])
+        view[rows, at] = val
+        return c
+
+    local_map(local, out_placements=(pl,), in_placements=(pl, new_pl, pos_pl),
+              device_mesh=mesh, redistribute_inputs=True)(cache, new, position)
 
 
 # ------------------------------------------------------------------- GQA
@@ -172,9 +251,9 @@ def _gqa_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, n_heads: int,
     """q ``[B, Hq, S, D]``, k and v ``[B, Hkv, S, D]``: projected, qk-normed
     when the params carry the gains, q and k rotated."""
     xd = x.to(dtype)
-    q = _split_heads(xd @ p["wq"].to(dtype), n_heads)
-    k = _split_heads(xd @ p["wk"].to(dtype), n_kv_heads)
-    v = _split_heads(xd @ p["wv"].to(dtype), n_kv_heads)
+    q = _heads(_split_heads(xd @ p["wq"].to(dtype), n_heads))
+    k = _heads(_split_heads(xd @ p["wk"].to(dtype), n_kv_heads))
+    v = _heads(_split_heads(xd @ p["wv"].to(dtype), n_kv_heads))
     if "q_norm" in p:
         q = rmsnorm({"g": p["q_norm"]}, q)
         k = rmsnorm({"g": p["k_norm"]}, k)
@@ -194,7 +273,7 @@ def gqa_forward(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention (prefill).  Returns (out, kv_cache)."""
     q, k, v = _gqa_qkv(p, x, positions, n_heads, n_kv_heads, rope_base, dtype)
-    o = _attend(q, k, v, causal, window)
+    o = _heads(_attend(q, k, v, causal, window))
     out = _merge_heads(o).to(dtype) @ p["wo"].to(dtype)
     return out, {"k": k, "v": v}
 
@@ -268,17 +347,18 @@ def mla_forward(
     are up-projected per step (no absorbed-weight trick)."""
     b, s, _ = x.shape
     xd = x.to(dtype)
-    q = (xd @ p["wq"].to(dtype)).reshape(b, s, n_heads, qk_nope_dim + qk_rope_dim)
-    q = q.transpose(1, 2)
+    q = _heads(_split_heads(xd @ p["wq"].to(dtype), n_heads))
     q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
     q_rope = rope(q_rope, positions)
-    c_kv = rmsnorm({"g": p["kv_norm"]}, xd @ p["w_dkv"].to(dtype))  # [B,S,r]
-    k_rope = rope((xd @ p["w_krope"].to(dtype))[:, None], positions)  # [B,1,S,dr] shared head
-    k_nope = (c_kv @ p["w_uk"].to(dtype)).reshape(b, s, n_heads, qk_nope_dim).transpose(1, 2)
-    v = (c_kv @ p["w_uv"].to(dtype)).reshape(b, s, n_heads, v_head_dim).transpose(1, 2)
+    # the latent projections pinned: their gradients come back in the
+    # layout they left in (DTensor would otherwise take a strided one)
+    c_kv = rmsnorm({"g": p["kv_norm"]}, pinned(xd @ p["w_dkv"].to(dtype)))  # [B,S,r]
+    k_rope = rope(pinned(xd @ p["w_krope"].to(dtype))[:, None], positions)  # [B,1,S,dr] shared head
+    k_nope = _heads(_split_heads(c_kv @ p["w_uk"].to(dtype), n_heads))
+    v = _heads(_split_heads(c_kv @ p["w_uv"].to(dtype), n_heads))
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope.expand(b, n_heads, s, qk_rope_dim)], dim=-1)
-    o = _attend(q_full, k_full, v, causal, None)
+    o = _heads(_attend(q_full, k_full, v, causal, None))
     out = _merge_heads(o).to(dtype) @ p["wo"].to(dtype)
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, 0]}
 
@@ -299,8 +379,7 @@ def mla_decode(
     and returns ``(out, cache)``."""
     b = x.shape[0]
     xd = x.to(dtype)
-    q = (xd @ p["wq"].to(dtype)).reshape(b, 1, n_heads, qk_nope_dim + qk_rope_dim)
-    q = q.transpose(1, 2)
+    q = _split_heads(xd @ p["wq"].to(dtype), n_heads)
     q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
     q_rope = rope(q_rope, position[:, None])
     c_new = rmsnorm({"g": p["kv_norm"]}, xd @ p["w_dkv"].to(dtype))  # [B,1,r]
@@ -309,8 +388,8 @@ def mla_decode(
     s_max = c_kv.shape[1]
     _write_position(c_kv, c_new, position)
     _write_position(k_rope, kr_new, position)
-    k_nope = (c_kv @ p["w_uk"].to(dtype)).reshape(b, s_max, n_heads, qk_nope_dim).transpose(1, 2)
-    v = (c_kv @ p["w_uv"].to(dtype)).reshape(b, s_max, n_heads, v_head_dim).transpose(1, 2)
+    k_nope = _heads(_split_heads(c_kv @ p["w_uk"].to(dtype), n_heads))
+    v = _heads(_split_heads(c_kv @ p["w_uv"].to(dtype), n_heads))
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat(
         [k_nope, k_rope[:, None].expand(b, n_heads, s_max, qk_rope_dim)], dim=-1

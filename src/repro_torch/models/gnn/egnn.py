@@ -14,8 +14,8 @@ from typing import Dict, Tuple
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..layers import Params, mlp, mlp_init
-from .common import masked_segment_mean, masked_segment_sum
+from ..layers import Params, mlp, mlp_init, take_rows
+from .common import masked_segment_mean, masked_segment_sum, shard_ragged
 
 __all__ = ["egnn_init", "egnn_forward"]
 
@@ -47,13 +47,13 @@ def egnn_forward(
     emask = batch.get("edge_mask")
     n = h.shape[0]
     for i in range(n_layers):
-        xi, xj = x[dst], x[src]
+        xi, xj = take_rows(x, dst), take_rows(x, src)
         diff = xi - xj
         d2 = (diff * diff).sum(-1, keepdim=True)
-        feats = [h[dst], h[src], d2]
+        feats = [take_rows(h, dst), take_rows(h, src), d2]
         if "edge_attr" in batch:
             feats.append(batch["edge_attr"].to(dtype))
-        m = mlp(p[f"phi_e{i}"], torch.cat(feats, -1), dtype=dtype)
+        m = shard_ragged(mlp(p[f"phi_e{i}"], torch.cat(feats, -1), dtype=dtype))
         w = mlp(p[f"phi_x{i}"], m, dtype=dtype)  # [E, 1]
         # mean-normalized coordinate update (C = 1/deg), E(n)-equivariant
         x = x + masked_segment_mean(diff * w, dst, n, emask)

@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..layers import Params, mlp, mlp_init, normal, stack, unstack
-from .common import masked_segment_max, masked_segment_sum
+from ...distributed.constraints import is_dtensor
+from ..layers import Params, mlp, mlp_init, normal, stack, take_rows, unstack
+from .common import masked_segment_max, masked_segment_sum, shard_ragged
 from .schnet import gaussian_rbf
 from .wigner import dir_to_angles, irreps_dim, rotate_irreps, wigner_d_blocks
 
@@ -164,25 +165,63 @@ def _so2_conv(
         pp = tr_pos[m]["plus"]
         mm = tr_pos[m]["minus"]
         n_l = len(pp)
-        xp = msg_tr[:, pp, :].reshape(e, n_l * c)
+        xp = _take_columns(msg_tr, pp).reshape(e, n_l * c)
         w1 = so2[f"w1_{m}"]
         if m == 0:
             yp = xp @ w1
-            out[:, pp, :] = yp.reshape(e, n_l, c)
+            out = _put_columns(out, pp, yp.reshape(e, n_l, c))
         else:
-            xm = msg_tr[:, mm, :].reshape(e, n_l * c)
+            xm = _take_columns(msg_tr, mm).reshape(e, n_l * c)
             w2 = so2[f"w2_{m}"]
             yp = xp @ w1 - xm @ w2
             ym = xp @ w2 + xm @ w1
-            out[:, pp, :] = yp.reshape(e, n_l, c)
-            out[:, mm, :] = ym.reshape(e, n_l, c)
+            out = _put_columns(out, pp, yp.reshape(e, n_l, c))
+            out = _put_columns(out, mm, ym.reshape(e, n_l, c))
     return out
 
 
-def _edge_frames(pos, src, dst, emask, spec: EqV2Spec):
+def _row_region(fn, *tensors: torch.Tensor) -> torch.Tensor:
+    """``fn`` over DTensors as a ``local_map`` region on the first one's
+    row split (its other dims whole): an indexed read or write of inner
+    columns has no DTensor rule in every PyTorch version."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in tensors[0].placements)
+    return local_map(fn, out_placements=(rows,), in_placements=(rows,) * len(tensors),
+                     device_mesh=tensors[0].device_mesh, redistribute_inputs=True)(*tensors)
+
+
+def _zeros_rows(like: torch.Tensor, *tail: int) -> torch.Tensor:
+    """Zeros ``[like.shape[0], *tail]`` of ``like``'s dtype, its rows split
+    as ``like``'s are (DTensor's ``new_zeros`` of another shape would
+    replicate them)."""
+    if not is_dtensor(like):
+        return like.new_zeros((like.shape[0],) + tail)
+    return _row_region(lambda t: t.new_zeros((t.shape[0],) + tail), like)
+
+
+def _take_columns(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[:, idx, :]``."""
+    if not is_dtensor(x):
+        return x[:, idx, :]
+    return _row_region(lambda x_: x_[:, idx, :], x)
+
+
+def _put_columns(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst[:, idx, :] = src``, returning ``dst`` (on a DTensor written out
+    of place, by ``index_copy``)."""
+    if not is_dtensor(dst):
+        dst[:, idx, :] = src
+        return dst
+    return _row_region(lambda d, s: torch.index_copy(d, 1, idx, s), dst, src)
+
+
+def _edge_frames(pos, src, dst, emask, spec: EqV2Spec, pin=lambda v: v):
     """Each edge's mask (zero-length edges dropped), Wigner-D blocks and
-    radial features."""
-    vec = pos[dst] - pos[src]
+    radial features; ``pin`` is applied to the edge vectors."""
+    vec = pin(take_rows(pos, dst) - take_rows(pos, src))
     d2 = (vec * vec).sum(-1)
     dist = torch.sqrt(d2 + 1e-9)
     # zero-length edges (self-loops, padding) have no direction -> no frame;
@@ -210,18 +249,18 @@ def prepare_geometry(batch: Dict[str, torch.Tensor], spec: EqV2Spec,
 def _edge_messages(h, lp, src, dst, blocks, rbf, tr_arr, tr_pos, spec, dtype):
     """Steps 1-3 and the logits of step 4 for a set of edges: the rotated-back
     messages [E, dim, C] and the per-head logits [E, H] (unmasked)."""
-    feat_e = h[src] + h[dst]  # [E, dim, C]
-    feat_tr = rotate_irreps(feat_e, blocks, transpose=True)[:, tr_arr, :]  # edge frame, |m| <= m_max
-    msg = _so2_conv(feat_tr, lp["so2"], spec, tr_pos)
+    feat_e = shard_ragged(take_rows(h, src) + take_rows(h, dst))  # [E, dim, C]
+    # edge frame, truncated to |m| <= m_max
+    feat_tr = shard_ragged(_take_columns(rotate_irreps(feat_e, blocks, transpose=True), tr_arr))
+    msg = shard_ragged(_so2_conv(feat_tr, lp["so2"], spec, tr_pos))
     gate = mlp(lp["radial"], rbf, dtype=dtype)  # [E, C]
     msg = msg * torch.sigmoid(gate)[:, None, :]
     # attention logits from invariant (l=0) block
-    inv = msg[:, int(tr_pos[0]["plus"][0]), :]  # [E, C] (l=0, m=0)
+    inv = msg[:, int(_truncation(spec)[1][0]["plus"][0]), :]  # [E, C] (l=0, m=0)
     logits = mlp(lp["attn"], inv, dtype=dtype)  # [E, H]
     # back to full irreps + global frame
-    full = msg.new_zeros((msg.shape[0], spec.dim, spec.channels))
-    full[:, tr_arr, :] = msg
-    return rotate_irreps(full, blocks), logits
+    full = _put_columns(_zeros_rows(msg, spec.dim, spec.channels), tr_arr, msg)
+    return shard_ragged(rotate_irreps(full, blocks)), logits
 
 
 def _project_and_ffn(x, agg, lp, spec: EqV2Spec, dtype):
@@ -262,10 +301,10 @@ def layer_apply(
                                   geom["tr_arr"], geom["tr_pos"], spec, dtype)
     logits = torch.where(emask[:, None], logits, logits.new_full((), -1e30))
     lmax_ = masked_segment_max(logits, dst, n, neg=-1e29)
-    expd = torch.exp(logits - lmax_[dst])
+    expd = torch.exp(logits - take_rows(lmax_, dst))
     expd = torch.where(emask[:, None], expd, expd.new_zeros(()))
     denom = masked_segment_sum(expd, dst, n)
-    alpha = expd / denom[dst].clamp_min(1e-9)  # [E, H]
+    alpha = expd / take_rows(denom, dst).clamp_min(1e-9)  # [E, H]
     # heads act on channel groups
     hc = c // spec.n_heads
     full = full.reshape(-1, spec.dim, spec.n_heads, hc)
@@ -304,9 +343,9 @@ def layer_apply_chunked(
     acc = x.new_zeros((n, spec.dim, c))
     for ic in range(n_chunks):
         sl = slice(ic * ec, (ic + 1) * ec)
-        src, dst = src_all[sl], dst_all[sl]
-        emask = emask_all[sl] if emask_all is not None else None
-        emask, blocks, rbf = _edge_frames(pos, src, dst, emask, spec)
+        src, dst = shard_ragged(src_all[sl]), shard_ragged(dst_all[sl])
+        emask = shard_ragged(emask_all[sl]) if emask_all is not None else None
+        emask, blocks, rbf = _edge_frames(pos, src, dst, emask, spec, pin=shard_ragged)
         full, logits = _edge_messages(h_in, lp, src, dst, blocks, rbf, tr_arr, tr_pos,
                                       spec, dtype)
         logits = torch.where(emask[:, None], logits, logits.new_full((), -1e30))
@@ -314,7 +353,7 @@ def layer_apply_chunked(
         m_chunk = masked_segment_max(logits, dst, n, neg=-1e30)
         m_new = torch.maximum(m_run, m_chunk)
         corr = torch.exp(torch.clamp(m_run - m_new, -60.0, 0.0))  # [N,H]
-        w = torch.exp(torch.clamp(logits - m_new[dst], -60.0, 0.0))
+        w = torch.exp(torch.clamp(logits - take_rows(m_new, dst), -60.0, 0.0))
         w = torch.where(emask[:, None], w, w.new_zeros(()))
         d_run = d_run * corr + masked_segment_sum(w, dst, n)
         fullh = full.reshape(ec, spec.dim, spec.n_heads, hc)
@@ -346,10 +385,10 @@ def eqv2_forward(
     if z.dim() == 2:
         s0 = z.to(dtype) @ p["embed"].to(dtype)
     else:
-        s0 = p["embed"].to(dtype)[z.long()]
+        s0 = take_rows(p["embed"].to(dtype), z.long())
     n = s0.shape[0]
-    x = s0.new_zeros((n, spec.dim, spec.channels))
-    x[:, 0, :] = s0
+    x = _put_columns(_zeros_rows(s0, spec.dim, spec.channels),
+                     torch.zeros(1, dtype=torch.int64, device=s0.device), s0[:, None, :])
     layers = unstack(p["layers"], spec.n_layers)
     if edge_chunks > 1:
         for lp in layers:

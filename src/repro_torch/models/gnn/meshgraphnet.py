@@ -13,8 +13,10 @@ from typing import Dict
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..layers import Params, layernorm, layernorm_init, mlp, mlp_init, stack, unstack
-from .common import masked_segment_sum
+from ..layers import (
+    Params, layernorm, layernorm_init, mlp, mlp_init, stack, take_rows, unstack,
+)
+from .common import masked_segment_sum, shard_ragged
 
 __all__ = ["mgn_init", "mgn_forward"]
 
@@ -63,7 +65,8 @@ def mgn_forward(
     e = _block(p["enc_edge"], batch["edge_attr"].to(dtype), dtype)
     n_steps = next(iter(p["steps"]["edge"]["ln"].values())).shape[0]
     for sp in unstack(p["steps"], n_steps):
-        e = e + _block(sp["edge"], torch.cat([e, h[src], h[dst]], -1), dtype)
+        e = shard_ragged(e + _block(sp["edge"], torch.cat([e, take_rows(h, src), take_rows(h, dst)], -1),
+                                    dtype))
         agg = masked_segment_sum(e, dst, n, emask)
         h = h + _block(sp["node"], torch.cat([h, agg], -1), dtype)
     return mlp(p["dec"], h, dtype=dtype)

@@ -14,8 +14,8 @@ from typing import Dict
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..layers import Params, mlp, mlp_init, normal
-from .common import masked_segment_sum
+from ..layers import Params, mlp, mlp_init, normal, take_rows
+from .common import masked_segment_sum, shard_ragged
 
 __all__ = ["schnet_init", "schnet_forward", "gaussian_rbf"]
 
@@ -69,17 +69,17 @@ def schnet_forward(
     if x.dim() == 2:  # one-hot species given
         h = x.to(dtype) @ p["embed"].to(dtype)
     else:
-        h = p["embed"].to(dtype)[x.long()]
+        h = take_rows(p["embed"].to(dtype), x.long())
     pos = batch["pos"].to(dtype)
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch.get("edge_mask")
     n = h.shape[0]
-    d = torch.sqrt(((pos[dst] - pos[src]) ** 2).sum(-1) + 1e-12)
+    d = torch.sqrt(((take_rows(pos, dst) - take_rows(pos, src)) ** 2).sum(-1) + 1e-12)
     rbf = gaussian_rbf(d, n_rbf, cutoff)
     env = cosine_cutoff(d, cutoff)[:, None]
     for i in range(n_interactions):
         w = mlp(p[f"filter{i}"], rbf, act=ssp, final_act=True, dtype=dtype) * env
-        msg = mlp(p[f"pre{i}"], h, act=ssp, dtype=dtype)[src] * w
+        msg = shard_ragged(take_rows(mlp(p[f"pre{i}"], h, act=ssp, dtype=dtype), src) * w)
         agg = masked_segment_sum(msg, dst, n, emask)
         h = h + mlp(p[f"post{i}"], agg, act=ssp, dtype=dtype)
     return mlp(p["out"], h, act=ssp, dtype=dtype)

@@ -7,6 +7,10 @@ scales.  JAX's PRNG is not reproduced: tests convert the JAX package's params
 instead (:func:`repro_torch.convert.lm_params_from_numpy`).  Compute dtype
 is bf16 by default; the init helpers return f32 and the model stores each
 matmul weight in its compute dtype (see :mod:`.transformer`).
+
+Row gathers go through :func:`take_rows` and :func:`vocab_lookup`: plain
+indexing on plain tensors, ``local_map`` regions on DTensors (an indexed
+gather has no sharding rule that holds across PyTorch versions).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import axis_rank
 
 __all__ = [
     "Params",
@@ -35,7 +40,9 @@ __all__ = [
     "stack",
     "swiglu",
     "swiglu_init",
+    "take_rows",
     "unstack",
+    "vocab_lookup",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -184,9 +191,75 @@ def cross_entropy(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    last = lf.dim() - 1  # a non-negative dim: DTensor rules may not normalise -1
+    lse = torch.logsumexp(lf, dim=last)
+    gold = torch.gather(lf, last, labels[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
+
+
+def _idx_placements(idx, ndim: int, drop=()):
+    """An index tensor's placements (a plain one is replicated), with the
+    mesh dims in ``drop`` replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(idx, DTensor):
+        return tuple(Replicate() for _ in range(ndim))
+    return tuple(p if isinstance(p, Shard) and i not in drop else Replicate()
+                 for i, p in enumerate(idx.placements))
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]``.  On a DTensor a ``local_map`` region: ``x`` gathered
+    whole on every rank, ``idx`` in its own layout and the rows out in it;
+    each rank's gradient of ``x`` is a partial sum over the mesh dims that
+    split ``idx``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(x, DTensor):
+        return x[idx]
+    mesh = x.device_mesh
+    ipl = _idx_placements(idx, mesh.ndim)
+    whole = tuple(Replicate() for _ in range(mesh.ndim))
+    grad = tuple(Partial() if not isinstance(p, Replicate) else p for p in ipl)
+    return local_map(lambda x_, i_: x_[i_], out_placements=(ipl,),
+                     in_placements=(whole, ipl), in_grad_placements=(grad, ipl),
+                     device_mesh=mesh, redistribute_inputs=True)(x, idx)
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for an embedding table whose rows (the vocabulary) a
+    mesh may shard.  On a DTensor a ``local_map`` region (the vocab-parallel
+    lookup): each rank looks up the ids that fall in its rows, zero for the
+    rest, and the rows out are a partial sum over the vocabulary's mesh
+    dims; a table's other splits (FSDP over ``data``) are gathered first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if isinstance(p, Shard) and p.dim == 0]
+    tpl = tuple(Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim))
+    ipl = _idx_placements(ids, mesh.ndim, drop=vocab)
+    out = tuple(Partial() if i in vocab else p for i, p in enumerate(ipl))
+    tgrad = tuple(Shard(0) if i in vocab else (Partial() if isinstance(p, Shard) else p)
+                  for i, p in enumerate(ipl))
+
+    v_axes = [mesh.mesh_dim_names[d] for d in vocab]
+
+    def local(t, i):
+        if not vocab:
+            return t[i]
+        rel = i.long() - axis_rank(mesh, v_axes) * t.shape[0]  # this rank's slice of the rows
+        inside = (rel >= 0) & (rel < t.shape[0])
+        rows = t[rel.clamp(0, t.shape[0] - 1)]
+        keep = inside.reshape(inside.shape + (1,) * (rows.dim() - inside.dim()))
+        return torch.where(keep, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+    return local_map(local, out_placements=(out,), in_placements=(tpl, ipl),
+                     in_grad_placements=(tgrad, ipl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)

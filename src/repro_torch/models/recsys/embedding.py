@@ -12,7 +12,7 @@ import torch
 
 from ...device import DeviceLike
 from ...kernels import ops
-from ..layers import normal
+from ..layers import normal, vocab_lookup
 
 __all__ = ["bag_lookup", "lookup", "table_init"]
 
@@ -30,8 +30,8 @@ def lookup(
 ) -> torch.Tensor:
     """Plain row gather (single-id fields), cast to ``dtype`` after the
     gather (the JAX package casts the table first: the same values, without
-    a copy of the whole table a call)."""
-    return table[ids].to(dtype)
+    a copy of the whole table a call); vocab-parallel on a DTensor table."""
+    return vocab_lookup(table, ids).to(dtype)
 
 
 def bag_lookup(

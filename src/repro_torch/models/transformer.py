@@ -46,12 +46,14 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.constraints import constrain, is_dtensor
+from ..distributed.sharding import axis_rank, constrain_lm_layer
 from .attention import (
-    _attend, _gqa_qkv, _merge_heads, _write_position, gqa_init, mla_decode, mla_forward,
-    mla_init,
+    _DP, _attend, _gqa_qkv, _heads, _merge_heads, _write_position, gqa_init, mla_decode,
+    mla_forward, mla_init,
 )
 from .layers import (
-    Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init, unstack,
+    Params, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init, unstack, vocab_lookup,
 )
 from .moe import moe_forward, moe_init
 
@@ -214,14 +216,20 @@ def _layer(params: Params, i: int) -> Params:
 
 
 def _unembed(params: Params, cfg: LMConfig) -> torch.Tensor:
-    return params.get("unembed", params["embed"])["table"].to(cfg.dtype)
+    """The unembedding table in ``cfg.dtype``, gathered over ``data`` where
+    a mesh shards it (its FSDP gather), vocab still over ``model``."""
+    return constrain(params.get("unembed", params["embed"])["table"].to(cfg.dtype), "model", None)
 
 
 # ------------------------------------------------------------------- forward
 def _block(
     lp: Params, x: torch.Tensor, positions: torch.Tensor, window: int, cfg: LMConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
-    h = rmsnorm(lp["ln1"], x)
+    lp = constrain_lm_layer(lp)  # each layer's FSDP gathers where it runs
+    # sequence parallelism: the residual stream (and thus every remat-saved
+    # layer input) shards seq over `model`; attention/ffn re-gather locally.
+    x = constrain(x, _DP, "model", None)
+    h = _gathered(rmsnorm(lp["ln1"], x))
     if cfg.mla:
         a, cache = mla_forward(
             lp["attn"], h, positions, cfg.n_heads,
@@ -229,8 +237,8 @@ def _block(
         )
     else:
         a, cache = _gqa_forward_window(lp["attn"], h, positions, window, cfg)
-    x = x + a
-    h = rmsnorm(lp["ln2"], x)
+    x = x + _gathered(a)
+    h = _gathered(rmsnorm(lp["ln2"], x))
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe:
         f, aux = moe_forward(
@@ -240,7 +248,16 @@ def _block(
         aux_loss = aux["aux_loss"]
     else:
         f = swiglu(lp["ffn"], h, cfg.dtype)
-    return x + f, cache, aux_loss
+    return constrain(x + _gathered(f), _DP, "model", None), cache, aux_loss
+
+
+def _gathered(h: torch.Tensor) -> torch.Tensor:
+    """A ``[B, S, d]`` activation whole over the sequence: the normed
+    residual before attention or the FFN, and their outputs before they
+    join the sequence-sharded residual (the reference leaves these
+    reshards to XLA; DTensor cannot multiply, forward or backward, a
+    tensor split on two dims that the product flattens)."""
+    return constrain(h, _DP, None, None)
 
 
 def _gqa_forward_window(p: Params, h: torch.Tensor, positions: torch.Tensor, window: int,
@@ -250,7 +267,7 @@ def _gqa_forward_window(p: Params, h: torch.Tensor, positions: torch.Tensor, win
     plain masked softmax on the CPU.  Returns (out, kv_cache)."""
     q, k, v = _gqa_qkv(p, h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.rope_base, cfg.dtype)
     o = _attend(q, k, v, causal=True, window=None if window >= _GLOBAL_WINDOW else window)
-    out = _merge_heads(o).to(cfg.dtype) @ p["wo"].to(cfg.dtype)
+    out = _merge_heads(_heads(o)).to(cfg.dtype) @ p["wo"].to(cfg.dtype)
     return out, {"k": k, "v": v}
 
 
@@ -264,7 +281,7 @@ def forward(
     """Returns (logits [B, S, V], or the final-norm hidden states [B, S, d]
     with ``skip_unembed``; caches stacked [L, ...] or None; aux loss)."""
     s = tokens.shape[1]
-    x = params["embed"]["table"].to(cfg.dtype)[tokens]
+    x = vocab_lookup(params["embed"]["table"].to(cfg.dtype), tokens)
     positions = torch.arange(s, device=x.device)
     fn = _block
     if cfg.remat and torch.is_grad_enabled():
@@ -282,7 +299,7 @@ def forward(
     )
     if skip_unembed:
         return x, stacked, torch.stack(auxes).sum()
-    logits = x @ _unembed(params, cfg).T
+    logits = _gathered(x) @ _unembed(params, cfg).T
     return logits, stacked, torch.stack(auxes).sum()
 
 
@@ -310,11 +327,61 @@ def chunked_ce_loss(
     cs = s // n_chunks
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, cs):
-        logits = (x[:, c0:c0 + cs] @ unemb.T).float()  # [b, cs, V]
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0:c0 + cs, None].long())[..., 0]
-        tot = tot + (lse - gold).sum()
+        logits = constrain(x[:, c0:c0 + cs] @ unemb.T, _DP, None, "model")  # [b, cs, V]
+        tot = tot + _token_nll(logits, labels[:, c0:c0 + cs]).sum()
     return tot / (b * s)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp - gold logit`` in f32."""
+    lf = logits.float()
+    return torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, labels[..., None].long())[..., 0]
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """:func:`_nll`; on DTensor logits a ``local_map`` region (the
+    vocab-parallel cross-entropy): each rank takes the logsumexp of its
+    vocab slice and the gold logits that fall in it, and two all-reduces
+    over ``model`` (a max, then a sum of ``exp(lse_local - max)`` and of the
+    gold logits) complete them.  On a one-rank axis it computes exactly
+    :func:`_nll` (``log(exp(0)) = 0``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.collectives import all_reduce_region
+
+    if not is_dtensor(logits):
+        return _nll(logits, labels)
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in logits.placements)
+    vocab = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == 2]
+    v_axes = [names[i] for i in vocab]
+    lab_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl)
+
+    def local(lg, lab):
+        lf = lg.float()
+        if not v_axes:
+            return _nll(lf, lab)
+        v_local = lf.shape[-1]
+        rel = lab.long() - axis_rank(mesh, v_axes) * v_local  # this rank's vocab slice
+        inside = (rel >= 0) & (rel < v_local)
+        gold = torch.gather(lf, -1, rel.clamp(0, v_local - 1)[..., None])[..., 0]
+        gold = torch.where(inside, gold, torch.zeros((), dtype=gold.dtype, device=gold.device))
+        lse = torch.logsumexp(lf, dim=-1)
+        m = lse.detach()
+        for a in v_axes:
+            m = all_reduce_region(m, "max", mesh, a)
+        s_exp = torch.exp(lse - m)
+        for a in v_axes:
+            s_exp = all_reduce_region(s_exp, "sum", mesh, a)
+            gold = all_reduce_region(gold, "sum", mesh, a)
+        return torch.log(s_exp) + m - gold
+
+    region = local_map(local, out_placements=(lab_pl,), in_placements=(pl, lab_pl),
+                       device_mesh=mesh, redistribute_inputs=True)
+    return region(logits, labels)
 
 
 def train_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig):
@@ -343,9 +410,12 @@ def decode(
 
     As in the JAX package, the MoE layers route without ``n_active``: at
     decode the router may pick a padded expert (ROADMAP queue 3)."""
-    x = params["embed"]["table"].to(cfg.dtype)[token][:, None]  # [B,1,d]
+    # the looked-up rows whole over `model` (a vocab-parallel lookup leaves
+    # a partial sum): decode keeps the batch split only
+    x = constrain(vocab_lookup(params["embed"]["table"].to(cfg.dtype), token), _DP, None)
+    x = x[:, None]  # [B,1,d]
     for i, w in enumerate(cfg.layer_windows()):
-        lp = _layer(params, i)
+        lp = constrain_lm_layer(_layer(params, i))
         cache = {k: c[i] for k, c in caches.items()}
         h = rmsnorm(lp["ln1"], x)
         if cfg.mla:
@@ -379,44 +449,92 @@ def _gqa_decode_window(p: Params, h: torch.Tensor, cache: Dict[str, torch.Tensor
     _write_position(vc, v_new, position)
     o = _decode_attend(q, kc, vc, position, window, cfg.n_heads // cfg.n_kv_heads,
                        cfg.hd ** -0.5)
-    return _merge_heads(o).to(cfg.dtype) @ p["wo"].to(cfg.dtype)
+    return _merge_heads(_heads(o)).to(cfg.dtype) @ p["wo"].to(cfg.dtype)
 
 
 def _decode_attend(q, kc, vc, position: torch.Tensor, window: int, group: int, scale: float,
                    chunk: int = 8192) -> torch.Tensor:
     """One query a batch row against its cache, masked to ``position`` and
     the window: dense f32 up to ``chunk`` slots, online softmax over chunks
-    past them.  Each kv head's ``group`` q heads attend as one block, so the
-    cache is never repeated over the group."""
+    past them.  Each kv head's q heads attend as one block, so the cache is
+    never repeated over the group (``group`` q heads a kv head, on every
+    rank of a mesh: heads and kv heads split together or not at all).
+
+    A DTensor cache runs :func:`_decode_local` as a ``local_map`` region on
+    its own placements (``_cache_spec``: batch over dp, or the sequence
+    over ``data`` at long context; kv heads over ``model``, or the head
+    width when the heads do not divide it); q and the output follow the
+    cache's batch, head and width splits."""
+    if not is_dtensor(kc):
+        return _decode_local(q, kc, vc, position, window, group, scale, chunk)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = kc.device_mesh
+    pl = tuple(kc.placements)
+    seq_axes, width_axes = ([a for a, p in zip(mesh.mesh_dim_names, pl)
+                             if isinstance(p, Shard) and p.dim == dim] for dim in (2, 3))
+    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1, 3) else Replicate() for p in pl)
+    pos_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl)
+    region = functools.partial(_decode_local, window=window, group=group, scale=scale,
+                               chunk=chunk, mesh=mesh, seq_axes=seq_axes, width_axes=width_axes)
+    return local_map(region, out_placements=(q_pl,), in_placements=(q_pl, pl, pl, pos_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, kc, vc, position)
+
+
+def _decode_local(q, kc, vc, position, window: int, group: int, scale: float, chunk: int,
+                  mesh=None, seq_axes=(), width_axes=()) -> torch.Tensor:
+    """:func:`_decode_attend` on one rank's cache slice.  A width split
+    over ``width_axes`` sums its partial q.k products over them; a sequence
+    split over ``seq_axes`` runs the online softmax over its own slots and
+    combines the running max, denominator and numerator across them (max,
+    then sums), as the chunks of one slice combine.  With no axes it is
+    the whole computation."""
+    from ..distributed.collectives import all_reduce_region
+
     b, hq, _, d = q.shape
     hkv, skv = kc.shape[1], kc.shape[2]
     qg = q.float().reshape(b, hkv, group, d)
     pos = position.long()[:, None, None, None]
+    p0 = axis_rank(mesh, seq_axes) * skv  # this slice's first slot
 
     def logits(k0: int, n: int) -> torch.Tensor:
-        s = torch.einsum("bhgd,bhkd->bhgk", qg, kc[:, :, k0:k0 + n].float()) * scale
-        k_pos = (k0 + torch.arange(n, device=q.device))[None, None, None, :]
+        s = torch.einsum("bhgd,bhkd->bhgk", qg, kc[:, :, k0:k0 + n].float())
+        for a in width_axes:
+            s = all_reduce_region(s, "sum", mesh, a)
+        s = s * scale
+        k_pos = (p0 + k0 + torch.arange(n, device=q.device))[None, None, None, :]
         mask = (k_pos <= pos) & (k_pos > pos - window)
         return torch.where(mask, s, torch.full((), -1e30, device=q.device))
 
     def values(p_: torch.Tensor, k0: int, n: int) -> torch.Tensor:
         return torch.einsum("bhgk,bhkd->bhgd", p_, vc[:, :, k0:k0 + n].float())
 
-    if skv <= chunk:
+    if skv <= chunk and not seq_axes:
         o = values(torch.softmax(logits(0, skv), dim=-1), 0, skv)
     else:
-        if skv % chunk:
+        n = min(chunk, skv)
+        if skv % n:
             raise ValueError(f"{skv} cache slots must be a multiple of {chunk}")
         m = torch.full((b, hkv, group, 1), -1e30, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros((b, hkv, group, d), dtype=torch.float32, device=q.device)
-        for k0 in range(0, skv, chunk):
-            s = logits(k0, chunk)
+        acc = torch.zeros(m.shape[:3] + (vc.shape[3],), dtype=torch.float32, device=q.device)
+        for k0 in range(0, skv, n):
+            s = logits(k0, n)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p_ = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p_.sum(dim=-1, keepdim=True)
-            acc = acc * corr + values(p_, k0, chunk)
+            acc = acc * corr + values(p_, k0, n)
             m = m_new
+        if seq_axes:
+            m_all = m
+            for a in seq_axes:
+                m_all = all_reduce_region(m_all, "max", mesh, a)
+            corr = torch.exp(m - m_all)
+            l, acc = l * corr, acc * corr
+            for a in seq_axes:
+                l = all_reduce_region(l, "sum", mesh, a)
+                acc = all_reduce_region(acc, "sum", mesh, a)
         o = acc / l.clamp_min(1e-30)
-    return o.reshape(b, hq, 1, d).to(q.dtype)
+    return o.reshape(b, hq, 1, -1).to(q.dtype)
