@@ -1,0 +1,8 @@
+"""Share of routed reads whose ``route.expand`` took the fused path (the kernel on the card) and not the numpy or scalar router."""
+from geobench import program_spans, readings
+
+
+def read(ctx):
+    recs = program_spans.records(ctx, "route.expand")
+    fused = sum(r.tags["reads"] for r in recs if r.tags.get("path") == "fused")
+    return readings.share(fused, sum(r.tags["reads"] for r in recs))

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..obs import get_registry
+from ..obs import Tracer, get_registry
 from .cost import PlacementState
 from .graph import Graph
 from .latency import GeoEnvironment
@@ -39,6 +39,9 @@ __all__ = [
     "OfflineLayout",
     "route_offline",
 ]
+
+# stands in for a caller that passes no tracer: its spans cost a clock read
+_NO_TRACER = Tracer(enabled=False)
 
 # precomputed per-layer tag keys: the 5% telemetry budget on the batch
 # serving path leaves no room for per-call tag normalization
@@ -495,7 +498,8 @@ def _route_batch_fast(
     origin: np.ndarray,  # [R]
     reg,
     obs: bool,
-    device: DeviceLike = None,
+    device: DeviceLike,
+    tracer: Tracer,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Fused expansion for the whole batch on the kernels fast path.
 
@@ -508,7 +512,10 @@ def _route_batch_fast(
     per-pass work independent of the item count) or the tile's plain
     version.  Every impl produces the numpy router's exact greedy picks.
     Tile rows and item slots are padded to power-of-two buckets so the
-    autotuner keys on a handful of shapes across the batch mix.  Returns
+    autotuner keys on a handful of shapes across the batch mix.  ``tracer``
+    records ``route.pack`` (bit-pack and tile pack, on the host) and
+    ``route.device`` (the expansion call: upload, launch and readback on
+    the card).  Returns
     ``(served [K], layers_used [R])``; all byte/latency folds are recomputed
     exactly on the host by the shared epilogue, so results are bit-identical
     to the numpy path.
@@ -519,34 +526,39 @@ def _route_batch_fast(
     K = delta_all.shape[0]
     D = delta_all.shape[1]
     t0 = time.perf_counter() if obs else 0.0
-    kmax = int(lens.max())
-    k_pad = autotune.shape_bucket(kmax, floor=8)
-    r_pad = autotune.shape_bucket(R, floor=8)
-    bits_flat = _bit_pack(delta_all)
-    cfg = autotune.get_autotuner().lookup(
-        "route_expand", (r_pad, k_pad, D, lg.n_layers)
-    ) or {}
-    if dev.type == "cpu":
-        impl = cfg.get("impl", "subsets" if D <= ops.SUBSET_MAX_DCS else "ref")
-    else:
-        impl = cfg.get("impl", "kernel")
-        if impl != "kernel":
-            raise ValueError(
-                f"route_expand impl {impl!r} does not run on {dev}: the card "
-                "runs the kernel only"
+    with tracer.span("route.pack", track="route"):
+        kmax = int(lens.max())
+        k_pad = autotune.shape_bucket(kmax, floor=8)
+        r_pad = autotune.shape_bucket(R, floor=8)
+        bits_flat = _bit_pack(delta_all)
+        cfg = autotune.get_autotuner().lookup(
+            "route_expand", (r_pad, k_pad, D, lg.n_layers)
+        ) or {}
+        if dev.type == "cpu":
+            impl = cfg.get("impl", "subsets" if D <= ops.SUBSET_MAX_DCS else "ref")
+        else:
+            impl = cfg.get("impl", "kernel")
+            if impl != "kernel":
+                raise ValueError(
+                    f"route_expand impl {impl!r} does not run on {dev}: the card "
+                    "runs the kernel only"
+                )
+        subsets = impl == "subsets" and D <= ops.SUBSET_MAX_DCS
+        if not subsets:
+            (bits, szp, lens_p, origin_p), pos = _pack_tiles(
+                bits_flat, sizes_all, req_id, bounds, lens, origin, r_pad, k_pad
             )
-    if impl == "subsets" and D <= ops.SUBSET_MAX_DCS:
-        served, layers_used, miss_after = ops.route_expand_subsets(
-            bits_flat, req_id, R, origin, lg.comp_of_dc
-        )
-    else:
-        (bits, szp, lens_p, origin_p), pos = _pack_tiles(
-            bits_flat, sizes_all, req_id, bounds, lens, origin, r_pad, k_pad
-        )
-        comp, rtt, ibw = _fast_env_arrays(lg, dev)
-        served_p, _, layers_used, miss_after, _, _ = ops.route_expand_batch(
-            bits, szp, lens_p, origin_p, comp, rtt, ibw, device=dev
-        )
+            comp, rtt, ibw = _fast_env_arrays(lg, dev)
+    with tracer.span("route.device", track="route"):
+        if subsets:
+            served, layers_used, miss_after = ops.route_expand_subsets(
+                bits_flat, req_id, R, origin, lg.comp_of_dc
+            )
+        else:
+            served_p, _, layers_used, miss_after, _, _ = ops.route_expand_batch(
+                bits, szp, lens_p, origin_p, comp, rtt, ibw, device=dev
+            )
+    if not subsets:
         served = served_p[req_id, pos].astype(np.int64)
     if obs:
         h = _obs_handles(reg)
@@ -572,6 +584,7 @@ def route_online_batch(
     registry=None,
     fast: Optional[bool] = None,
     device: DeviceLike = None,
+    tracer: Optional[Tracer] = None,
 ) -> List[RouteResult]:
     """Bottom-up expanding retrieval for a whole request batch at once.
 
@@ -597,12 +610,19 @@ def route_online_batch(
     ``registry`` routes serving/routing telemetry into an explicit
     :class:`~repro_torch.obs.MetricsRegistry` (a shard's private registry);
     ``None`` falls back to the process default.
+
+    ``tracer`` records the batch's phases under the caller's open span:
+    ``route.prologue`` (flatten, gather the replica rows and sizes),
+    ``route.expand`` tagged ``path`` (``"scalar"``, ``"numpy"`` or
+    ``"fused"``) and ``reads`` — on the fused path with the children
+    ``route.pack`` and ``route.device`` — and ``route.epilogue``.
     """
     env = lg.env
     R = len(requests)
     if R == 0:
         return []
     reg = registry if registry is not None else get_registry()
+    tr = tracer if tracer is not None else _NO_TRACER
     if R == 1:
         # size-1 fast path: the flat batch machinery (request-id bookkeeping,
         # [R, D] coverage stacks) costs ~2x the scalar router at R == 1 and
@@ -610,54 +630,75 @@ def route_online_batch(
         # telemetry enabled, _observe_scalar books the batch path's exact
         # instruments from the scalar result (the sharded store's per-shard
         # registries must account every request).
-        items, origin_0 = requests[0]
-        items = np.asarray(items)
+        with tr.span("route.expand", track="route", path="scalar", reads=1):
+            items, origin_0 = requests[0]
+            items = np.asarray(items)
+            if sizes is None:
+                sizes = lg.g.item_size()
+            t0 = time.perf_counter() if reg.enabled else 0.0
+            res = route_online(lg, state, items, int(origin_0), sizes=sizes)
+            if reg.enabled:
+                _observe_scalar(
+                    reg, lg, res, items, int(origin_0), sizes,
+                    time.perf_counter() - t0,
+                )
+        return [res]
+    with tr.span("route.prologue", track="route"):
         if sizes is None:
             sizes = lg.g.item_size()
-        t0 = time.perf_counter() if reg.enabled else 0.0
-        res = route_online(lg, state, items, int(origin_0), sizes=sizes)
-        if reg.enabled:
-            _observe_scalar(
-                reg, lg, res, items, int(origin_0), sizes,
-                time.perf_counter() - t0,
+        arrs = [np.asarray(it) for it, _ in requests]
+        lens = np.fromiter((a.shape[0] for a in arrs), dtype=np.int64, count=R)
+        origin = np.fromiter((o for _, o in requests), dtype=np.int64, count=R)
+        items_all = (
+            np.concatenate(arrs).astype(np.int64, copy=False)
+            if lens.sum()
+            else np.zeros(0, dtype=np.int64)
+        )
+        req_id = np.repeat(np.arange(R, dtype=np.int64), lens)
+        D = env.n_dcs
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        # one gather each of the batch's replica rows and item bytes; every
+        # greedy pass and the shared epilogue reuse them
+        delta_all = state.delta[items_all]  # [K, D]
+        sz_all = sizes[items_all]  # [K] f64
+
+        # coverage telemetry: per-layer resolved-item counters + expansion
+        # timing, all gated so the disabled path costs one attribute load
+        obs = reg.enabled
+        if obs:
+            _obs_handles(reg).requests.inc(R)
+        kmax = int(lens.max())
+
+    fused = _fast_eligible(fast, _FAST_CONFIG, R, D, kmax, lg.n_layers)
+    with tr.span("route.expand", track="route", path="fused" if fused else "numpy",
+                 reads=R):
+        if fused:
+            served, layers_used = _route_batch_fast(
+                lg, delta_all, sz_all, req_id, bounds, lens, origin, reg, obs,
+                device=device, tracer=tr,
             )
-        return [res]
-    if sizes is None:
-        sizes = lg.g.item_size()
-    arrs = [np.asarray(it) for it, _ in requests]
-    lens = np.fromiter((a.shape[0] for a in arrs), dtype=np.int64, count=R)
-    origin = np.fromiter((o for _, o in requests), dtype=np.int64, count=R)
-    items_all = (
-        np.concatenate(arrs).astype(np.int64, copy=False)
-        if lens.sum()
-        else np.zeros(0, dtype=np.int64)
-    )
-    req_id = np.repeat(np.arange(R, dtype=np.int64), lens)
-    K = len(items_all)
-    D = env.n_dcs
-    bounds = np.concatenate([[0], np.cumsum(lens)])
-    # one gather each of the batch's replica rows and item bytes; every
-    # greedy pass and the shared epilogue reuse them
-    delta_all = state.delta[items_all]  # [K, D]
-    sz_all = sizes[items_all]  # [K] f64
-
-    # coverage telemetry: per-layer resolved-item counters + expansion
-    # timing, all gated so the disabled path costs one attribute load
-    obs = reg.enabled
-    if obs:
-        _obs_handles(reg).requests.inc(R)
-
-    kmax = int(lens.max()) if R else 0
-    if _fast_eligible(fast, _FAST_CONFIG, R, D, kmax, lg.n_layers):
-        served, layers_used = _route_batch_fast(
-            lg, delta_all, sz_all, req_id, bounds, lens, origin, reg, obs,
-            device=device,
-        )
+        else:
+            served, layers_used = _expand_numpy(
+                lg, delta_all, req_id, origin, reg, obs
+            )
+    with tr.span("route.epilogue", track="route"):
         return _materialize_results(
-            env, sz_all, req_id, bounds, origin, served,
-            layers_used, R, D, reg, obs,
+            env, sz_all, req_id, bounds, origin, served, layers_used,
+            R, D, reg, obs,
         )
 
+
+def _expand_numpy(
+    lg: LayeredGraph,
+    delta_all: np.ndarray,  # [K, D] replica rows for the flat item stream
+    req_id: np.ndarray,  # [K] request id per flat item
+    origin: np.ndarray,  # [R]
+    reg,
+    obs: bool,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy expansion of a batch: ``(served [K], layers_used [R])``."""
+    K, D = delta_all.shape
+    R = len(origin)
     ar_K = np.arange(K)
     ar_R = np.arange(R)
     served = np.full(K, -1, dtype=np.int64)
@@ -667,72 +708,68 @@ def route_online_batch(
         _expand_single_origin(
             lg, delta_all, req_id, R, int(origin[0]), served, layers_used, reg, obs
         )
-    else:
-        # Layer_0: local items first
-        local = delta_all[ar_K, org_all]
-        served[local] = org_all[local]
+        return served, layers_used
+    # Layer_0: local items first
+    local = delta_all[ar_K, org_all]
+    served[local] = org_all[local]
 
+    missing_per_req = np.bincount(req_id[served < 0], minlength=R)
+    if obs:
+        unresolved = int(missing_per_req.sum())
+        _obs_handles(reg).hits(0).inc(K - unresolved)
+    for layer in range(1, lg.n_layers + 1):
+        active = missing_per_req > 0
+        if not active.any():
+            break
+        if obs:
+            t_layer = time.perf_counter()
+        comp = lg.comp_of_dc[layer]  # [D]
+        allowed = comp[origin][:, None] == comp[None, :]  # [R, D]
+        allowed[ar_R, origin] = False
+        # route_online marks a layer "used" whenever its cluster is
+        # non-empty for a still-unresolved request, even if nothing is
+        # found there
+        has_cluster = allowed.any(axis=1)
+        layers_used[active & has_cluster] = layer
+        # greedy max-coverage, all active requests in lockstep: each pass
+        # computes every request's best cluster DC and assigns its hits —
+        # requests are independent, so lockstep == per-request greedy
+        while True:
+            miss = served < 0
+            if not miss.any():
+                break
+            # segment-sum coverage per request: D bincounts beat a slow
+            # ufunc.at scatter (D is a handful, the batch is the long axis)
+            cover = np.stack(
+                [
+                    np.bincount(req_id, weights=delta_all[:, d] * miss, minlength=R)
+                    for d in range(D)
+                ],
+                axis=1,
+            )
+            cover[~allowed] = 0.0
+            best = np.argmax(cover, axis=1)  # lowest-id tie-break
+            gain = cover[ar_R, best]
+            progress = gain > 0
+            if not progress.any():
+                break
+            hit = miss & progress[req_id] & delta_all[ar_K, best[req_id]]
+            served[hit] = best[req_id[hit]]
         missing_per_req = np.bincount(req_id[served < 0], minlength=R)
         if obs:
-            unresolved = int(missing_per_req.sum())
-            _obs_handles(reg).hits(0).inc(K - unresolved)
-        for layer in range(1, lg.n_layers + 1):
-            active = missing_per_req > 0
-            if not active.any():
-                break
-            if obs:
-                t_layer = time.perf_counter()
-            comp = lg.comp_of_dc[layer]  # [D]
-            allowed = comp[origin][:, None] == comp[None, :]  # [R, D]
-            allowed[ar_R, origin] = False
-            # route_online marks a layer "used" whenever its cluster is
-            # non-empty for a still-unresolved request, even if nothing is
-            # found there
-            has_cluster = allowed.any(axis=1)
-            layers_used[active & has_cluster] = layer
-            # greedy max-coverage, all active requests in lockstep: each pass
-            # computes every request's best cluster DC and assigns its hits —
-            # requests are independent, so lockstep == per-request greedy
-            while True:
-                miss = served < 0
-                if not miss.any():
-                    break
-                # segment-sum coverage per request: D bincounts beat a slow
-                # ufunc.at scatter (D is a handful, the batch is the long axis)
-                cover = np.stack(
-                    [
-                        np.bincount(req_id, weights=delta_all[:, d] * miss, minlength=R)
-                        for d in range(D)
-                    ],
-                    axis=1,
-                )
-                cover[~allowed] = 0.0
-                best = np.argmax(cover, axis=1)  # lowest-id tie-break
-                gain = cover[ar_R, best]
-                progress = gain > 0
-                if not progress.any():
-                    break
-                hit = miss & progress[req_id] & delta_all[ar_K, best[req_id]]
-                served[hit] = best[req_id[hit]]
-            missing_per_req = np.bincount(req_id[served < 0], minlength=R)
-            if obs:
-                # cumulative seconds as a counter (count comes from
-                # layer_hits' batch count): a scalar histogram observe costs
-                # ~10us in P² marker maths, which the 5% serving budget
-                # cannot spare
-                h = _obs_handles(reg)
-                h.layer_s(layer).inc(time.perf_counter() - t_layer)
-                now_unresolved = int(missing_per_req.sum())
-                h.hits(layer).inc(unresolved - now_unresolved)
-                unresolved = now_unresolved
+            # cumulative seconds as a counter (count comes from
+            # layer_hits' batch count): a scalar histogram observe costs
+            # ~10us in P² marker maths, which the 5% serving budget
+            # cannot spare
+            h = _obs_handles(reg)
+            h.layer_s(layer).inc(time.perf_counter() - t_layer)
+            now_unresolved = int(missing_per_req.sum())
+            h.hits(layer).inc(unresolved - now_unresolved)
+            unresolved = now_unresolved
 
-        if obs:
-            _obs_handles(reg).unresolved.inc(unresolved)
-
-    return _materialize_results(
-        env, sz_all, req_id, bounds, origin, served, layers_used,
-        R, D, reg, obs,
-    )
+    if obs:
+        _obs_handles(reg).unresolved.inc(unresolved)
+    return served, layers_used
 
 
 def _materialize_results(

@@ -275,7 +275,7 @@ class GeoGraphStore:
                 # inside route_online_batch, where the flat arrays live
                 results = route_online_batch(
                     self.lg, self.state, norm, registry=self._registry,
-                    device=self.device,
+                    device=self.device, tracer=self.tracer,
                 )
             else:
                 results = [self._route_by_table(it, o) for it, o in norm]

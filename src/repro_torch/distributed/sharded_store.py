@@ -245,6 +245,8 @@ class ShardedGeoGraphStore:
         self.straggler = StragglerDetector(
             self.n_shards, threshold=straggler_threshold
         )
+        # each shard's wall seconds in the last serve_batch, on the pool
+        # thread: its waits for the interpreter lock and the device count
         self.last_shard_seconds: Dict[int, float] = {}
         # makespan of the last serve_batch (slowest shard's busy seconds):
         # shards are independent hosts, so this — not the coordinator's wall
@@ -397,67 +399,92 @@ class ShardedGeoGraphStore:
         dispatch is request-for-request identical to the single-process
         ``serve_batch`` on the same inputs.  Single-origin sub-batches land
         on ``route_online_batch``'s specialized expansion path.  Each
-        shard's busy time per call (summed over its origin sub-batches)
-        feeds the straggler detector and ``last_shard_seconds`` — the
-        quantity ``bench_sharded`` uses for deployment-aggregate
-        throughput, where shards are independent hosts and the makespan is
-        the slowest shard.  With ``fetch_payload`` the served rows are also
-        gathered from the owning shard's device block."""
-        norm: List[Tuple[np.ndarray, int]] = []
-        for req, origin in requests:
-            items = req.items if isinstance(req, Pattern) else np.asarray(req)
-            norm.append((items, int(origin)))
-        R = len(norm)
-        results: List[Optional[RouteResult]] = [None] * R
-        by_origin: Dict[int, List[int]] = {}
-        for pos, (_, o) in enumerate(norm):
-            by_origin.setdefault(o, []).append(pos)
-        jobs = sorted(by_origin.items())
-        if self._pool is not None and len(jobs) > 1:
-            futs = [
-                (o, pos, self._pool.submit(
-                    self._serve_origin, o, [norm[p] for p in pos]
-                ))
-                for o, pos in jobs
-            ]
-            outs = [(o, pos, f.result()) for o, pos, f in futs]
-        else:
-            outs = [
-                (o, pos, self._serve_origin(o, [norm[p] for p in pos]))
-                for o, pos in jobs
-            ]
-        busy: Dict[int, float] = {}
-        for o, pos_list, (res, dt) in outs:
-            busy[self.origin_shard[o]] = busy.get(self.origin_shard[o], 0.0) + dt
-            for p, r in zip(pos_list, res):
-                results[p] = r
-        for sid in sorted(busy):
-            self.straggler.observe(sid, busy[sid])
-        self.last_shard_seconds = busy
-        self.last_serve_seconds = max(busy.values(), default=0.0)
-        if self.fetch_payload:
-            self._fetch_rows(jobs, norm)
-        if observe and norm:
-            # heat injection grouped per origin into the shared demand plane,
-            # exactly like the inner store
-            for o, pos_list in by_origin.items():
-                self._store.demand.observe(
-                    np.concatenate([norm[p][0] for p in pos_list]), origin=o
-                )
+        shard's seconds per call (summed over its origin sub-batches) feed
+        the straggler detector and ``last_shard_seconds``: wall seconds on
+        the pool thread, which include its waits for the interpreter lock
+        and for the device.  With ``fetch_payload`` the served rows are
+        also gathered from the owning shard's device block.
+
+        The inner store's tracer records one ``facade.serve_batch`` span
+        per call (tags ``size``, ``n_origins``) with the children
+        ``facade.split``, ``facade.pool_wait``, ``facade.merge``,
+        ``facade.fetch_rows`` and ``facade.observe``, and one
+        ``shard.route`` per origin sub-batch on the thread that routes it,
+        parented to the ``facade.serve_batch`` span (tags ``shard``,
+        ``origin``, ``reads``, and ``cpu_s``, that thread's CPU seconds
+        in it)."""
+        tr = self._store.tracer
+        with tr.span("facade.serve_batch", track="facade") as root:
+            with tr.span("facade.split", track="facade"):
+                norm: List[Tuple[np.ndarray, int]] = []
+                for req, origin in requests:
+                    items = req.items if isinstance(req, Pattern) else np.asarray(req)
+                    norm.append((items, int(origin)))
+                R = len(norm)
+                results: List[Optional[RouteResult]] = [None] * R
+                by_origin: Dict[int, List[int]] = {}
+                for pos, (_, o) in enumerate(norm):
+                    by_origin.setdefault(o, []).append(pos)
+                jobs = sorted(by_origin.items())
+            root.tag(size=R, n_origins=len(jobs))
+            with tr.span("facade.pool_wait", track="facade"):
+                if self._pool is not None and len(jobs) > 1:
+                    futs = [
+                        (o, pos, self._pool.submit(
+                            self._serve_origin, o, [norm[p] for p in pos], root.sid
+                        ))
+                        for o, pos in jobs
+                    ]
+                    outs = [(o, pos, f.result()) for o, pos, f in futs]
+                else:
+                    outs = [
+                        (o, pos, self._serve_origin(o, [norm[p] for p in pos], root.sid))
+                        for o, pos in jobs
+                    ]
+            with tr.span("facade.merge", track="facade"):
+                busy: Dict[int, float] = {}
+                for o, pos_list, (res, dt) in outs:
+                    sid = self.origin_shard[o]
+                    busy[sid] = busy.get(sid, 0.0) + dt
+                    for p, r in zip(pos_list, res):
+                        results[p] = r
+                for sid in sorted(busy):
+                    self.straggler.observe(sid, busy[sid])
+                self.last_shard_seconds = busy
+                self.last_serve_seconds = max(busy.values(), default=0.0)
+            if self.fetch_payload:
+                with tr.span("facade.fetch_rows", track="facade"):
+                    self._fetch_rows(jobs, norm)
+            if observe and norm:
+                # heat injection grouped per origin into the shared demand
+                # plane, exactly like the inner store
+                with tr.span("facade.observe", track="facade"):
+                    for o, pos_list in by_origin.items():
+                        self._store.demand.observe(
+                            np.concatenate([norm[p][0] for p in pos_list]), origin=o
+                        )
         return results
 
     def _serve_origin(
-        self, origin: int, sub: List[Tuple[np.ndarray, int]]
+        self, origin: int, sub: List[Tuple[np.ndarray, int]], parent: Optional[int],
     ) -> Tuple[List[RouteResult], float]:
         """Route one origin's sub-batch on its owning shard, telemetry into
-        that shard's registry; returns results + measured busy seconds."""
+        that shard's registry and a ``shard.route`` span under ``parent``;
+        returns results + wall seconds."""
         shard = self.shards[self.origin_shard[origin]]
-        t0 = time.perf_counter()
-        res = route_online_batch(
-            self._store.lg, self._store.state, sub, registry=shard.registry,
-            device=shard.device,
-        )
-        return res, time.perf_counter() - t0
+        tr = self._store.tracer
+        with tr.span("shard.route", track="shard", parent=parent, shard=shard.sid,
+                     origin=origin, reads=len(sub)) as span:
+            cpu0 = time.thread_time() if tr.enabled else 0.0
+            t0 = time.perf_counter()
+            res = route_online_batch(
+                self._store.lg, self._store.state, sub, registry=shard.registry,
+                device=shard.device, tracer=tr,
+            )
+            dt = time.perf_counter() - t0
+            if tr.enabled:
+                span.tag(cpu_s=time.thread_time() - cpu0)
+        return res, dt
 
     def _fetch_rows(
         self, jobs: List[Tuple[int, List[int]]], norm: List[Tuple[np.ndarray, int]]

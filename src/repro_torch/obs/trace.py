@@ -2,23 +2,28 @@
 
 A :class:`Tracer` produces :class:`SpanRecord` rows under any monotonic
 clock — ``time.perf_counter`` for wall-clock store work, or the serving
-scheduler's :class:`~repro.serve.scheduler.SimClock` so control-plane
+scheduler's :class:`~repro_torch.serve.scheduler.SimClock` so control-plane
 traces are fully deterministic (same seed → byte-identical export).
 
 Two ways to produce spans:
 
 * ``with tracer.span("route", track="store", layer=2): ...`` — live
-  context-manager spans; parenting follows the nesting stack.
+  context-manager spans; parenting follows the opening thread's own
+  nesting stack, or ``parent=sid`` for a span opened on a worker thread
+  on behalf of a span of another thread.
 * ``tracer.record("request", t0, t1, track="requests", parent=sid, ...)``
   — explicit-timestamp spans for events whose start/end were computed by
   a simulator rather than observed live.
 
 Records are held in a bounded deque so a forgotten tracer can never grow
-without limit.
+without limit.  Span ids come from one atomic counter and each thread
+nests on a stack of its own, so threads of a pool may trace at once.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -50,11 +55,14 @@ class Span:
     """A live span; ``end()`` is idempotent and happens automatically when
     used as a context manager."""
 
-    __slots__ = ("_tracer", "sid", "name", "t0", "t1", "track", "parent", "tags")
+    __slots__ = ("_tracer", "_stack", "sid", "name", "t0", "t1", "track", "parent",
+                 "tags")
 
     def __init__(self, tracer: "Tracer", sid: int, name: str, t0: float,
-                 track: str, parent: Optional[int], tags: Dict[str, object]):
+                 track: str, parent: Optional[int], tags: Dict[str, object],
+                 stack: list):
         self._tracer = tracer
+        self._stack = stack  # the opening thread's nesting stack
         self.sid = sid
         self.name = name
         self.t0 = t0
@@ -68,6 +76,10 @@ class Span:
         if self.t1 is not None:
             return self.t1 - self.t0
         return self._tracer.clock() - self.t0
+
+    def tag(self, **tags) -> None:
+        """Add tags known only once the span is open."""
+        self.tags.update(tags)
 
     def end(self) -> float:
         if self.t1 is None:
@@ -100,6 +112,9 @@ class _NoopSpan:
         if self.t1 is not None:
             return self.t1 - self.t0
         return self._clock() - self.t0
+
+    def tag(self, **tags) -> None:
+        pass
 
     def end(self) -> float:
         if self.t1 is None:
@@ -139,8 +154,8 @@ class Tracer:
         self.clock = clock
         self._enabled = enabled
         self.records: deque = deque(maxlen=max_spans)
-        self._next_sid = 0
-        self._stack: list = []  # sids of open context-manager spans
+        self._ids = itertools.count()
+        self._local = threading.local()  # .stack: this thread's open span sids
 
     @property
     def enabled(self) -> bool:
@@ -148,16 +163,28 @@ class Tracer:
             return get_registry().enabled
         return self._enabled
 
+    def _thread_stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
     # -- span production ---------------------------------------------------
-    def span(self, name: str, track: str = "main", **tags):
-        """Open a live span; use as a context manager or call ``end()``."""
+    def span(self, name: str, track: str = "main", parent: Optional[int] = None,
+             **tags):
+        """Open a live span; use as a context manager or call ``end()``.
+
+        Its parent is ``parent`` when given, else the innermost span open
+        on the calling thread.  Spans opened under it on this thread nest
+        under it either way."""
         if not self.enabled:
             return _NoopSpan(self.clock)
-        sid = self._next_sid
-        self._next_sid += 1
-        parent = self._stack[-1] if self._stack else None
-        self._stack.append(sid)
-        return Span(self, sid, name, self.clock(), track, parent, tags)
+        sid = next(self._ids)
+        stack = self._thread_stack()
+        if parent is None and stack:
+            parent = stack[-1]
+        stack.append(sid)
+        return Span(self, sid, name, self.clock(), track, parent, tags, stack)
 
     def record(
         self,
@@ -172,8 +199,7 @@ class Tracer:
         ``None`` when disabled) so callers can parent children onto it."""
         if not self.enabled:
             return None
-        sid = self._next_sid
-        self._next_sid += 1
+        sid = next(self._ids)
         self.records.append(
             SpanRecord(sid, name, t0, t1, track=track, parent=parent, tags=tags)
         )
@@ -183,7 +209,7 @@ class Tracer:
         # context-manager spans may end out of LIFO order under odd control
         # flow; remove this sid wherever it sits in the stack
         try:
-            self._stack.remove(span.sid)
+            span._stack.remove(span.sid)
         except ValueError:
             pass
         self.records.append(
@@ -196,8 +222,8 @@ class Tracer:
     # -- lifecycle ---------------------------------------------------------
     def reset(self) -> None:
         self.records.clear()
-        self._stack.clear()
-        self._next_sid = 0
+        self._local = threading.local()
+        self._ids = itertools.count()
 
     def __len__(self) -> int:
         return len(self.records)

@@ -394,10 +394,24 @@ class AdmissionController:
         Guaranteed progress: either a batch is served, or the clock jumps to
         the next scheduled arrival (idle gaps are first offered to the
         attached maintenance policy).  Returns ``[]`` with nothing pending
-        and nothing scheduled."""
+        and nothing scheduled.
+
+        With an enabled ``registry`` injected, each step adds its host
+        seconds on the wall clock to ``controller.admit_s`` (admission and
+        the demand plane's window advance), ``controller.form_s`` (the
+        target, the batch and the request list handed to ``serve_batch``)
+        and ``controller.book_s`` (everything after ``serve_batch``
+        returns)."""
+        reg = self._registry
+        timed = reg is not None and reg.enabled
+        if timed:
+            t_step = self._wall_clock()
         self._admit_due()
         if self._demand is not None:
             self._demand.advance_to(self.clock.now())
+        if timed:
+            t_admitted = self._wall_clock()
+            reg.counter("controller.admit_s").inc(t_admitted - t_step)
         shard_key: Optional[int] = None
         if self.cfg.per_shard_aimd and self._n_pending:
             shard_key = self._next_shard_key()
@@ -432,21 +446,25 @@ class AdmissionController:
                 self._admit_due()
                 return []
         batch = self._form_batch(target, shard_key=shard_key)
+        requests = [(h.items, h.origin) for h in batch]
         t0 = self.clock.now()
         t_wall = self._wall_clock()
         try:
-            results = self.store.serve_batch([(h.items, h.origin) for h in batch])
+            results = self.store.serve_batch(requests)
         except BaseException:
             # nothing served, nothing lost: the whole batch returns to the
             # queue fronts and the next step retries it
             self._requeue(batch)
             raise
+        if timed:
+            t_served = self._wall_clock()
+            reg.counter("controller.form_s").inc(t_wall - t_admitted)
         if self.cfg.service_model == "measured":
             measured = getattr(self.store, "last_serve_seconds", None)
             compute_s = (
                 float(measured)
                 if measured is not None
-                else self._wall_clock() - t_wall
+                else (t_served if timed else self._wall_clock()) - t_wall
             )
         else:
             compute_s = (
@@ -506,6 +524,8 @@ class AdmissionController:
         self._batch_size_sum += len(batch)
         self.clock.advance(compute_s)  # fetches overlap the next drain
         self._update_target(batch)
+        if timed:
+            reg.counter("controller.book_s").inc(self._wall_clock() - t_served)
         return batch
 
     def _miss_cause(self, h: RequestHandle, t0: float, compute_s: float) -> str:
