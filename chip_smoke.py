@@ -3556,9 +3556,11 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
     out: dict = {}
     # (a) identity: build both stores from fresh inputs of the same seeds
     t = time.perf_counter()
+    # parallel=True: (a) compares the pool with serial dispatch, and on one card
+    # the store takes no pool by default
     sh = ShardedGeoGraphStore(*inputs_fn(), config=PlacementConfig(), n_shards=CP_SHARDS,
                               fetch_payload=True, telemetry=True, compress="int8",
-                              device=device)
+                              parallel=True, device=device)
     sync()
     out["build_s"] = time.perf_counter() - t
     t = time.perf_counter()

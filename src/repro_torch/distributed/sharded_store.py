@@ -37,12 +37,15 @@ Per-shard :class:`~repro_torch.obs.MetricsRegistry` snapshots fold into one
 view via :meth:`~repro_torch.obs.MetricsRegistry.merge` (``merged_metrics``),
 and each shard's measured serve wall time feeds a
 :class:`~repro_torch.distributed.fault.StragglerDetector` the admission
-controller reads for per-shard miss attribution.  Shards dispatch on a
-thread pool, so several threads may launch kernels at once.
+controller reads for per-shard miss attribution.  Where the shards span two
+or more devices they dispatch on a thread pool, so several threads may
+launch kernels at once and overlap their waits for their own cards; where
+every shard shares one device (one card, or the host) the sub-batches are
+routed one after another on the calling thread, since threads there would
+only contend for the interpreter lock.
 """
 from __future__ import annotations
 
-import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -79,6 +82,14 @@ def payload_for_uids(uids: np.ndarray, width: int = PAYLOAD_WIDTH) -> np.ndarray
     cols = np.arange(1, width + 1, dtype=np.int64)
     mix = (uids[:, None] * 2654435761 + cols[None, :] * 40503) & 0xFFFF
     return (mix / 65536.0).astype(np.float32)
+
+
+def _dispatch_on_pool(devices: Sequence[torch.device]) -> bool:
+    """Whether the shards' sub-batches go to a thread pool: only when the
+    shards sit on two or more distinct devices, whose readbacks release the
+    interpreter lock and so can overlap.  On one device the threads would
+    only take turns with the lock."""
+    return len(set(devices)) > 1
 
 
 def _synchronize(devices) -> None:
@@ -174,7 +185,8 @@ class ShardedGeoGraphStore:
       :func:`~repro_torch.distributed.geo_sharding.mesh_devices` of
       ``device``).
     * ``parallel`` — dispatch per-shard sub-batches on a thread pool
-      (default: only when the host has >1 CPU and >1 shard).
+      (default: only when the shards sit on two or more distinct devices;
+      on one device they are routed on the calling thread).
     * ``payload_width`` / ``compress`` — payload row width and the optional
       ``"int8"`` wire compression for migration transfers.
     * ``telemetry`` — start the per-shard registries enabled.
@@ -245,8 +257,9 @@ class ShardedGeoGraphStore:
         self.straggler = StragglerDetector(
             self.n_shards, threshold=straggler_threshold
         )
-        # each shard's wall seconds in the last serve_batch, on the pool
-        # thread: its waits for the interpreter lock and the device count
+        # each shard's wall seconds in the last serve_batch, on the thread
+        # that routed it (the calling thread, or a pool thread, whose waits
+        # for the interpreter lock then count too), the device's included
         self.last_shard_seconds: Dict[int, float] = {}
         # makespan of the last serve_batch (slowest shard's busy seconds):
         # shards are independent hosts, so this — not the coordinator's wall
@@ -255,7 +268,7 @@ class ShardedGeoGraphStore:
         # inner store's per-sub-batch wall clock.
         self.last_serve_seconds = 0.0
         if parallel is None:
-            parallel = self.n_shards > 1 and (os.cpu_count() or 1) > 1
+            parallel = _dispatch_on_pool([shard.device for shard in self.shards])
         self._pool = (
             ThreadPoolExecutor(max_workers=self.n_shards) if parallel else None
         )
@@ -398,16 +411,22 @@ class ShardedGeoGraphStore:
         Requests are independent in the batch router, so the grouped
         dispatch is request-for-request identical to the single-process
         ``serve_batch`` on the same inputs.  Single-origin sub-batches land
-        on ``route_online_batch``'s specialized expansion path.  Each
-        shard's seconds per call (summed over its origin sub-batches) feed
-        the straggler detector and ``last_shard_seconds``: wall seconds on
-        the pool thread, which include its waits for the interpreter lock
-        and for the device.  With ``fetch_payload`` the served rows are
-        also gathered from the owning shard's device block.
+        on ``route_online_batch``'s specialized expansion path.  With a pool
+        (shards on two or more devices, or ``parallel=True``) and more than
+        one origin, the sub-batches run on its threads; otherwise they are
+        routed in origin order on the calling thread.  Each shard's seconds
+        per call (summed over its origin sub-batches) feed the straggler
+        detector and ``last_shard_seconds``: wall seconds on the thread that
+        routed it, which include the wait for the device and, on a pool
+        thread, the waits for the interpreter lock.  ``last_serve_seconds``
+        is the slowest shard's, the makespan of hosts that each serve one
+        DC.  With ``fetch_payload`` the served rows are also gathered from
+        the owning shard's device block.
 
         The inner store's tracer records one ``facade.serve_batch`` span
         per call (tags ``size``, ``n_origins``) with the children
-        ``facade.split``, ``facade.pool_wait``, ``facade.merge``,
+        ``facade.split``, ``facade.pool_wait`` (the whole dispatch, tag
+        ``dispatch``: ``"pool"`` or ``"inline"``), ``facade.merge``,
         ``facade.fetch_rows`` and ``facade.observe``, and one
         ``shard.route`` per origin sub-batch on the thread that routes it,
         parented to the ``facade.serve_batch`` span (tags ``shard``,
@@ -427,8 +446,10 @@ class ShardedGeoGraphStore:
                     by_origin.setdefault(o, []).append(pos)
                 jobs = sorted(by_origin.items())
             root.tag(size=R, n_origins=len(jobs))
-            with tr.span("facade.pool_wait", track="facade"):
-                if self._pool is not None and len(jobs) > 1:
+            pooled = self._pool is not None and len(jobs) > 1
+            with tr.span("facade.pool_wait", track="facade",
+                         dispatch="pool" if pooled else "inline"):
+                if pooled:
                     futs = [
                         (o, pos, self._pool.submit(
                             self._serve_origin, o, [norm[p] for p in pos], root.sid

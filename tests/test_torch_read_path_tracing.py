@@ -3,8 +3,10 @@
 * ``Tracer`` on eight threads at once: unique span ids, each span parented
   to the span enclosing it on its own thread, an explicit ``parent=``
   honoured;
-* one mixed-origin ``serve_batch`` of a five-shard store on the CPU: one
-  ``facade.serve_batch`` span, its five children on the calling thread, one
+* one mixed-origin ``serve_batch`` of a five-shard store on the CPU, with
+  the pool, without it, and by default (no pool: every shard on the host):
+  one ``facade.serve_batch`` span, its five children on the calling thread
+  (``facade.pool_wait`` tagged with the dispatch that ran), one
   ``shard.route`` per origin sub-batch parented to it, and the router's
   phases under each, with the path the 64-read gate implies; results equal
   with the tracer on and off;
@@ -142,10 +144,11 @@ def test_tracer_single_thread_records_are_unchanged():
 
 
 # ------------------------------------------------------- the facade's spans
-@pytest.mark.parametrize("parallel", [True, False])
+@pytest.mark.parametrize("parallel", [True, False, None])
 def test_facade_and_router_spans_of_one_mixed_batch(parallel):
     tracer = Tracer(clock=time.perf_counter, enabled=True)
     store, pats = _sharded(tracer, parallel)
+    assert (store._pool is not None) == bool(parallel)
     reqs = _mixed_requests(pats)
     tracer.reset()
     got = store.serve_batch(reqs)
@@ -157,6 +160,7 @@ def test_facade_and_router_spans_of_one_mixed_batch(parallel):
     assert sorted(r.name for r in children) == sorted(FACADE_CHILDREN)
     assert all(root.t0 <= r.t0 <= r.t1 <= root.t1 for r in children)
     wait = next(r for r in children if r.name == "facade.pool_wait")
+    assert wait.tags == {"dispatch": "pool" if parallel else "inline"}
 
     routes = [r for r in recs if r.name == "shard.route"]
     assert sorted(r.tags["origin"] for r in routes) == sorted(READS_BY_ORIGIN)

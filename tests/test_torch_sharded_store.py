@@ -13,6 +13,8 @@ unsharded ``GeoGraphStore``.  Exact unless stated:
     per-link wire bytes, ``maintain`` evictions, ``delete_items``,
     ``compact`` and the ``insert_patterns`` rebind;
   * merged metrics count every request; parallel dispatch equals serial;
+    by default shards that share one device route on the calling thread,
+    and only shards over two or more devices get the pool;
   * ``per_shard_aimd`` targets and straggler attribution, on a stub and on
     the real store behind the admission controller;
   * the single-origin sub-batches with the route fast path pinned, through
@@ -23,6 +25,7 @@ unsharded ``GeoGraphStore``.  Exact unless stated:
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core.graph import Graph as JGraph
 from repro.core.graph import build_csr as j_build_csr
@@ -45,6 +48,7 @@ from repro_torch.core.placement import PlacementConfig
 from repro_torch.core.routing import RouteResult
 from repro_torch.core.store import GeoGraphStore
 from repro_torch.distributed import ShardedGeoGraphStore, payload_for_uids
+from repro_torch.distributed import sharded_store
 from repro_torch.distributed.fault import StragglerDetector
 from repro_torch.distributed.geo_sharding import mesh_env
 from repro_torch.serve import AdmissionConfig, AdmissionController
@@ -336,6 +340,39 @@ def test_parallel_dispatch_matches_serial():
         assert np.array_equal(serial.caches[o].heat, threaded.caches[o].heat)
     assert set(threaded.last_shard_seconds) == set(serial.last_shard_seconds)
     assert threaded.last_serve_seconds == max(threaded.last_shard_seconds.values())
+
+
+def test_default_dispatch_on_one_device_routes_inline(monkeypatch):
+    asked, rule = [], sharded_store._dispatch_on_pool
+
+    def spy(devices):
+        asked.append(list(devices))
+        return rule(devices)
+
+    monkeypatch.setattr(sharded_store, "_dispatch_on_pool", spy)
+    env = mesh_env(8, shards_per_pod=4)
+    inline, pats = _sharded(PORT, 50, env, 4)
+    threaded, _ = _sharded(PORT, 50, env, 4, parallel=True)
+    assert asked == [[torch.device("cpu")] * 4]  # parallel=True asks nothing
+    assert inline._pool is None and threaded._pool is not None
+    reqs = _requests(pats, 8, 128, seed=51)
+    _same_results(inline.serve_batch(reqs), threaded.serve_batch(reqs))
+    for o in range(env.n_dcs):
+        assert np.array_equal(inline.caches[o].heat, threaded.caches[o].heat)
+    assert set(inline.last_shard_seconds) == set(threaded.last_shard_seconds)
+    assert len(inline.last_shard_seconds) > 1
+    assert inline.last_serve_seconds == max(inline.last_shard_seconds.values())
+
+
+@pytest.mark.parametrize("devices, pooled", [
+    (["cpu"] * 5, False),
+    (["cuda:0"] * 5, False),
+    (["cuda:0", "cuda:1", "cuda:2", "cuda:3", "cuda:0"], True),
+    (["cuda:0", "cuda:1"], True),
+    (["cpu", "cuda:0"], True),
+])
+def test_dispatch_rule_pools_only_across_devices(devices, pooled):
+    assert sharded_store._dispatch_on_pool([torch.device(d) for d in devices]) is pooled
 
 
 # --------------------------------------------------- per-shard admission
