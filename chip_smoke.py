@@ -5,6 +5,8 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+or, for phases 1, 2 and 20 alone, ``python3 chip_smoke.py --phase ragged``.
+
 Phases, each of which fails the run with a nonzero exit:
 
 1. Device: CUDA must be present; prints the card's name and power limit.
@@ -15,14 +17,15 @@ Phases, each of which fails the run with a nonzero exit:
    26,000 vertices, the paper's five-DC environment, 160 five-hop patterns,
    ``PlacementConfig()`` defaults) is built on the card, serves batches of
    64, 256 and 1024 requests, and runs ``maintain()``.  Every batch must be
-   request-identical to the numpy router, and every kernel of that path
-   (batched DHD count + flow, route expansion) must have run.
-4. Kernels against their plain PyTorch versions on the card: route
-   expansion on the store's own batches and on ``SWEEP`` (31 DCs, all-tie
-   rows, rows with no items, and K at each instance's boundary: 32, 33, 64,
-   65, 128, 129, 256, 257 and past 1,024, where each warp stages its slots
-   in shared memory), with ``slots_instance`` printed for each timed case
-   and checked against the kernel's own choice; DHD on the inputs of the 8th step (or the last) of each kind the
+   request-identical to the numpy router, a batch launches the ragged route
+   expansion exactly when its items reach the router's item gate, and
+   every kernel of that path (batched DHD count + flow, the ragged route
+   expansion) must have run.  The flat inputs each batch's launch took are
+   recorded.
+4. Kernels against their plain PyTorch versions on the card: the ragged
+   route expansion on the flat inputs phase 3 recorded and on ``SWEEP`` (31
+   DCs, all-tie reads, reads with no items, and lengths around a warp's 32
+   lanes and its share of 256 slots, and past 1,024); DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
    ``maintain``), recorded during phase 3, on two seeded shapes the lane
    lacks (7 fields, kmax 150; 6 fields with per-field vals), and on a
@@ -90,9 +93,10 @@ Phases, each of which fails the run with a nonzero exit:
     read just after its build, batches of 64, 256 and 1024 requests and
     ``maintain()``: every batch request-identical to the numpy router and
     to a CPU mirror, replica sets and routes after ``maintain()`` equal to
-    the mirror's, ``route_expand`` and both batched DHD kernels launched;
-    both held against their plain versions on RP+SR's own inputs (phase 4's
-    tolerances), with ``slots_instance`` printed for its tiles.
+    the mirror's, ``route_expand_ragged`` launched by each batch over the
+    item gate and both batched DHD kernels launched; both held against
+    their plain versions on the inputs RP+SR's own launches took (phase 4's
+    tolerances).
 13. Offline routing and layouts at full size (Figs. 13-15): ``plan_offline``
     over all 26,000 vertices of the phase-12 GeoLayer store, the
     consolidated-or-in-place choice of ``bench_offline.py:27-55``, and the
@@ -124,8 +128,8 @@ Phases, each of which fails the run with a nonzero exit:
     Chrome traces, equal batches and results, a wave applied on each.
     (c) Per-shard AIMD on the sharded store over the mixed trace (8,192
     requests), counts set to 0 just before and read just after, with the
-    route fast path pinned from 2 requests up (the one-shard drains of
-    that trace hold 1-3 requests on the lane, under the default gate of 64): every
+    route fast path pinned from 1 item up (the one-shard drains of that
+    trace hold 1-3 requests on the lane, far under the default gate): every
     drain request-identical to the numpy router, and the route expansion,
     the batched and the single-field DHD pairs launched and held to their
     plain versions on inputs recorded from the path.  Prints drain sizes
@@ -239,6 +243,20 @@ Phases, each of which fails the run with a nonzero exit:
     argument bytes for the cell.  (d) The roofline's two measured
     constants: a cuBLAS bf16 GEMM of 8192^3 (a yardstick, no port of a
     kernel) and a device-to-device copy of 4 GiB.
+20. The ragged route expansion (right after phase 7): the kernel against
+    its plain version on the card on ``RAGGED_SWEEP`` (reads of 0, 1,
+    31-33, 256-257, 25,824, 25,825 and 40,000 items, 31 DCs, all ties, no
+    layer, 2,000 short reads, 64 long ones), then on a recorded drain of
+    256 reads of ``snb3s-nbr-over`` (seed ``RAGGED_SEED``) holding its
+    longest read (26,182 items), one launch an origin's sub-batch:
+    picks, layers and missing counts equal, bytes and latencies within
+    phase 4's tolerances, and ``route_online_batch`` on the card
+    request-identical to the numpy router; the store's ``serve_batch`` of
+    the drain launches the kernel once a sub-batch over the item gate.
+    Prints each launch's graph-replayed time beside its bound, and numpy
+    against fused routing, timed in turns, of one-origin sub-batches of 2
+    to 64 reads drawn as the cell draws them and of short reads up to
+    65,536 items (the item gate's crossover).
 
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
@@ -269,7 +287,7 @@ BATCHES = (64, 256, 1024)
 # edits whose touched frontier stays under the pre-solve's 20% gate
 CHURN = ((0.01, 2), (2e-5, 2))
 # the kernels slice A's path (build, serve, maintain) launches
-MAIN_KERNELS = ("dhd_count", "dhd_flow", "route_expand")
+MAIN_KERNELS = ("dhd_count", "dhd_flow", "route_expand_ragged")
 SINGLE_KERNELS = ("dhd_count_single", "dhd_flow_single")
 DEVICE = "cuda"  # the card every phase runs on
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
@@ -586,11 +604,26 @@ def main_path(report: dict):
     from repro_torch.kernels import ops
 
     inputs = build_inputs()
-    with DHDRecorder(ops) as rec:
-        return (*_drive_main_path(report, inputs, rec), rec)
+    with DHDRecorder(ops) as rec, RouteRecorder(ops) as route:
+        rec.routes = {}  # batch size -> the flat inputs of its launch
+        return (*_drive_main_path(report, inputs, rec, route), rec)
 
 
-def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
+def gated_launch(label: str, reqs, launched: int) -> bool:
+    """Whether the router's item gate sends ``reqs`` (one routing call) to
+    the card; fails the run unless ``launched`` says the same."""
+    from repro_torch.core.routing import get_route_fast_config
+
+    gate = get_route_fast_config().min_items
+    items = sum(len(it) for it, _ in reqs)
+    want = int(len(reqs) > 1 and items >= gate)
+    if launched != want:
+        fail(f"{label}: {launched} ragged launches for {len(reqs)} reads of {items} items, "
+             f"the item gate of {gate} says {want}")
+    return bool(want)
+
+
+def _drive_main_path(report: dict, inputs, rec: DHDRecorder, route: "RouteRecorder"):
     import numpy as np
     import torch
 
@@ -616,6 +649,9 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder):
         before = counts()
         got = store.serve_batch(reqs, observe=False)
         launches[f"serve_{bs}"] = {k: v - before[k] for k, v in counts().items()}
+        if gated_launch(f"serve_batch({bs})", reqs,
+                        launches[f"serve_{bs}"]["route_expand_ragged"]):
+            rec.routes[bs] = route.last
         want = route_online_batch(store.lg, store.state, reqs, fast=False)
         if not same_results(got, want):
             fail(f"serve_batch({bs}) on the card differs from the numpy router")
@@ -775,7 +811,7 @@ SWEEP = [
     (4, 496, 500, 5, 3, 0.35, False, False, False),
     (4, 596, 600, 5, 3, 0.35, False, False, False),
     (256, 1, 160, 31, 4, 0.1, False, False, False),  # 31 DCs: every mask bit
-    # the instances' boundaries (slots a lane 1 | 2 | 4 | 8 | shared memory)
+    # reads around a warp's 32 lanes, its share of 256 slots, and past 1,024
     (16, 1, 32, 5, 3, 0.35, False, False, False, True),
     (16, 1, 33, 5, 3, 0.35, False, False, False, True),
     (16, 1, 64, 5, 3, 0.35, False, False, False, True),
@@ -787,64 +823,22 @@ SWEEP = [
     (64, 200, 256, 31, 4, 0.1, False, False, False, True),
     (64, 200, 257, 31, 4, 0.1, False, False, False, True),
     (8, 1000, 1100, 5, 3, 0.35, False, False, False, True),  # past 1,024 slots
-    (8, 256, 256, 5, 3, 0.0, True, False, False, True),  # all ties at 8 slots a lane
-    # rows with no items, in a register and a shared-memory instance
+    (8, 256, 256, 5, 3, 0.0, True, False, False, True),  # all ties, a warp's share
+    # reads with no items, with every read a warp's and with some a block's
     (24, 1, 40, 5, 3, 0.35, False, False, False, True, True),
     (24, 1, 300, 5, 3, 0.35, False, False, False, True, True),
 ]
 
 
-def check_route_expand(name, prob, timed: bool) -> dict:
-    """Kernel vs plain version on the card; integer outputs must be equal."""
+def flat_of_tiles(prob):
+    """A padded ``(bits, sizes, lens, origin, comp, rtt, ibw)`` batch as the
+    flat item stream the ragged kernel takes."""
     import numpy as np
-    import torch
 
-    from repro_torch.kernels.ref import route_expand_ref
-    from repro_torch.kernels.route_expand import route_expand
-
-    args = tuple(torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in prob)
-    got = route_expand(*args)
-    want = route_expand_ref(*args)
-    torch.cuda.synchronize()
-    for i, label in ((0, "served"), (2, "layers_used"), (3, "miss_after")):
-        if not torch.equal(got[i], want[i]):
-            fail(f"route_expand {name}: {label} differs from the plain version")
-    err = 0.0
-    for i, (rtol, atol) in ((1, (1e-5, 1e-4)), (4, (1e-5, 1e-7)), (5, (1e-5, 1e-4))):
-        if not torch.allclose(got[i], want[i], rtol=rtol, atol=atol):
-            fail(f"route_expand {name}: output {i} outside rtol {rtol} / atol {atol}")
-        err = max(err, float((got[i] - want[i]).abs().max()))
-    from repro_torch.kernels.cuda_lib import library, stream_ptr
-    from repro_torch.kernels.route_expand import slots_instance
-
-    R, K = prob[0].shape
-    lib = library().get()
-    instance = slots_instance(K)
-    if lib.route_expand_slots(K) != instance:
-        fail(f"route_expand {name}: the kernel runs {lib.route_expand_slots(K)} slots a lane, "
-             f"slots_instance says {instance}")
-    out = {"case": name, "max_abs_err": err, "K": K, "slots_instance": instance}
-    if timed:
-        from repro_torch.kernels.route_expand import BLOCK_R
-
-        bits, sizes, lens, origin, comp, rtt, ibw = prob
-        D, L = comp.shape[1], comp.shape[0] - 1
-        nbytes = (int(lens.sum()) * 8 + R * 8 + comp.size * 4 + 2 * D * D * 4
-                  + R * K * 4 + R * (D + L + 1 + 3) * 4)
-        ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in got]
-
-        # the C entry point straight, into the outputs above: the kernel's
-        # own time, without the wrapper's checks and allocations
-        def launch():
-            lib.route_expand_launch(*ptrs, R, K, D, L, BLOCK_R, stream_ptr(args[0].device))
-
-        out.update(
-            shape=[R, K, D, L], items=int(lens.sum()), **kernel_ms(launch),
-            wrapper_ms=host_loop_ms(lambda: route_expand(*args)),
-            plain_ms=host_loop_ms(lambda: route_expand_ref(*args), warmup=1, iters=5),
-            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        )
-    return out
+    bits, sizes, lens, origin, comp, rtt, ibw = prob
+    keep = np.arange(bits.shape[1])[None, :] < lens[:, None]
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return bits[keep], sizes[keep], offsets, origin, comp, rtt, ibw
 
 
 def check_dhd(name, heat, cols, vals, q, params, timed: bool = True) -> dict:
@@ -1021,28 +1015,24 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.routing import pack_request_tiles
-
     routes = []
-    for bs in BATCHES:
-        prob = pack_request_tiles(store.lg, store.state, request_stream(store, bs, seed=bs))
-        routes.append(check_route_expand(f"store batch {bs}", prob, timed=True))
+    for bs, prob in sorted(rec.routes.items()):
+        routes.append(check_ragged(f"store batch {bs}", prob, timed=True))
         r = routes[-1]
-        print(f"route_expand {r['case']} {r['shape']} (R, K, D, L; slots a lane "
-              f"{r['slots_instance']}): exact, max abs err "
-              f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms (host loop "
-              f"{r['host_loop_ms']:.4f}, through the wrapper {r['wrapper_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms", flush=True)
+        print(f"route_expand_ragged {r['case']}: {r['reads']} reads, {r['items']} items, D "
+              f"{r['D']}, L {r['L']}: exact, max abs err {r['max_abs_err']:.3g}, kernel "
+              f"{r['ms']:.4f} ms (host loop {r['host_loop_ms']:.4f}, through the wrapper "
+              f"{r['wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms", flush=True)
+    n_store = len(routes)
     for i, case in enumerate(SWEEP):
         rng = np.random.default_rng(1000 + i)
         prob = rand_route_problem(rng, *case[:6], **dict(zip(SWEEP_FLAGS, case[6:])))
-        routes.append(check_route_expand(f"sweep {case}", prob, timed=False))
-    sweep = routes[len(BATCHES):]
-    print(f"route_expand: {len(SWEEP)} sweep cases exact (31 DCs, K "
-          f"{sorted({r['K'] for r in sweep})}, slots a lane "
-          f"{sorted({r['slots_instance'] for r in sweep})} (0 = shared memory), rows with no "
-          f"items)", flush=True)
-    print(f"  ptxas: {ptxas_of(report, 'route_expand')}", flush=True)
+        routes.append(check_ragged(f"sweep {case}", flat_of_tiles(prob), timed=False))
+    sweep = routes[n_store:]
+    print(f"route_expand_ragged: {len(SWEEP)} sweep cases exact (31 DCs, longest reads "
+          f"{sorted({r['longest'] for r in sweep})}, reads with no items)", flush=True)
+    print(f"  ptxas: {ptxas_of(report, 'route_expand_ragged')}", flush=True)
 
     if not any(per_field for _, _, per_field in rec.kept):
         fail("the main path ran no DHD step with per-field vals (placement arena)")
@@ -1085,7 +1075,7 @@ def kernel_checks(store, rec: DHDRecorder, report: dict) -> dict:
     dhd_sweep(report)
     report["route_expand_checks"] = routes
     report["dhd_checks"] = dhds
-    return {"route": routes[len(BATCHES) - 1], "dhd": dhds[0]}
+    return {"route": routes[n_store - 1], "dhd": dhds[0]}
 
 
 def streaming_phase(store, report: dict):
@@ -2900,16 +2890,303 @@ def store_phases(report: dict) -> list:
     return [
         row("dhd_count", 159, launches["dhd_count"], dhd["count"]),
         row("dhd_flow", 173, launches["dhd_flow"], dhd["flow"]),
-        {"name": "route_expand", "route": "cuda",
+        {"name": "route_expand_ragged", "route": "cuda",
          "source": "src/repro_torch/csrc/route_expand.cu",
          "replaces": "src/repro/kernels/route_expand.py:48",
-         "launches": launches["route_expand"], "max_abs_err": route["max_abs_err"],
+         "launches": launches["route_expand_ragged"], "max_abs_err": route["max_abs_err"],
          "ms": route["ms"], "host_loop_ms": route["host_loop_ms"],
          "plain_ms": route["plain_ms"], "bound_ms": route["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         row("dhd_count_single", 70, stream_launches["dhd_count_single"], single["count"]),
         row("dhd_flow_single", 82, stream_launches["dhd_flow_single"], single["flow"]),
     ]
+
+
+# ------------------------------------------------------ the ragged expansion
+# phase 20's sweep: read lengths around a warp's edges, a warp's share (256),
+# the most slots a warp's region of shared memory held (25,824), and past it
+RAGGED_LENS = (0, 1, 31, 32, 33, 256, 257, 25_824, 25_825, 40_000)
+RAGGED_SWEEP = (
+    # name, read lengths, D, L, p_rep, all_ties
+    ("lengths at every boundary", RAGGED_LENS, 5, 3, 0.35, False),
+    ("lengths at every boundary, 31 DCs", RAGGED_LENS, 31, 4, 0.1, False),
+    ("all ties", (1, 300, 5000), 5, 3, 0.0, True),
+    ("no layer", (3, 500, 2), 5, 0, 0.35, False),
+    ("2,000 short reads", tuple(range(1, 61)) * 33 + (7,) * 20, 5, 3, 0.35, False),
+    ("64 long reads", tuple(257 + 43 * i for i in range(64)), 6, 4, 0.3, False),
+)
+RAGGED_CELL = "snb3s-nbr-over"  # the recorded drain's cell, seed and size
+RAGGED_SEED = 2_148_031_001
+RAGGED_DRAIN = 256
+GATE_CELL = "snb3s-read-peak"  # the short reads the item gate is also timed on
+GATE_ITEMS = (1024, 4096, 8192, 16384, 65536)
+# reads a one-origin sub-batch of RAGGED_CELL holds, drawn as its traffic
+# draws them (uniformly over the patterns), each size drawn twice
+GATE_READS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+
+
+def flat_route_problem(rng, lens, D, L, p_rep=0.35, all_ties=False):
+    """A random flat batch ``(bits, sizes, offsets, origin, comp, rtt,
+    ibw)`` with reads of the given lengths."""
+    import numpy as np
+
+    lens = np.asarray(lens, np.int64)
+    _, _, _, _, comp, rtt, ibw = rand_route_problem(rng, 1, 1, 1, D, L)
+    N = int(lens.sum())
+    rep = np.ones((N, D), bool) if all_ties else rng.random((N, D)) < p_rep
+    bits = (rep * (1 << np.arange(D, dtype=np.int64))).sum(axis=1).astype(np.int32)
+    sizes = (rng.random(N) + 0.25).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    origin = rng.integers(0, D, len(lens)).astype(np.int32)
+    return bits, sizes, offsets, origin, comp, rtt, ibw
+
+
+def check_ragged(name, prob, timed: bool) -> dict:
+    """The ragged kernel against its plain version on the card: picks,
+    layers and missing counts equal, bytes and latencies within phase 4's
+    tolerances; timed, its graph-replayed time beside its bound."""
+    import numpy as np
+    import torch
+
+    from geobench.roofline import ragged_bytes
+    from repro_torch.kernels.cuda_lib import library, stream_ptr
+    from repro_torch.kernels.ref import route_expand_ragged_ref
+    from repro_torch.kernels.route_expand import (
+        ragged_buffers,
+        ragged_order,
+        route_expand_ragged,
+    )
+
+    args = tuple(torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in prob)
+    got = route_expand_ragged(*args)
+    want = route_expand_ragged_ref(*args)
+    torch.cuda.synchronize()
+    for i, label in ((0, "served"), (2, "layers_used"), (3, "miss_after")):
+        if not torch.equal(got[i], want[i]):
+            fail(f"route_expand_ragged {name}: {label} differs from the plain version")
+    err = 0.0
+    for i, (rtol, atol) in ((1, (1e-5, 1e-4)), (4, (1e-5, 1e-7)), (5, (1e-5, 1e-4))):
+        if not torch.allclose(got[i], want[i], rtol=rtol, atol=atol):
+            fail(f"route_expand_ragged {name}: output {i} outside rtol {rtol} / atol {atol}")
+        if got[i].numel():
+            err = max(err, float((got[i] - want[i]).abs().max()))
+    bits, sizes, offsets, origin, comp = prob[:5]
+    lens = np.diff(offsets)
+    order, n_long = ragged_order(lens)
+    R, N, D, L = len(origin), len(bits), comp.shape[1], comp.shape[0] - 1
+    out = {"case": name, "max_abs_err": err, "reads": R, "items": N,
+           "longest": int(lens.max(initial=0)), "blocks_alone": n_long, "D": D, "L": L}
+    if timed:
+        lib = library().get()
+        order_t = torch.as_tensor(order, device="cuda")
+        bufs = ragged_buffers(N, R, D, L, args[0].device)
+        ptrs = ([a.data_ptr() for a in args[:4]] + [order_t.data_ptr(), n_long]
+                + [a.data_ptr() for a in args[4:]] + [b.data_ptr() for b in bufs[2:]])
+
+        # the C entry point straight, into the buffers above
+        def launch():
+            lib.route_expand_ragged_launch(*ptrs, R, D, L, stream_ptr(args[0].device))
+
+        nbytes = ragged_bytes(N, R, D, L)
+        out.update(
+            **kernel_ms(launch), wrapper_ms=host_loop_ms(lambda: route_expand_ragged(*args)),
+            plain_ms=host_loop_ms(lambda: route_expand_ragged_ref(*args), warmup=1, iters=3),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        )
+    return out
+
+
+def _wall_ms(fn, reps: int = 7) -> float:
+    import numpy as np
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3
+
+
+def _flat_of(store, sub):
+    """The flat item stream the router hands the card for a sub-batch."""
+    import numpy as np
+
+    from repro_torch.core.routing import _bit_pack
+
+    items = np.concatenate([np.asarray(it, np.int64) for it, _ in sub])
+    bounds = np.concatenate([[0], np.cumsum([len(it) for it, _ in sub])]).astype(np.int32)
+    lg = store.lg
+    return (_bit_pack(store.state.delta[items]),
+            store.g.item_size()[items].astype(np.float32), bounds,
+            np.asarray([o for _, o in sub], np.int32), np.asarray(lg.comp_of_dc, np.int32),
+            np.asarray(lg.env.rtt_s, np.float32),
+            np.asarray(1.0 / lg.env.bw_Bps_safe(), np.float32))
+
+
+def _cell_store(name: str, seed: int):
+    import numpy as np
+
+    from geobench.harness import build_store, resolve_cell
+    from geobench.inputs import make_inputs
+
+    cell = resolve_cell(name)
+    inputs = make_inputs(cell.config, seed)
+    t = time.perf_counter()
+    store = build_store(cell.config, inputs, "cuda")
+    pats = inputs.patterns
+    home = np.array([int(np.argmax(p.r_py)) for p in pats], np.int64)
+    print(f"{name}: store of {store.g.n_items} items built in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return cell, inputs, store, home
+
+
+def _in_turns_ms(fns: dict, reps: int = 9) -> dict:
+    """Median wall ms of each of ``fns``, called in turns (the order
+    reversed every other round), after one warm-up call each."""
+    import numpy as np
+
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for i in range(reps):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            t = time.perf_counter()
+            fns[k]()
+            times[k].append(time.perf_counter() - t)
+    return {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+
+
+def _gate_rows(store, pats, label: str, rng, uniform: bool) -> list:
+    """Numpy against fused routing of one-origin sub-batches, as the sharded
+    store routes them: ``uniform``, of ``GATE_READS`` reads drawn uniformly
+    over the patterns; else of short reads up to ``GATE_ITEMS`` items."""
+    import numpy as np
+
+    from repro_torch.core.routing import route_online_batch
+
+    lens = np.array([len(p.items) for p in pats])
+    subs = []
+    if uniform:
+        nonempty = np.flatnonzero(lens > 0)
+        for n in GATE_READS:
+            for _ in range(2):
+                subs.append([(pats[int(p)].items, 0) for p in rng.choice(nonempty, n)])
+    else:
+        for target in GATE_ITEMS:
+            small = np.flatnonzero((lens > 0) & (lens <= max(target // 2, 1)))
+            sub, n = [], 0
+            while n < target or len(sub) < 2:
+                p = int(small[rng.integers(0, len(small))])
+                sub.append((pats[p].items, 0))
+                n += int(lens[p])
+            subs.append(sub)
+    rows = []
+    for sub in subs:
+        n = sum(len(it) for it, _ in sub)
+        ms = _in_turns_ms({
+            "numpy": lambda: route_online_batch(store.lg, store.state, sub, fast=False),
+            "fused": lambda: route_online_batch(store.lg, store.state, sub, fast=True,
+                                                device="cuda"),
+        })
+        rows.append({"config": label, "reads": len(sub), "items": n, "numpy_ms": ms["numpy"],
+                     "fused_ms": ms["fused"]})
+        print(f"gate {label}: {len(sub)} reads, {n} items: numpy {ms['numpy']:.4f} ms, fused "
+              f"{ms['fused']:.4f} ms", flush=True)
+    return rows
+
+
+def ragged_phase(report: dict) -> dict:
+    """Phase 20: the ragged route expansion.  Returns its kernel table row."""
+    import numpy as np
+    import torch
+
+    from geobench.traffic import warmup_reads
+    from repro_torch.core.routing import get_route_fast_config, route_online_batch
+    from repro_torch.kernels.route_expand import RAGGED_LAUNCHES
+
+    sweep = []
+    for i, (name, lens, D, L, p_rep, ties) in enumerate(RAGGED_SWEEP):
+        prob = flat_route_problem(np.random.default_rng(2000 + i), lens, D, L, p_rep, ties)
+        sweep.append(check_ragged(name, prob, timed=True))
+        r = sweep[-1]
+        print(f"route_expand_ragged {name}: {r['reads']} reads, {r['items']} items (longest "
+              f"{r['longest']}, {r['blocks_alone']} a block alone), D {D}, L {L}: exact, max "
+              f"abs err {r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms (host loop "
+              f"{r['host_loop_ms']:.4f}, wrapper {r['wrapper_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms", flush=True)
+    print(f"  ptxas: {ptxas_of(report, 'route_expand_ragged')}", flush=True)
+
+    # a recorded drain of the cell, holding its longest read, split by origin
+    cell, inputs, store, home = _cell_store(RAGGED_CELL, RAGGED_SEED)
+    pats = inputs.patterns
+    eligible = np.array([i for i, p in enumerate(pats) if len(p.items)], np.int64)
+    pat, org = warmup_reads(cell.mix["reads"], eligible, home, inputs.env.n_dcs, RAGGED_SEED,
+                            RAGGED_DRAIN)
+    big = int(np.argmax([len(p.items) for p in pats]))
+    pat[0], org[0] = big, home[big]
+    reqs = [(pats[p].items, int(o)) for p, o in zip(pat.tolist(), org.tolist())]
+    subs = {}
+    for it, o in reqs:
+        subs.setdefault(o, []).append((it, o))
+    gate = get_route_fast_config().min_items
+    drain, shapes = [], []
+    for o, sub in sorted(subs.items()):
+        flat = _flat_of(store, sub)
+        r = check_ragged(f"drain origin {o}", flat, timed=True)
+        got = route_online_batch(store.lg, store.state, sub, fast=True, device="cuda")
+        want = route_online_batch(store.lg, store.state, sub, fast=False)
+        if not same_results(got, want):
+            fail(f"route_online_batch on the card differs from the numpy router (origin {o})")
+        r.update(origin=o, numpy_ms=_wall_ms(
+            lambda: route_online_batch(store.lg, store.state, sub, fast=False), reps=3),
+                 fused_ms=_wall_ms(lambda: route_online_batch(
+                     store.lg, store.state, sub, fast=True, device="cuda"), reps=3))
+        drain.append(r)
+        shapes.append([r["reads"], r["items"], r["blocks_alone"]])
+        print(f"drain origin {o}: {r['reads']} reads, {r['items']} items (longest "
+              f"{r['longest']}): exact against the plain version and the numpy router; kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms; route_online_batch fused "
+              f"{r['fused_ms']:.3f} ms, numpy {r['numpy_ms']:.3f} ms", flush=True)
+    if max(r["longest"] for r in drain) != len(pats[big].items):
+        fail("the recorded drain lost its longest read")
+    before = RAGGED_LAUNCHES.n
+    store.serve_batch(reqs, observe=False)
+    torch.cuda.synchronize()
+    launched = RAGGED_LAUNCHES.n - before
+    want_launches = sum(len(s) > 1 and sum(len(it) for it, _ in s) >= gate
+                        for s in subs.values())
+    if launched != want_launches:
+        fail(f"serve_batch launched the ragged kernel {launched} times, the gate of {gate} "
+             f"items says {want_launches}")
+    print(f"serve_batch of the drain ({len(reqs)} reads, longest {len(pats[big].items)} "
+          f"items): {launched} ragged launches, one a sub-batch over the gate", flush=True)
+
+    rng = np.random.default_rng(RAGGED_SEED)
+    gate_rows = _gate_rows(store, pats, RAGGED_CELL, rng, uniform=True)
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, small_inputs, small, _ = _cell_store(GATE_CELL, RAGGED_SEED)
+    gate_rows += _gate_rows(small, small_inputs.patterns, GATE_CELL, rng, uniform=False)
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label in (RAGGED_CELL, GATE_CELL):
+        rows = [r for r in gate_rows if r["config"] == label]
+        wins = sorted(r["items"] for r in rows if r["fused_ms"] < r["numpy_ms"])
+        loses = sorted(r["items"] for r in rows if r["fused_ms"] >= r["numpy_ms"])
+        print(f"item gate, {label}: fused faster at {wins}, numpy at {loses}; the gate is "
+              f"{gate}", flush=True)
+    longest = max(drain, key=lambda r: r["longest"])
+    report["ragged"] = {"sweep": sweep, "drain": drain, "gate": gate_rows, "launches": launched}
+    return {"name": "route_expand_ragged", "route": "cuda",
+            "source": "src/repro_torch/csrc/route_expand.cu",
+            "replaces": "src/repro/kernels/route_expand.py:48", "launches": launched,
+            "launches_by_shape": shapes, "max_abs_err": max(r["max_abs_err"] for r in drain),
+            "ms": longest["ms"], "host_loop_ms": longest["host_loop_ms"],
+            "plain_ms": longest["plain_ms"], "bound_ms": longest["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 # ---------------------------------------------------------------- slice D
@@ -2976,7 +3253,7 @@ def competitor_phase(report: dict, inputs):
     import torch
 
     from repro_torch.core.placement import PlacementConfig
-    from repro_torch.core.routing import pack_request_tiles, route_online_batch
+    from repro_torch.core.routing import route_online_batch
     from repro_torch.core.store import GeoGraphStore
     from repro_torch.kernels import ops
     from repro_torch.kernels.cuda_lib import reset_launch_counters
@@ -3011,11 +3288,11 @@ def competitor_phase(report: dict, inputs):
         del store
 
     # RP+SR, the ablation's random placement under stepwise routing: its
-    # serving takes route_expand and its maintain() the batched DHD pair on
+    # serving takes route_expand_ragged and its maintain() the batched DHD pair on
     # replica classes the GeoLayer lane never makes
     mirror, mirror_s = build("random", "stepwise", device="cpu")
     reset_launch_counters()
-    with DHDRecorder(ops) as rec:
+    with DHDRecorder(ops) as rec, RouteRecorder(ops) as route:
         rp, rp_s = build("random", "stepwise")
         launches = {"build": launch_counts()}
         # the same held-out traffic into both demand planes (host routing)
@@ -3033,7 +3310,9 @@ def competitor_phase(report: dict, inputs):
             if not same_results(got, route_online_batch(rp.lg, rp.state, reqs, fast=False)):
                 fail(f"RP+SR serve_batch({bs}) on the card differs from the numpy router")
             served[bs] = (reqs, got, serve_s)
-            probs[bs] = pack_request_tiles(rp.lg, rp.state, reqs)
+            if gated_launch(f"RP+SR serve_batch({bs})", reqs,
+                            launches[f"serve_{bs}"]["route_expand_ragged"]):
+                probs[bs] = route.last
         rec.phase = "maintain"
         before = launch_counts()
         t = time.perf_counter()
@@ -3042,7 +3321,8 @@ def competitor_phase(report: dict, inputs):
         maintain_s = time.perf_counter() - t
         launches["maintain"] = {k: v - before[k] for k, v in launch_counts().items()}
     total = launch_counts()
-    for k, n in (("route_expand", sum(launches[f"serve_{b}"]["route_expand"] for b in BATCHES)),
+    for k, n in (("route_expand_ragged",
+                  sum(launches[f"serve_{b}"]["route_expand_ragged"] for b in BATCHES)),
                  ("dhd_count", launches["maintain"]["dhd_count"]),
                  ("dhd_flow", launches["maintain"]["dhd_flow"])):
         if n <= 0:
@@ -3081,11 +3361,11 @@ def competitor_phase(report: dict, inputs):
               f"wall), share {busy_ms / wall_ms:.4f}", flush=True)
 
     routes = []
-    for bs in BATCHES:
-        r = check_route_expand(f"RP+SR batch {bs}", probs[bs], timed=True)
+    for bs, prob in sorted(probs.items()):
+        r = check_ragged(f"RP+SR batch {bs}", prob, timed=True)
         routes.append(r)
-        print(f"route_expand {r['case']} {r['shape']} (R, K, D, L): slots_instance "
-              f"{r['slots_instance']}, exact, max abs err {r['max_abs_err']:.3g}, kernel "
+        print(f"route_expand_ragged {r['case']}: {r['reads']} reads, {r['items']} items, D "
+              f"{r['D']}, L {r['L']}: exact, max abs err {r['max_abs_err']:.3g}, kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms",
               flush=True)
     key = ("maintain", env.n_dcs, False)
@@ -3097,7 +3377,8 @@ def competitor_phase(report: dict, inputs):
           f"(bound {dhd['count']['bound_ms']:.5f}), flow kernel {dhd['flow']['ms']:.4f} ms "
           f"(bound {dhd['flow']['bound_ms']:.5f}), counts equal, flows within atol 1e-5 / "
           f"rtol 1e-4, max abs err {dhd['flow']['max_abs_err']:.3g}", flush=True)
-    rp_launches = {"route_expand": sum(launches[f"serve_{b}"]["route_expand"] for b in BATCHES),
+    rp_launches = {"route_expand_ragged": sum(launches[f"serve_{b}"]["route_expand_ragged"]
+                                              for b in BATCHES),
                    "dhd_count": launches["maintain"]["dhd_count"],
                    "dhd_flow": launches["maintain"]["dhd_flow"]}
     out["rp_sr"] = {
@@ -3354,9 +3635,9 @@ def analytics_phase(report: dict, lane_graph):
 CP_SEED, CP_REQUESTS, CP_SHARDS = 13, 8192, 5
 CP_PLAN_KW = dict(theta_add=0.3, theta_drop=0.15)
 CP_CHURN = (0.01, 2)
-# the route fast path's request gate during path (c): one-shard drains of
-# the mixed trace hold 1-3 requests on the lane, never the default gate's 64
-CP_FAST_MIN_REQUESTS = 2
+# the route fast path's item gate during path (c): one-shard drains of the
+# mixed trace hold 1-3 requests on the lane, far under the default gate
+CP_FAST_MIN_ITEMS = 1
 
 
 def cp_trace(store, regime: str, n: int, seed: int = CP_SEED) -> list:
@@ -3399,39 +3680,43 @@ def cp_window(store) -> float:
 
 
 class RouteRecorder:
-    """Installed over ``kernels.ops.route_expand_batch`` (the name the
+    """Installed over ``kernels.ops.route_expand_flat`` (the name the
     routing fast path calls): passes every call on and keeps, as numpy, the
-    tiles of the widest call (most item slots)."""
+    flat inputs of the widest call (most items) and of the last."""
 
     def __init__(self, ops) -> None:
         import threading
 
         self.ops = ops
-        self.fn = ops.route_expand_batch
+        self.fn = ops.route_expand_flat
         self.calls = 0
         self.widest = None
+        self.last = None
         self._lock = threading.Lock()  # shard threads may route at once
 
-    def __call__(self, bits, sizes, lens, origin, comp, rtt, ibw, device=None):
+    def __call__(self, bits, sizes, bounds, origin, comp, rtt, ibw, device=None):
         import numpy as np
 
-        def host(x):
-            return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        def host(x, dt):
+            x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+            return np.ascontiguousarray(x, dt)
 
-        prob = tuple(np.ascontiguousarray(host(x)) for x in (bits, sizes, lens, origin,
-                                                              comp, rtt, ibw))
+        prob = tuple(host(x, dt) for x, dt in (
+            (bits, np.int32), (sizes, np.float32), (bounds, np.int32), (origin, np.int32),
+            (comp, np.int32), (rtt, np.float32), (ibw, np.float32)))
         with self._lock:
             self.calls += 1
-            if self.widest is None or prob[0].shape[1] > self.widest[0].shape[1]:
+            self.last = prob
+            if self.widest is None or len(prob[0]) > len(self.widest[0]):
                 self.widest = prob
-        return self.fn(bits, sizes, lens, origin, comp, rtt, ibw, device=device)
+        return self.fn(bits, sizes, bounds, origin, comp, rtt, ibw, device=device)
 
     def __enter__(self) -> "RouteRecorder":
-        self.ops.route_expand_batch = self
+        self.ops.route_expand_flat = self
         return self
 
     def __exit__(self, *exc) -> None:
-        self.ops.route_expand_batch = self.fn
+        self.ops.route_expand_flat = self.fn
 
 
 class CheckedStore:
@@ -3709,7 +3994,7 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
     wave_s0 = sh.registry.snapshot().get("migration.device_wave_s", {}).get("-", {})
     waves = []
     old = get_route_fast_config()
-    set_route_fast_config(RouteFastConfig(min_requests=CP_FAST_MIN_REQUESTS))
+    set_route_fast_config(RouteFastConfig(min_items=CP_FAST_MIN_ITEMS))
     try:
         with recording(sh) as recorded:
             reset_launch_counters()
@@ -3733,7 +4018,6 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
         "drains": int(len(sizes)), "drain_median_wall_s": float(np.median(checked.wall_s)),
         "drain_wall_s_p99": float(np.quantile(checked.wall_s, 0.99)),
         "drain_sizes": {str(k): int(v) for k, v in zip(*np.unique(sizes, return_counts=True))},
-        "drains_at_default_gate": int((sizes >= old.min_requests).sum()),
         "sim_p50_p99_s": {("interactive", "bulk")[p]: [float(np.quantile(v, 0.5)),
                                                        float(np.quantile(v, 0.99))]
                           for p, v in lat.items() if len(v)},
@@ -3750,9 +4034,9 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
     say(f"path (c), per-shard AIMD over the mixed trace ({n_req} requests): {c['drains']} "
         f"drains, each request-identical to the numpy router; drain wall median "
         f"{c['drain_median_wall_s'] * 1e3:.3f} ms (p99 {c['drain_wall_s_p99'] * 1e3:.3f}); "
-        f"drain sizes {c['drain_sizes']} ({c['drains_at_default_gate']} at or above the "
-        f"default gate of {old.min_requests}; the route fast path was pinned from "
-        f"{CP_FAST_MIN_REQUESTS} requests up); wall {wall:.2f} s")
+        f"drain sizes {c['drain_sizes']} (the route fast path was pinned from "
+        f"{CP_FAST_MIN_ITEMS} item up, under the default gate of {old.min_items}); wall "
+        f"{wall:.2f} s")
     say(f"path (c): sim-clock p50/p99 by class {c['sim_p50_p99_s']}; deadline misses "
         f"{m['deadline_misses']} by cause {m['misses_by_cause']}; targets by shard "
         f"{m.get('batch_target_by_shard')}; flagged shards {m.get('straggler_shards')}")
@@ -3862,10 +4146,10 @@ def control_plane_phase(report: dict, card: str) -> dict:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the control-plane path: {launches}")
 
-    r = check_route_expand("control plane, widest tile", rec["route"].widest, timed=True)
-    checks = {"route_expand": r}
-    say(f"route_expand on path (c)'s widest tile {r['shape']} (R, K, D, L; slots_instance "
-        f"{r['slots_instance']}): exact, max abs err {r['max_abs_err']:.3g}, kernel "
+    r = check_ragged("control plane, widest call", rec["route"].widest, timed=True)
+    checks = {"route_expand_ragged": r}
+    say(f"route_expand_ragged on path (c)'s widest call ({r['reads']} reads, {r['items']} "
+        f"items): exact, max abs err {r['max_abs_err']:.3g}, kernel "
         f"{r['ms']:.4f} ms (host loop {r['host_loop_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
         f"bound {r['bound_ms']:.3g} ms; {rec['route'].calls} launches recorded")
     dkey = ("control plane", sh.env.n_dcs, False)
@@ -3897,7 +4181,7 @@ def control_plane_phase(report: dict, card: str) -> dict:
     # one drain of path (c) under the profiler, with path (c)'s routing gate
     drain = res["largest_drain"]
     old = get_route_fast_config()
-    set_route_fast_config(RouteFastConfig(min_requests=CP_FAST_MIN_REQUESTS))
+    set_route_fast_config(RouteFastConfig(min_items=CP_FAST_MIN_ITEMS))
     try:
         sh.serve_batch(drain, observe=False)
         torch.cuda.synchronize()
@@ -4826,7 +5110,17 @@ def main() -> None:
     report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                     "build_s": lib.build_s, "ptxas": ptxas, "launch_floor_ms": floor_ms,
                     "sm_clocks": clocks}
+    if sys.argv[1:] == ["--phase", "ragged"]:
+        row = ragged_phase(report)
+        row["launch_floor_ms"] = floor_ms
+        report["kernels"] = [row]
+        finish(report, t_start)
+        return
     table = store_phases(report)
+    nbr = ragged_phase(report)
+    next(r for r in table if r["name"] == nbr["name"])["paths"] = {f"{RAGGED_CELL} drain": nbr}
+    gc.collect()
+    torch.cuda.empty_cache()
     gc.collect()
     torch.cuda.empty_cache()
     lm = lm_serving_phase(report)
@@ -4879,12 +5173,19 @@ def main() -> None:
     for r in table:
         r["launch_floor_ms"] = floor_ms
     report["kernels"] = table
+    finish(report, t_start)
+
+
+def finish(report: dict, t_start: float) -> None:
+    """Write the report, print the kernel table and the last line."""
+    import torch
+
     report["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
     print(f"chip_smoke: every phase passed in {report['total_s']:.1f} s", flush=True)
-    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

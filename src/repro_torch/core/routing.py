@@ -35,7 +35,6 @@ __all__ = [
     "set_route_fast_config",
     "route_online",
     "route_online_batch",
-    "pack_request_tiles",
     "OfflineLayout",
     "route_offline",
 ]
@@ -111,19 +110,21 @@ def _obs_handles(reg) -> _ObsHandles:
 # --------------------------------------------------------- fast-path config
 @dataclasses.dataclass
 class RouteFastConfig:
-    """Eligibility gates for the fused batch expansion on the device.
+    """Eligibility gate for the fused batch expansion on the device.
 
-    The fast path pays fixed per-call costs (host->device transfer of the
-    packed batch, kernel launch, readback), so small batches stay on the
-    numpy path;
-    the size gates also bound the padded ``[R, Kmax]`` buffers the packing
-    allocates.  ``max_dcs`` is the int32 replica-bitmask budget (bit 31 is
-    the sign bit)."""
+    The fast path pays fixed costs a call (the bit-pack, one upload of the
+    flat item stream, the launch, one readback), and its work grows with the
+    batch's items, not its reads, so the gate counts items: a batch of two
+    or more reads takes it from ``min_items`` items up (a read alone keeps
+    the scalar router).  ``max_dcs`` is the int32 replica-bitmask budget
+    (bit 31 is the sign bit)."""
 
     enabled: bool = True
-    min_requests: int = 64  # below this the numpy lockstep loop wins
-    max_kmax: int = 8192  # widest request (items) eligible for packing
-    max_cells: int = 1 << 23  # padded R * Kmax budget (~32 MB of int32)
+    # below this the numpy loop wins: on an H100 host, timed in turns on
+    # one-origin sub-batches of whole 1-/2-hop neighbourhoods (the reads
+    # that reach this size), numpy was faster up to 17,680 items and the
+    # fused path from 18,387 on; short reads crossed between 8,210 and 16,399
+    min_items: int = 18_000
     max_dcs: int = 31
 
 
@@ -376,19 +377,13 @@ def _get_kops():
 
 
 def _fast_eligible(
-    fast: Optional[bool], config: RouteFastConfig, R: int, D: int, kmax: int,
-    n_layers: int,
+    fast: Optional[bool], config: RouteFastConfig, D: int, n_items: int, n_layers: int,
 ) -> bool:
-    if fast is False or not config.enabled or kmax == 0:
+    if fast is False or not config.enabled or n_items == 0:
         return False
     if D > config.max_dcs or n_layers > 64:
         return False  # int32 bitmask / stats-lane budget
-    if fast is not True:  # default: size heuristics decide
-        if R < config.min_requests:
-            return False
-        if kmax > config.max_kmax or R * kmax > config.max_cells:
-            return False
-    return True
+    return fast is True or n_items >= config.min_items
 
 
 # per-(LayeredGraph, device) copies of the expansion constants (layer
@@ -428,64 +423,13 @@ def _fast_env_arrays(lg: LayeredGraph, device: torch.device) -> tuple:
 
 
 def _bit_pack(delta_all: np.ndarray) -> np.ndarray:
-    """``[K]`` int32 replica bitmask per row of ``delta_all`` (bit d = DC d)."""
-    D = delta_all.shape[1]
-    if D <= 23:
-        # BLAS bit-pack: bool @ f32 powers of two; every bitmask value is an
-        # exact f32 integer below 2^24
-        return (delta_all @ (1 << np.arange(D)).astype(np.float32)).astype(np.int32)
-    return (
-        delta_all.astype(np.int64) @ (1 << np.arange(D, dtype=np.int64))
-    ).astype(np.int32)
-
-
-def _pack_tiles(
-    bits_flat, sizes_all, req_id, bounds, lens, origin, r_pad: int, k_pad: int
-) -> Tuple[Tuple[np.ndarray, ...], np.ndarray]:
-    """The flat item stream as padded ``[r_pad, k_pad]`` request tiles:
-    ``((bits, sizes, lens, origin), slot of each flat item)``.  Pad rows
-    have zero items; pad slots have zero bits and bytes."""
-    R = len(lens)
-    pos = np.arange(len(bits_flat), dtype=np.int64) - bounds[req_id]
-    bits = np.zeros((r_pad, k_pad), np.int32)
-    bits[req_id, pos] = bits_flat
-    szp = np.zeros((r_pad, k_pad), np.float32)
-    szp[req_id, pos] = sizes_all
-    lens_p = np.zeros(r_pad, np.int32)
-    lens_p[:R] = lens
-    origin_p = np.zeros(r_pad, np.int32)
-    origin_p[:R] = origin
-    return (bits, szp, lens_p, origin_p), pos
-
-
-def pack_request_tiles(
-    lg: LayeredGraph,
-    state: PlacementState,
-    requests: Sequence[Tuple[np.ndarray, int]],
-) -> Tuple[np.ndarray, ...]:
-    """The tile inputs the fast path hands ``route_expand`` for a batch:
-    ``(bits, sizes, lens, origin, comp, rtt, ibw)`` as numpy, padded to the
-    same power-of-two buckets (for checking and timing the kernel on a
-    store's own batches)."""
-    from ..kernels.autotune import shape_bucket
-
-    sizes = lg.g.item_size()
-    lens = np.asarray([len(it) for it, _ in requests], dtype=np.int64)
-    origin = np.asarray([o for _, o in requests], dtype=np.int64)
-    items_all = np.concatenate([np.asarray(it, np.int64) for it, _ in requests])
-    req_id = np.repeat(np.arange(len(requests), dtype=np.int64), lens)
-    bounds = np.concatenate([[0], np.cumsum(lens)])
-    tiles, _ = _pack_tiles(
-        _bit_pack(state.delta[items_all]), sizes[items_all], req_id, bounds,
-        lens, origin, shape_bucket(len(requests), floor=8),
-        shape_bucket(int(lens.max()), floor=8),
-    )
-    return (
-        *tiles,
-        np.asarray(lg.comp_of_dc, np.int32),
-        np.asarray(lg.env.rtt_s, np.float32),
-        np.asarray(1.0 / lg.env.bw_Bps_safe(), np.float32),
-    )
+    """``[K]`` int32 replica bitmask per row of ``delta_all`` (bit d = DC d),
+    one OR a DC column: no float copy of the rows, which at 300k rows took
+    ten times as long."""
+    bits = delta_all[:, 0].astype(np.int32)
+    for d in range(1, delta_all.shape[1]):
+        bits |= delta_all[:, d].astype(np.int32) << d
+    return bits
 
 
 def _route_batch_fast(
@@ -503,63 +447,57 @@ def _route_batch_fast(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Fused expansion for the whole batch on the kernels fast path.
 
-    Bit-packs the batch's replica rows (bit d = replica at DC d).  On the
-    card, a ``[R, Kmax]`` int32 tile goes through the CUDA kernel
-    (``kernels.ops.route_expand_batch``); an autotuner winner other than
-    ``"kernel"`` raises there.  On the CPU, the autotuned winner for
-    ``(r_pad, k_pad, D, L)`` picks the subset-histogram router
-    (``kernels.ops.route_expand_subsets`` — default for small DC counts,
-    per-pass work independent of the item count) or the tile's plain
-    version.  Every impl produces the numpy router's exact greedy picks.
-    Tile rows and item slots are padded to power-of-two buckets so the
-    autotuner keys on a handful of shapes across the batch mix.  ``tracer``
-    records ``route.pack`` (bit-pack and tile pack, on the host) and
+    Bit-packs the batch's replica rows (bit d = replica at DC d) and hands
+    the flat item stream as it is to the ragged expansion
+    (``kernels.ops.route_expand_flat``): no padding, no bound on a read's
+    length.  The card runs the CUDA kernel and nothing else.  On the CPU
+    the autotuned winner for the bucketed ``(reads, longest read, D, L)``
+    picks the subset-histogram router (``"subsets"``, ``kernels.ops.
+    route_expand_subsets`` — default for small DC counts, per-pass work
+    independent of the item count) or the kernel's plain version
+    (``"kernel"``).  Every impl produces the numpy router's exact greedy
+    picks.  ``tracer`` records ``route.pack`` (bit-pack, on the host) and
     ``route.device`` (the expansion call: upload, launch and readback on
-    the card).  Returns
-    ``(served [K], layers_used [R])``; all byte/latency folds are recomputed
-    exactly on the host by the shared epilogue, so results are bit-identical
-    to the numpy path.
+    the card), tagged ``layout`` (``"ragged"``), ``variant`` (which kernel
+    or plain version ran), ``slots`` (item slots handed to it), ``reads``
+    and ``layers``, and counts ``route.device_slots`` by ``variant``.
+    Returns ``(served [K], layers_used [R])``; all byte/latency folds are
+    recomputed exactly on the host by the shared epilogue, so results are
+    bit-identical to the numpy path.
     """
     ops, autotune = _get_kops()
     dev = resolve_device(device)
     R = len(lens)
     K = delta_all.shape[0]
     D = delta_all.shape[1]
+    L = lg.n_layers
     t0 = time.perf_counter() if obs else 0.0
     with tracer.span("route.pack", track="route"):
-        kmax = int(lens.max())
-        k_pad = autotune.shape_bucket(kmax, floor=8)
-        r_pad = autotune.shape_bucket(R, floor=8)
         bits_flat = _bit_pack(delta_all)
-        cfg = autotune.get_autotuner().lookup(
-            "route_expand", (r_pad, k_pad, D, lg.n_layers)
-        ) or {}
-        if dev.type == "cpu":
-            impl = cfg.get("impl", "subsets" if D <= ops.SUBSET_MAX_DCS else "ref")
-        else:
-            impl = cfg.get("impl", "kernel")
-            if impl != "kernel":
-                raise ValueError(
-                    f"route_expand impl {impl!r} does not run on {dev}: the card "
-                    "runs the kernel only"
-                )
-        subsets = impl == "subsets" and D <= ops.SUBSET_MAX_DCS
-        if not subsets:
-            (bits, szp, lens_p, origin_p), pos = _pack_tiles(
-                bits_flat, sizes_all, req_id, bounds, lens, origin, r_pad, k_pad
-            )
+        impl = "kernel"
+        if dev.type == "cpu" and D <= ops.SUBSET_MAX_DCS:
+            sig = (autotune.shape_bucket(R, floor=8),
+                   autotune.shape_bucket(int(lens.max()), floor=8), D, L)
+            cfg = autotune.get_autotuner().lookup("route_expand", sig) or {}
+            impl = "kernel" if cfg.get("impl") == "kernel" else "subsets"
+        if impl == "kernel":
             comp, rtt, ibw = _fast_env_arrays(lg, dev)
-    with tracer.span("route.device", track="route"):
-        if subsets:
+    if impl == "kernel":
+        variant = "ragged" if dev.type == "cuda" else "ragged_plain"
+    else:
+        variant = "subsets"
+    tracer.count("route.device_slots", K, variant=variant)
+    with tracer.span("route.device", track="route", layout="ragged", variant=variant, slots=K,
+                     reads=R, layers=L):
+        if impl == "subsets":
             served, layers_used, miss_after = ops.route_expand_subsets(
                 bits_flat, req_id, R, origin, lg.comp_of_dc
             )
         else:
-            served_p, _, layers_used, miss_after, _, _ = ops.route_expand_batch(
-                bits, szp, lens_p, origin_p, comp, rtt, ibw, device=dev
+            served, layers_used, miss_after = ops.route_expand_flat(
+                bits_flat, sizes_all, bounds, origin, comp, rtt, ibw, device=dev
             )
-    if not subsets:
-        served = served_p[req_id, pos].astype(np.int64)
+    served = served.astype(np.int64)
     if obs:
         h = _obs_handles(reg)
         h.kernel_time.inc(time.perf_counter() - t0)
@@ -602,7 +540,7 @@ def route_online_batch(
 
     ``fast`` pins the fused expansion (:mod:`repro_torch.kernels`) on
     ``device`` (``None`` = the card): ``True`` forces it, ``False`` forbids
-    it, ``None`` (default) lets :class:`RouteFastConfig` size gates decide.
+    it, ``None`` (default) lets :class:`RouteFastConfig`'s item gate decide.
     The fast path computes the same greedy picks on the device and re-folds
     bytes/latency on the host in f64, so its results are bit-identical to
     the numpy path.
@@ -614,7 +552,7 @@ def route_online_batch(
     ``tracer`` records the batch's phases under the caller's open span:
     ``route.prologue`` (flatten, gather the replica rows and sizes),
     ``route.expand`` tagged ``path`` (``"scalar"``, ``"numpy"`` or
-    ``"fused"``) and ``reads`` — on the fused path with the children
+    ``"fused"``), ``reads`` and ``items`` — on the fused path with the children
     ``route.pack`` and ``route.device`` — and ``route.epilogue``.
     """
     env = lg.env
@@ -630,9 +568,10 @@ def route_online_batch(
         # telemetry enabled, _observe_scalar books the batch path's exact
         # instruments from the scalar result (the sharded store's per-shard
         # registries must account every request).
-        with tr.span("route.expand", track="route", path="scalar", reads=1):
-            items, origin_0 = requests[0]
-            items = np.asarray(items)
+        items, origin_0 = requests[0]
+        items = np.asarray(items)
+        with tr.span("route.expand", track="route", path="scalar", reads=1,
+                     items=len(items)):
             if sizes is None:
                 sizes = lg.g.item_size()
             t0 = time.perf_counter() if reg.enabled else 0.0
@@ -667,11 +606,10 @@ def route_online_batch(
         obs = reg.enabled
         if obs:
             _obs_handles(reg).requests.inc(R)
-        kmax = int(lens.max())
 
-    fused = _fast_eligible(fast, _FAST_CONFIG, R, D, kmax, lg.n_layers)
+    fused = _fast_eligible(fast, _FAST_CONFIG, D, len(items_all), lg.n_layers)
     with tr.span("route.expand", track="route", path="fused" if fused else "numpy",
-                 reads=R):
+                 reads=R, items=len(items_all)):
         if fused:
             served, layers_used = _route_batch_fast(
                 lg, delta_all, sz_all, req_id, bounds, lens, origin, reg, obs,

@@ -4,7 +4,7 @@
 // The TPU version walks a block of requests in lockstep and packs per-DC
 // coverage into 10-bit fields of int32 lane words.  Requests are
 // independent and extra greedy passes are idempotent, so here each request
-// runs its own greedy walk on one warp, with no lockstep:
+// runs its own greedy walk, with no lockstep:
 //
 //   * serve locally where the origin's bit is set;
 //   * per layer, count for every cluster DC the still-missing items holding
@@ -16,20 +16,17 @@
 //     rtt + bytes * (1 / bw), and WAN bytes (served away from the origin).
 //
 // Bound on an H100: a request's walk is a chain of up to L * (D + 1)
-// dependent passes, so a call takes the latency of one warp's walk, not its
-// bytes (R * K * 12 bytes of bits, sizes and picks at 3.35 TB/s is below
-// the launch floor).  The design keeps the walk off memory: every load of a
-// request (its slots, its length and origin, the comp table, the origin's
-// rtt and 1/bw columns) is issued before the first use, the walk and the
-// fold run on registers and warp collectives only (redux.sync counts and
-// argmax, eight DCs' reductions in flight at once), and the picks are
-// stored once, coalesced.
+// dependent passes, so a call takes the latency of one walk, not its bytes
+// (9 bytes a slot of bits, sizes and picks at 3.35 TB/s is below the
+// launch floor).  The design keeps the walk off per-slot state: every load
+// of a request's prologue (its offsets and origin, the comp table, the
+// origin's rtt and 1/bw columns) is issued before the first use, counts
+// and argmax are warp collectives (redux.sync, eight DCs' reductions in
+// flight at once), and the picks are stored once, coalesced.
 //
-//   * route_expand_regs_kernel<S>: lane l holds slots l + 32 j, j < S, in
-//     registers (S = 1, 2, 4, 8: K <= 256).
-//   * route_expand_smem_kernel: K > 256; each warp stages its slots (bits,
-//     sizes, int8 picks) in its own region of shared memory, never in
-//     global memory, and lane l touches only slots l + 32 j.
+// route_expand_ragged_kernel takes the flat item stream with request
+// offsets, no [R, K] tile and no bound on a request's length; a request
+// past a warp's share gets a block of its own, and no slot is staged.
 //
 // Masks and miss counts per layer live one a lane: lane i holds layer
 // i + 32 c's in word c (c < 4, L <= 127).
@@ -42,9 +39,6 @@ constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLayerWords = 4;  // per-layer values one a lane: L + 1 <= 128
 constexpr int kLoadLayers = 8;  // comp rows loaded up front, before any use
-constexpr int kMaxRegSlots = 8;  // slots a lane in registers: K <= 256
-constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -74,7 +68,7 @@ __device__ __forceinline__ void set_lane_word(unsigned (&w)[kLayerWords], int i,
     if (i == lane + kWarp * c) w[c] = v;
 }
 
-// The per-request prologue both instances share: origin, clamped length,
+// The per-request prologue: origin, length (0 if negative),
 // cluster masks of layers 1..L (lane i holds layer i + 1's in word i >> 5),
 // and the origin's rtt / 1/bw entries of lane d's DC, all loaded before use.
 struct Request {
@@ -83,12 +77,11 @@ struct Request {
   float rtt_o, ibw_o;
 };
 
-__device__ __forceinline__ Request load_request(int64_t r, int lane, const int* lens,
+__device__ __forceinline__ Request load_request(int64_t r, int lane, int len_raw,
                                                 const int* origin, const int* comp,
-                                                const float* rtt, const float* ibw, int K,
-                                                int D, int L) {
+                                                const float* rtt, const float* ibw, int D,
+                                                int L) {
   Request q;
-  const int len_raw = __ldg(lens + r);
   q.o = __ldg(origin + r);
   int cv[kLoadLayers];
 #pragma unroll
@@ -96,7 +89,7 @@ __device__ __forceinline__ Request load_request(int64_t r, int lane, const int* 
     cv[i] = (i < L && lane < D) ? __ldg(comp + (int64_t)(i + 1) * D + lane) : 0;
   q.rtt_o = lane < D ? __ldg(rtt + lane * D + q.o) : 0.f;  // used by the fold only
   q.ibw_o = lane < D ? __ldg(ibw + lane * D + q.o) : 0.f;
-  q.len = min(max(len_raw, 0), K);
+  q.len = max(len_raw, 0);
 #pragma unroll
   for (int c = 0; c < kLayerWords; ++c) q.allowed[c] = 0u;
 #pragma unroll
@@ -176,271 +169,224 @@ __device__ __forceinline__ void store_request(int64_t r, int lane, const Request
   }
 }
 
-template <int S>
-__global__ void route_expand_regs_kernel(const int* __restrict__ bits,     // [R, K]
-                                         const float* __restrict__ sizes,  // [R, K]
-                                         const int* __restrict__ lens,     // [R]
-                                         const int* __restrict__ origin,   // [R]
-                                         const int* __restrict__ comp,     // [L + 1, D]
-                                         const float* __restrict__ rtt,    // [D, D]
-                                         const float* __restrict__ ibw,    // [D, D]
-                                         int* __restrict__ served,         // [R, K]
-                                         float* __restrict__ bytes_rd,     // [R, D]
-                                         int* __restrict__ layers_used,    // [R]
-                                         int* __restrict__ miss_after,     // [R, L + 1]
-                                         float* __restrict__ straggler,    // [R]
-                                         float* __restrict__ wan,          // [R]
-                                         int R, int K, int D, int L) {
-  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (r >= R) return;  // warp-uniform
-  const unsigned* brow = reinterpret_cast<const unsigned*>(bits) + r * K;
-  const float* zrow = sizes + r * K;
-  unsigned b[S];
-  float z[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const int k = lane + kWarp * j;
-    b[j] = k < K ? __ldg(brow + k) : 0u;
-    z[j] = k < K ? __ldg(zrow + k) : 0.f;
-  }
-  const Request q = load_request(r, lane, lens, origin, comp, rtt, ibw, K, D, L);
+// ------------------------------------------------------------------ ragged
+// The flat item stream as it is: request r's slots are [offsets[r],
+// offsets[r + 1]).  A block of kRaggedThreads either walks one request with
+// all its warps (a request longer than a warp's share, listed first in
+// `order`) or hands each warp a request of its own.  Neither stages a slot:
+// an item is still missing exactly when its bitmask shares no bit with the
+// DCs taken so far (the origin, then each greedy pick; a picked DC covers
+// every missing item holding it, so it is never picked again), so a pass
+// reads the bits and keeps no per-slot state, and a request of any length
+// is read where it lies.  The picks come from one last pass: an item goes
+// to the first DC taken, in order, that holds it.
+constexpr int kRaggedThreads = 512;
+constexpr int kRaggedWarps = kRaggedThreads / kWarp;
 
-  // layer 0: local items; a slot past the length holds no bits and no pick
-  int s[S];
-  int local_miss = 0;
+// Per-DC counts of the missing slots (no bit of `chosen`) holding a bit of
+// `allowed`; lane d returns DC d's count over the group that walks the
+// request (a warp, or the whole block when kCta).  With `nmiss`, also the
+// number of missing slots.  `red` is the block's scratch for this pass.
+template <bool kCta>
+__device__ __forceinline__ int ragged_cover(const unsigned* __restrict__ bits, int len,
+                                            int rank, unsigned chosen, unsigned allowed,
+                                            int lane, int warp, int* red, int* nmiss) {
+  constexpr int stride = kCta ? kRaggedThreads : kWarp;
+  int c[kWarp];
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
-    if (lane + kWarp * j >= q.len) b[j] = 0u;
-    const bool local = (b[j] >> q.o) & 1u;
-    s[j] = local ? q.o : -1;
-    local_miss += (lane + kWarp * j < q.len) && !local;
-  }
-  int nmiss = __reduce_add_sync(kFull, local_miss);
-  unsigned miss[kLayerWords] = {0u, 0u, 0u, 0u};
-  set_lane_word(miss, 0, nmiss, lane);
-
-  int used = 0;
-  int layer = 0;
-  const int max_it = L * (D + 1);
-  for (int it = 0; layer < L && nmiss > 0 && it < max_it; ++it) {
-    const unsigned allowed = lane_word(q.allowed, layer);
-    if (allowed) used = layer + 1;
-    unsigned m[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) m[j] = s[j] < 0 ? b[j] & allowed : 0u;
-    int cover = 0;
-    for (int d0 = 0; d0 < D; d0 += kGroup) {
-      if (!((allowed >> d0) & 0xffu)) continue;  // warp-uniform
-      int c[kGroup];
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        c[i] = 0;
-#pragma unroll
-        for (int j = 0; j < S; ++j) c[i] += (m[j] >> (d0 + i)) & 1u;
-      }
-      keep_counts(c, d0, lane, cover);
-    }
-    const int2 gb = argmax_dc(cover, lane, D);
-    if (gb.x > 0) {
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        if ((m[j] >> gb.y) & 1u) s[j] = gb.y;
-      nmiss -= gb.x;
-    } else {
-      ++layer;
-      set_lane_word(miss, layer, nmiss, lane);
-    }
-  }
-
-  // Eq. 1 fold over the registers; DCs that served nothing are skipped
-  unsigned served_local = 0u;
-#pragma unroll
-  for (int j = 0; j < S; ++j)
-    if (s[j] >= 0) served_local |= 1u << s[j];
-  const unsigned served_dcs = __reduce_or_sync(kFull, served_local);
-  float my_bytes = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kGroup) {
-    if (!((served_dcs >> d0) & 0xffu)) continue;  // warp-uniform
-    float t[kGroup];
-#pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-      t[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        if (s[j] == d0 + i) t[i] += z[j];
-    }
-    keep_sums(t, d0, lane, my_bytes);
-  }
-  int* srow = served + r * K;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const int k = lane + kWarp * j;
-    if (k < K) srow[k] = s[j];
-  }
-  store_request(r, lane, q, my_bytes, (served_dcs >> lane) & 1u, used, miss, bytes_rd,
-                layers_used, miss_after, straggler, wan, D, L);
-}
-
-// bytes of one warp's region: bits and sizes as 4-byte words, picks as int8
-__host__ __device__ __forceinline__ size_t smem_region(int K) {
-  const size_t words = ((size_t)K + 3) & ~(size_t)3;
-  return words * 8 + words;
-}
-
-__global__ void route_expand_smem_kernel(const int* __restrict__ bits,
-                                         const float* __restrict__ sizes,
-                                         const int* __restrict__ lens,
-                                         const int* __restrict__ origin,
-                                         const int* __restrict__ comp,
-                                         const float* __restrict__ rtt,
-                                         const float* __restrict__ ibw,
-                                         int* __restrict__ served, float* __restrict__ bytes_rd,
-                                         int* __restrict__ layers_used,
-                                         int* __restrict__ miss_after,
-                                         float* __restrict__ straggler,
-                                         float* __restrict__ wan, int R, int K, int D, int L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / kWarp;
-  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp;
-  const int lane = threadIdx.x % kWarp;
-  if (r >= R) return;  // warp-uniform
-  const size_t words = ((size_t)K + 3) & ~(size_t)3;
-  unsigned* sb = reinterpret_cast<unsigned*>(smem + warp * smem_region(K));
-  float* sz = reinterpret_cast<float*>(sb + words);
-  signed char* ss = reinterpret_cast<signed char*>(sz + words);
-  const unsigned* brow = reinterpret_cast<const unsigned*>(bits) + r * K;
-  const float* zrow = sizes + r * K;
-  const Request q = load_request(r, lane, lens, origin, comp, rtt, ibw, K, D, L);
-
-  // stage the slots; lane l reads back only the slots l + 32 j it wrote
-  int local_miss = 0;
+  for (int i = 0; i < kWarp; ++i) c[i] = 0;
+  int open = 0;
 #pragma unroll 4
-  for (int k = lane; k < q.len; k += kWarp) {
-    const unsigned bk = __ldg(brow + k);
-    sb[k] = bk;
-    sz[k] = __ldg(zrow + k);
-    const bool local = (bk >> q.o) & 1u;
-    ss[k] = local ? (signed char)q.o : (signed char)-1;
-    local_miss += !local;
+  for (int k = rank; k < len; k += stride) {
+    const unsigned b = __ldg(bits + k);
+    const bool missing = (b & chosen) == 0u;
+    open += missing;
+    const unsigned m = missing ? b & allowed : 0u;
+#pragma unroll
+    for (int g = 0; g < kWarp / kGroup; ++g) {
+      if ((allowed >> (kGroup * g)) & 0xffu) {  // warp-uniform
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) c[kGroup * g + i] += (m >> (kGroup * g + i)) & 1u;
+      }
+    }
   }
-  int nmiss = __reduce_add_sync(kFull, local_miss);
+  int cover = 0;
+#pragma unroll
+  for (int g = 0; g < kWarp / kGroup; ++g) {
+    if ((allowed >> (kGroup * g)) & 0xffu) {
+      int cg[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) cg[i] = c[kGroup * g + i];
+      keep_counts(cg, kGroup * g, lane, cover);
+    }
+  }
+  if (nmiss) open = __reduce_add_sync(kFull, open);
+  if (kCta) {
+    // lane 31 is no DC (D <= 31): it carries the warp's missing count
+    red[warp * kWarp + lane] = (lane == kWarp - 1 && nmiss) ? open : cover;
+    __syncthreads();
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kRaggedWarps; ++w) sum += red[w * kWarp + lane];
+    if (nmiss) *nmiss = __shfl_sync(kFull, sum, kWarp - 1);
+    cover = lane < kWarp - 1 ? sum : 0;
+  } else if (nmiss) {
+    *nmiss = open;
+  }
+  return cover;
+}
+
+// One request's walk and fold by a warp, or by the whole block when kCta
+template <bool kCta>
+__device__ __forceinline__ void ragged_walk(
+    int r, int lane, int warp, const unsigned* __restrict__ bits_all,
+    const float* __restrict__ sizes_all, const int* __restrict__ offsets,
+    const int* __restrict__ origin, const int* __restrict__ comp, const float* __restrict__ rtt,
+    const float* __restrict__ ibw, signed char* __restrict__ served, float* __restrict__ bytes_rd,
+    int* __restrict__ layers_used, int* __restrict__ miss_after, float* __restrict__ straggler,
+    float* __restrict__ wan, int D, int L, int (*red)[kRaggedThreads], float* sums,
+    signed char* picks) {
+  constexpr int stride = kCta ? kRaggedThreads : kWarp;
+  const int rank = kCta ? (int)threadIdx.x : lane;
+  const int beg = __ldg(offsets + r);
+  const Request q =
+      load_request(r, lane, __ldg(offsets + r + 1) - beg, origin, comp, rtt, ibw, D, L);
+  const unsigned* bits = bits_all + beg;
+  const float* sizes = sizes_all + beg;
+  unsigned chosen = 1u << q.o;
+  int buf = 0;
+  int nmiss = 0;
+  int cover = ragged_cover<kCta>(bits, q.len, rank, chosen, lane_word(q.allowed, 0), lane, warp,
+                                 red[buf], &nmiss);
+  const int local_miss = nmiss;
   unsigned miss[kLayerWords] = {0u, 0u, 0u, 0u};
   set_lane_word(miss, 0, nmiss, lane);
 
   int used = 0;
   int layer = 0;
+  int n_picks = 0;
   const int max_it = L * (D + 1);
   for (int it = 0; layer < L && nmiss > 0 && it < max_it; ++it) {
-    const unsigned allowed = lane_word(q.allowed, layer);
-    if (allowed) used = layer + 1;
-    int cover = 0;
-    for (int d0 = 0; d0 < D; d0 += kGroup) {
-      if (!((allowed >> d0) & 0xffu)) continue;  // warp-uniform
-      int c[kGroup] = {};
-      for (int k = lane; k < q.len; k += kWarp) {
-        const unsigned m = ss[k] < 0 ? sb[k] & allowed : 0u;
-#pragma unroll
-        for (int i = 0; i < kGroup; ++i) c[i] += (m >> (d0 + i)) & 1u;
-      }
-      keep_counts(c, d0, lane, cover);
-    }
+    if (lane_word(q.allowed, layer)) used = layer + 1;
     const int2 gb = argmax_dc(cover, lane, D);
     if (gb.x > 0) {
-      for (int k = lane; k < q.len; k += kWarp)
-        if (ss[k] < 0 && ((sb[k] & allowed) >> gb.y) & 1u) ss[k] = (signed char)gb.y;
+      chosen |= 1u << gb.y;
+      if (lane == 0) picks[n_picks] = (signed char)gb.y;
+      ++n_picks;
       nmiss -= gb.x;
     } else {
       ++layer;
       set_lane_word(miss, layer, nmiss, lane);
     }
-  }
-
-  unsigned served_local = 0u;
-  for (int k = lane; k < q.len; k += kWarp)
-    if (ss[k] >= 0) served_local |= 1u << ss[k];
-  const unsigned served_dcs = __reduce_or_sync(kFull, served_local);
-  float my_bytes = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kGroup) {
-    if (!((served_dcs >> d0) & 0xffu)) continue;  // warp-uniform
-    float t[kGroup] = {};
-    for (int k = lane; k < q.len; k += kWarp) {
-      const int sk = ss[k];
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i)
-        if (sk == d0 + i) t[i] += sz[k];
+    if (layer < L && nmiss > 0 && it + 1 < max_it) {  // the next pass's counts
+      buf ^= 1;
+      cover = ragged_cover<kCta>(bits, q.len, rank, chosen, lane_word(q.allowed, layer), lane,
+                                 warp, red[buf], nullptr);
     }
-    keep_sums(t, d0, lane, my_bytes);
   }
-  int* srow = served + r * K;
-  for (int k = lane; k < K; k += kWarp) srow[k] = k < q.len ? (int)ss[k] : -1;
+  __syncwarp();
+
+  // picks and the Eq. 1 fold in one pass; DCs that served nothing are skipped
+  const unsigned served_dcs =
+      (chosen & ~(1u << q.o)) | (q.len > local_miss ? 1u << q.o : 0u);
+  float t[kWarp];
+#pragma unroll
+  for (int i = 0; i < kWarp; ++i) t[i] = 0.f;
+#pragma unroll 4
+  for (int k = rank; k < q.len; k += stride) {
+    const unsigned b = __ldg(bits + k);
+    const float z = __ldg(sizes + k);
+    int p = -1;
+    if ((b >> q.o) & 1u) {
+      p = q.o;
+    } else {
+      for (int j = 0; j < n_picks; ++j) {
+        const int d = picks[j];
+        if ((b >> d) & 1u) {
+          p = d;
+          break;
+        }
+      }
+    }
+    served[beg + k] = (signed char)p;
+#pragma unroll
+    for (int g = 0; g < kWarp / kGroup; ++g) {
+      if ((served_dcs >> (kGroup * g)) & 0xffu) {  // warp-uniform
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+          if (p == kGroup * g + i) t[kGroup * g + i] += z;
+      }
+    }
+  }
+  float my_bytes = 0.f;
+#pragma unroll
+  for (int g = 0; g < kWarp / kGroup; ++g) {
+    if ((served_dcs >> (kGroup * g)) & 0xffu) {
+      float tg[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) tg[i] = t[kGroup * g + i];
+      keep_sums(tg, kGroup * g, lane, my_bytes);
+    }
+  }
+  if (kCta) {
+    sums[warp * kWarp + lane] = my_bytes;
+    __syncthreads();
+    if (warp != 0) return;
+    my_bytes = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRaggedWarps; ++w) my_bytes += sums[w * kWarp + lane];
+  }
   store_request(r, lane, q, my_bytes, (served_dcs >> lane) & 1u, used, miss, bytes_rd,
                 layers_used, miss_after, straggler, wan, D, L);
 }
 
-template <int S>
-void launch_regs(unsigned grid, int threads, cudaStream_t st, const int* bits,
-                 const float* sizes, const int* lens, const int* origin, const int* comp,
-                 const float* rtt, const float* ibw, int* served, float* bytes_rd,
-                 int* layers_used, int* miss_after, float* straggler, float* wan, int R, int K,
-                 int D, int L) {
-  route_expand_regs_kernel<S><<<grid, threads, 0, st>>>(bits, sizes, lens, origin, comp, rtt,
-                                                        ibw, served, bytes_rd, layers_used,
-                                                        miss_after, straggler, wan, R, K, D, L);
+__global__ void __launch_bounds__(kRaggedThreads) route_expand_ragged_kernel(
+    const int* __restrict__ bits,     // [N] flat item stream
+    const float* __restrict__ sizes,  // [N]
+    const int* __restrict__ offsets,  // [R + 1] request r's slots: [offsets[r], offsets[r + 1])
+    const int* __restrict__ origin,   // [R]
+    const int* __restrict__ order,    // [R] the n_long requests a block walks first
+    int n_long, const int* __restrict__ comp, const float* __restrict__ rtt,
+    const float* __restrict__ ibw, signed char* __restrict__ served,  // [N]
+    float* __restrict__ bytes_rd, int* __restrict__ layers_used, int* __restrict__ miss_after,
+    float* __restrict__ straggler, float* __restrict__ wan, int R, int D, int L) {
+  __shared__ int red[2][kRaggedThreads];
+  __shared__ float sums[kRaggedThreads];
+  __shared__ signed char picks[kRaggedWarps][kWarp];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const unsigned* ubits = reinterpret_cast<const unsigned*>(bits);
+  if ((int)blockIdx.x < n_long) {  // block-uniform
+    ragged_walk<true>(__ldg(order + blockIdx.x), lane, warp, ubits, sizes, offsets, origin, comp,
+                      rtt, ibw, served, bytes_rd, layers_used, miss_after, straggler, wan, D, L,
+                      red, sums, picks[warp]);
+    return;
+  }
+  const int64_t w = (int64_t)(blockIdx.x - n_long) * kRaggedWarps + warp + n_long;
+  if (w >= R) return;  // warp-uniform
+  ragged_walk<false>(__ldg(order + w), lane, warp, ubits, sizes, offsets, origin, comp, rtt, ibw,
+                     served, bytes_rd, layers_used, miss_after, straggler, wan, D, L, red, sums,
+                     picks[warp]);
 }
 
 }  // namespace
 
-// Slots a lane holds in registers for K item slots (1, 2, 4 or 8), or 0
-// when the warp stages them in shared memory; -1 when no instance takes K.
-extern "C" int route_expand_slots(int K) {
-  for (int s = 1; s <= kMaxRegSlots; s <<= 1)
-    if (K <= kWarp * s) return s;
-  return smem_region(K) <= (size_t)kSmemMax ? 0 : -1;
-}
-
-extern "C" int route_expand_launch(const int* bits, const float* sizes, const int* lens,
-                                   const int* origin, const int* comp, const float* rtt,
-                                   const float* ibw, int* served, float* bytes_rd,
-                                   int* layers_used, int* miss_after, float* straggler,
-                                   float* wan, int R, int K, int D, int L, int block_r,
-                                   void* stream) {
+// Route a ragged batch: n_long blocks walk order[0 .. n_long) one request
+// each, then each warp of the rest walks one of order[n_long .. R).
+extern "C" int route_expand_ragged_launch(const int* bits, const float* sizes,
+                                          const int* offsets, const int* origin,
+                                          const int* order, int n_long, const int* comp,
+                                          const float* rtt, const float* ibw,
+                                          signed char* served, float* bytes_rd,
+                                          int* layers_used, int* miss_after, float* straggler,
+                                          float* wan, int R, int D, int L, void* stream) {
   if (R == 0) return (int)cudaSuccess;
-  const int slots = route_expand_slots(K);
-  if (D < 1 || D > kWarp - 1 || L < 0 || L + 1 > kWarp * kLayerWords || block_r < 1 ||
-      slots < 0)
+  if (D < 1 || D > kWarp - 1 || L < 0 || L + 1 > kWarp * kLayerWords || n_long < 0 ||
+      n_long > R)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (slots == 0) {
-    static bool attr_set[kMaxDevices] = {};  // raise the shared memory cap once a device
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    if (!attr_set[dev]) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          route_expand_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-      if (e != cudaSuccess) return (int)e;
-      attr_set[dev] = true;
-    }
-    const size_t fit = (size_t)kSmemMax / smem_region(K);
-    const int warps = fit < (size_t)block_r ? (int)fit : block_r;
-    const unsigned grid = (unsigned)((R + warps - 1) / warps);
-    route_expand_smem_kernel<<<grid, warps * kWarp, warps * smem_region(K), st>>>(
-        bits, sizes, lens, origin, comp, rtt, ibw, served, bytes_rd, layers_used, miss_after,
-        straggler, wan, R, K, D, L);
-    return (int)cudaGetLastError();
-  }
-  const unsigned grid = (unsigned)((R + block_r - 1) / block_r);
-  const int threads = block_r * kWarp;
-#define RE_ARGS                                                                          \
-  grid, threads, st, bits, sizes, lens, origin, comp, rtt, ibw, served, bytes_rd,        \
-      layers_used, miss_after, straggler, wan, R, K, D, L
-  switch (slots) {
-    case 1: launch_regs<1>(RE_ARGS); break;
-    case 2: launch_regs<2>(RE_ARGS); break;
-    case 4: launch_regs<4>(RE_ARGS); break;
-    default: launch_regs<8>(RE_ARGS); break;
-  }
-#undef RE_ARGS
+  const unsigned grid = (unsigned)(n_long + (R - n_long + kRaggedWarps - 1) / kRaggedWarps);
+  route_expand_ragged_kernel<<<grid, kRaggedThreads, 0, (cudaStream_t)stream>>>(
+      bits, sizes, offsets, origin, order, n_long, comp, rtt, ibw, served, bytes_rd, layers_used,
+      miss_after, straggler, wan, R, D, L);
   return (int)cudaGetLastError();
 }

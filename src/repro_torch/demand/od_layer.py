@@ -124,10 +124,18 @@ class ODDemandLayer:
 
         Duplicate ids accumulate (``np.add.at``), matching the legacy
         per-cache scatter exactly — fancy-index ``+=`` would collapse them.
+        A weight that float32 holds exactly (the serving path's 1.0) goes in
+        as a float32 scalar, the tables' dtype: a Python float sends
+        ``np.add.at`` down its casting loop, some thirty times slower, which
+        adds in float64 and rounds each sum to float32 once, the same sum a
+        float32 add gives.  Any other weight keeps that loop.
         """
         ids = np.asarray(item_ids)
-        np.add.at(self.heat[origin], ids, freq)
-        np.add.at(self.od[origin], ids, freq)
+        w = np.float32(freq)
+        if float(w) != freq:
+            w = freq
+        np.add.at(self.heat[origin], ids, w)
+        np.add.at(self.od[origin], ids, w)
         self.total_observed += float(freq) * len(ids)
 
     def observe_requests(self, requests: Sequence[Tuple[np.ndarray, int]]) -> None:

@@ -56,9 +56,9 @@ _SIGNATURES = {
     "dhd_flow_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "dhd_count_single": (_P, _P, _P, _P, _I, _I, _P),
     "dhd_flow_single": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
-    "route_expand_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _P,
+    "route_expand_ragged_launch": (
+        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _P,
     ),
     "flash_attention_fwd": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -66,7 +66,6 @@ _SIGNATURES = {
     ),
     "embedding_bag_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "embedding_bag_instance": (_P, _P, _I, _I),
-    "route_expand_slots": (_I,),
 }
 
 

@@ -25,7 +25,8 @@ from . import ref
 from .dhd_spmv import dhd_ell_step, dhd_ell_step_batch
 from .embedding_bag import embedding_bag
 from .flash_attention import flash_attention
-from .route_expand import route_expand as _route_expand_kernel
+from .route_expand import pack_ragged, ragged_buffers, ragged_int_views, unpack_ragged
+from .route_expand import route_expand_ragged as _route_expand_ragged_kernel
 
 __all__ = [
     "attention",
@@ -36,8 +37,8 @@ __all__ = [
     "dhd_step_batch",
     "diffuse_batch",
     "edge_cache_stats",
-    "route_expand_batch",
     "route_expand_candidates",
+    "route_expand_flat",
     "route_expand_subsets",
 ]
 
@@ -499,16 +500,14 @@ def route_expand_candidates(
 ) -> list:
     """Autotuner candidate configs for ``route_expand`` on ``backend``.
 
-    CUDA has one: the kernel (the card runs nothing else).  CPU pits the
-    tile path's plain version against the subset-histogram router, offered
-    only when the DC count keeps its ``2**D`` histogram small (``n_dcs``
-    unknown counts as eligible — dispatch re-checks)."""
+    CUDA has one: the ragged kernel (the card runs nothing else).  CPU pits
+    its plain version against the subset-histogram router, offered only
+    when the DC count keeps its ``2**D`` histogram small (``n_dcs`` unknown
+    counts as eligible — dispatch re-checks)."""
     if backend is None:
         backend = "cuda" if on_cuda() else "cpu"
-    if backend == "cuda":
-        return [{"impl": "kernel"}]
-    cands = [{"impl": "ref"}]
-    if n_dcs is None or n_dcs <= SUBSET_MAX_DCS:
+    cands = [{"impl": "kernel"}]
+    if backend != "cuda" and (n_dcs is None or n_dcs <= SUBSET_MAX_DCS):
         cands.append({"impl": "subsets"})
     return cands
 
@@ -519,47 +518,59 @@ def _as_device(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
 
 
-def route_expand_batch(
-    bits: np.ndarray,  # [R, K] i32 per-item replica bitmask (bit d = DC d)
-    sizes: np.ndarray,  # [R, K] f32 item bytes (0 where padded)
-    lens: np.ndarray,  # [R] real item count per request
+def route_expand_flat(
+    bits: np.ndarray,  # [N] i32 per-item replica bitmask, the flat item stream
+    sizes: np.ndarray,  # [N] f32 item bytes
+    bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
     origin: np.ndarray,  # [R] origin DC per request
     comp,  # [hier + 1, D] layer component ids (numpy or a device tensor)
     rtt,  # [D, D] env RTT matrix
     ibw,  # [D, D] elementwise 1 / bandwidth matrix
     device: DeviceLike = None,
-) -> Tuple[np.ndarray, ...]:
-    """Fused stepwise layered expansion + Eq. 1 fold for a packed batch, on
-    ``device``: the CUDA kernel on the card, its plain version on the CPU —
-    both produce the oracle's exact greedy picks.  Returns numpy
-    ``(served, bytes_rd, layers_used, miss_after, straggler_s, wan_bytes)``.
-    """
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fused stepwise layered expansion of the flat item stream, on
+    ``device``: the ragged CUDA kernel on the card, its plain version on the
+    CPU; both produce the oracle's exact greedy picks.  On the card the
+    stream, offsets, origins and block order go up in one copy from pinned
+    memory and the integer outputs come back in one.  Returns numpy
+    ``(served [N] i8, layers_used [R] i32, miss_after [R, L+1] i32)``; the
+    byte and latency fold is left to the caller's exact host epilogue."""
     dev = resolve_device(device)
-    D = comp.shape[1]
     t0 = _obs_t0()
-    origin_np = np.asarray(origin)
-    if len(origin_np) and not (0 <= origin_np.min() and origin_np.max() < D):
+    N, R = len(bits), len(origin)
+    D = comp.shape[1]
+    L = comp.shape[0] - 1
+    origin = np.asarray(origin)
+    if R and not (0 <= origin.min() and origin.max() < D):
         raise ValueError(f"origin DCs must lie in [0, {D})")
-    args = (
-        _as_device(bits, torch.int32, dev),
-        _as_device(sizes, torch.float32, dev),
-        _as_device(lens, torch.int32, dev),
-        _as_device(origin_np, torch.int32, dev),
-        _as_device(comp, torch.int32, dev),
-        _as_device(rtt, torch.float32, dev),
-        _as_device(ibw, torch.float32, dev),
+    if dev.type == "cpu":
+        served, _, layers_used, miss_after, _, _ = _route_expand_ragged_kernel(
+            _as_device(bits, torch.int32, dev), _as_device(sizes, torch.float32, dev),
+            _as_device(bounds, torch.int32, dev), _as_device(origin, torch.int32, dev),
+            _as_device(comp, torch.int32, dev), _as_device(rtt, torch.float32, dev),
+            _as_device(ibw, torch.float32, dev),
+        )
+        _route_obs("ref", t0)
+        return served.numpy(), layers_used.numpy(), miss_after.numpy()
+    host = torch.empty(2 * N + 3 * R + 1, dtype=torch.int32, pin_memory=True)
+    _, n_long = pack_ragged(bits, sizes, bounds, origin, out=host.numpy())
+    b, z, offsets, org, order = unpack_ragged(host.to(dev, non_blocking=True), N, R)
+    out = ragged_buffers(N, R, D, L, dev)
+    _route_expand_ragged_kernel(
+        b, z, offsets, org, _as_device(comp, torch.int32, dev),
+        _as_device(rtt, torch.float32, dev), _as_device(ibw, torch.float32, dev),
+        order=order, n_long=n_long, out=out,
     )
-    out = tuple(o.cpu().numpy() for o in _route_expand_kernel(*args))
-    _route_obs("kernel" if dev.type == "cuda" else "ref", t0)
-    return out
+    served, layers_used, miss_after = ragged_int_views(out[0].cpu(), N, R, L)
+    _route_obs("kernel", t0)
+    return served.numpy(), layers_used.numpy(), miss_after.numpy()
 
 
 # subset-histogram router: with D data centers an item's routing behaviour is
 # fully determined by its replica bitmask, so a batch collapses to at most
 # 2**D distinct item classes per request.  Histogramming the flat item stream
 # over (request, bitmask) turns every greedy pass into [R, 2**D]-sized work —
-# independent of the item count — which on CPU beats the plain tile version
-# by a wide margin for small D.
+# independent of the item count: the CPU's default for small D.
 SUBSET_MAX_DCS = 8
 
 _SUBSET_HAS_CACHE: dict = {}

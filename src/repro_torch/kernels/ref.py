@@ -19,8 +19,7 @@ __all__ = [
     "dhd_ell_ref",
     "dhd_ell_ref_batch",
     "embedding_bag_ref",
-    "route_expand_masks",
-    "route_expand_ref",
+    "route_expand_ragged_ref",
 ]
 
 
@@ -159,99 +158,94 @@ def dhd_ell_flow_ref(
     return (1.0 - gamma) * (heat + inflow - outflow) + beta * q
 
 
-def route_expand_masks(
-    bits: torch.Tensor,  # [R, K] i32 per-item replica bitmask over DCs
-    lens: torch.Tensor,  # [R] i32 real item count per request
-    origin: torch.Tensor,  # [R] i32 origin DC
-    comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids (layer 0 first)
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(valid [R, K], local [R, K], missing [R, K], allowed [R, L, D])``;
-    ``allowed[r, l, d]`` is True when DC ``d`` sits in the origin's layer
-    ``l + 1`` cluster (the origin itself excluded, as in the greedy)."""
-    R, K = bits.shape
-    D = comp.shape[1]
-    dev = bits.device
-    origin = origin.long()
-    valid = torch.arange(K, device=dev)[None, :] < lens[:, None]
-    local = valid & (((bits >> origin[:, None].to(bits.dtype)) & 1) > 0)
-    comp_l = comp[1:]  # [L, D]
-    comp_o = comp_l[:, origin].T  # [R, L]
-    allowed = (comp_l[None, :, :] == comp_o[:, :, None]) & (
-        torch.arange(D, device=dev)[None, None, :] != origin[:, None, None]
-    )
-    return valid, local, valid & ~local, allowed
-
-
-def route_expand_ref(
-    bits: torch.Tensor,  # [R, K] i32 per-item replica bitmask (bit d = DC d)
-    sizes: torch.Tensor,  # [R, K] f32 item bytes (0 where padded)
-    lens: torch.Tensor,  # [R] i32 real item count per request
+def route_expand_ragged_ref(
+    bits: torch.Tensor,  # [N] i32 per-item replica bitmask, the flat item stream
+    sizes: torch.Tensor,  # [N] f32 item bytes
+    offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
     origin: torch.Tensor,  # [R] i32 origin DC per request
     comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
     rtt: torch.Tensor,  # [D, D] f32 env RTT matrix
     ibw: torch.Tensor,  # [D, D] f32 elementwise 1 / bandwidth matrix
 ) -> Tuple[torch.Tensor, ...]:
-    """Fused stepwise layered expansion (paper §VI) + Eq. 1 latency fold.
+    """Fused stepwise layered expansion (paper §VI) + Eq. 1 latency fold on
+    the flat item stream: request ``r``'s items are ``[offsets[r],
+    offsets[r + 1])``, with no ``[R, K]`` tile and no bound on a request's
+    length.  The plain version of ``route_expand_ragged``, and the JAX
+    oracle ``route_expand_ref``'s results on the same requests.
 
-    The batch walks the layers in lockstep: a pass that assigns items
-    anywhere stays in the layer, a pass with no progress anywhere moves the
-    shared layer pointer up.  Extra passes are idempotent per request, so
-    the lockstep walk equals per-request greedy (serve locally, then per
-    layer pick the cluster DC covering the most missing items, lowest DC id
-    on ties).  The loop is bounded by ``L * (D + 1)`` passes.
+    Each request keeps its own layer; a pass moves every request still
+    walking one greedy step (pick the cluster DC covering the most missing
+    items, lowest DC id on ties, or go up a layer), bounded by
+    ``L * (D + 1)`` passes.  An item is missing while its bitmask shares no
+    bit with the DCs taken so far (the origin, then each pick), and is
+    served by the first of them, in order, that holds it.
 
-    Returns ``(served [R, K] i32 (-1 unresolved), bytes_rd [R, D] f32,
+    Returns ``(served [N] i8 (-1 unresolved), bytes_rd [R, D] f32,
     layers_used [R] i32, miss_after [R, L+1] i32, straggler_s [R] f32,
     wan_bytes [R] f32)``.
     """
-    R, K = bits.shape
+    R = origin.shape[0]
     L = comp.shape[0] - 1
     D = comp.shape[1]
     dev = bits.device
-    valid, local, missing, allowed = route_expand_masks(bits, lens, origin, comp)
-    origin_l = origin.long()
-    served = torch.where(
-        local, origin_l[:, None].to(torch.int32), torch.full((), -1, dtype=torch.int32, device=dev)
-    )
-    layers_used = torch.zeros(R, dtype=torch.int32, device=dev)
+    lens = (offsets[1:] - offsets[:-1]).long()
+    req = torch.repeat_interleave(torch.arange(R, device=dev), lens)  # [N]
+    o = origin.long()
+    ar_R = torch.arange(R, device=dev)
+    dcs = torch.arange(D, device=dev)
+    has = ((bits.long()[:, None] >> dcs) & 1) > 0  # [N, D]
+    comp_l = comp[1:].long()  # [L, D]
+    allowed = (comp_l[None, :, :] == comp_l[:, o].T[:, :, None]) & (
+        dcs[None, None, :] != o[:, None, None]
+    )  # [R, L, D]
+    taken = dcs[None, :] == o[:, None]  # [R, D] DCs taken so far
+    rank = torch.where(taken, 0, D)  # order of taking; D = never taken
+    n_taken = torch.ones(R, dtype=torch.long, device=dev)
+    missing = ~(has & taken[req]).any(dim=1)
+    nmiss = torch.zeros(R, dtype=torch.long, device=dev).index_add_(0, req, missing.long())
     miss_after = torch.zeros((R, L + 1), dtype=torch.int32, device=dev)
-    miss_after[:, 0] = missing.sum(dim=1).to(torch.int32)
-    dc_bits = torch.arange(D, device=dev, dtype=bits.dtype)
-    has_dc = ((bits[:, :, None] >> dc_bits) & 1) > 0  # [R, K, D]
-    layer, it = 0, 0
-    while layer < L and it < L * (D + 1) and bool(missing.any()):
-        a_l = allowed[:, layer]  # [R, D]
-        layers_used = torch.where(
-            missing.any(dim=1) & a_l.any(dim=1),
-            torch.full((), layer + 1, dtype=torch.int32, device=dev),
-            layers_used,
+    miss_after[:, 0] = nmiss.to(torch.int32)
+    layers_used = torch.zeros(R, dtype=torch.int32, device=dev)
+    layer = torch.zeros(R, dtype=torch.long, device=dev)
+    walking = (layer < L) & (nmiss > 0)
+    it = 0
+    while it < L * (D + 1) and bool(walking.any()):
+        a_l = allowed[ar_R, layer.clamp(max=max(L - 1, 0))] & walking[:, None]  # [R, D]
+        layers_used = torch.where(walking & a_l.any(dim=1), (layer + 1).to(torch.int32),
+                                  layers_used)
+        cover = torch.zeros((R, D), dtype=torch.long, device=dev).index_add_(
+            0, req, (has & missing[:, None]).long()
         )
-        cover = (has_dc & missing[:, :, None]).sum(dim=1)  # [R, D] exact ints
         cover = torch.where(a_l, cover, torch.zeros_like(cover))
         gain, best = cover.max(dim=1)  # first max == lowest DC id
-        hit = missing & (gain > 0)[:, None] & has_dc.gather(
-            2, best[:, None, None].expand(R, K, 1)
-        )[..., 0]
-        served = torch.where(hit, best[:, None].to(torch.int32), served)
-        missing = missing & ~hit
-        if bool(hit.any()):
-            it += 1
-            continue
-        miss_after[:, layer + 1] = missing.sum(dim=1).to(torch.int32)
-        layer += 1
+        step = walking & (gain > 0)
+        pick = step[:, None] & (dcs[None, :] == best[:, None])  # [R, D]
+        taken = taken | pick
+        rank = torch.where(pick, n_taken[:, None], rank)
+        n_taken = n_taken + step.long()
+        nmiss = nmiss - torch.where(step, gain, torch.zeros_like(gain))
+        missing = missing & ~(has & pick[req]).any(dim=1)
+        up = walking & ~step
+        layer = layer + up.long()
+        rows = ar_R[up]
+        miss_after[rows, layer[up]] = nmiss[up].to(torch.int32)
+        walking = (layer < L) & (nmiss > 0)
         it += 1
 
-    # Eq. 1 fold: per-DC served bytes -> transfer latency, straggler = max
-    # over serving DCs, WAN = bytes served away from the origin
-    szv = torch.where(valid, sizes, torch.zeros((), dtype=sizes.dtype, device=dev))
-    at_dc = served[:, :, None] == torch.arange(D, device=dev, dtype=torch.int32)
-    bytes_rd = torch.where(at_dc, szv[:, :, None], szv.new_zeros(())).sum(dim=1)
-    served_d = at_dc.any(dim=1)
-    at_origin = torch.arange(D, device=dev)[None, :] == origin_l[:, None]  # [R, D]
-    rtt_ro = rtt[:, origin_l].T
-    ibw_ro = ibw[:, origin_l].T
+    # picks: the first DC taken that holds the item; then the Eq. 1 fold
+    first = torch.where(has, rank[req], D).min(dim=1)
+    served = torch.where(first.values < D, first.indices, -1)
+    at = served >= 0
+    cell = req[at] * D + served[at]
+    bytes_rd = torch.zeros(R * D, dtype=sizes.dtype, device=dev).index_add_(
+        0, cell, sizes[at]
+    ).view(R, D)
+    served_d = torch.zeros(R * D, dtype=torch.bool, device=dev)
+    served_d[cell] = True
+    served_d = served_d.view(R, D)
+    at_origin = dcs[None, :] == o[:, None]
     zero = sizes.new_zeros(())
-    lat_rd = torch.where(at_origin, zero, rtt_ro + bytes_rd * ibw_ro)
+    lat_rd = torch.where(at_origin, zero, rtt[:, o].T + bytes_rd * ibw[:, o].T)
     straggler = torch.where(served_d, lat_rd, zero).max(dim=1).values
     wan = torch.where(at_origin, zero, bytes_rd).sum(dim=1)
-    return served, bytes_rd, layers_used, miss_after, straggler, wan
+    return served.to(torch.int8), bytes_rd, layers_used, miss_after, straggler, wan

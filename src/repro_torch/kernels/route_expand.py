@@ -1,86 +1,61 @@
 """Fused stepwise layered routing expansion: CUDA kernel for Hopper.
 
 Replaces ``_expand_kernel`` of the JAX package's ``kernels/route_expand.py``
-(Pallas, TPU).  The kernel lives in ``csrc/route_expand.cu``: one warp per
-request walks its own greedy (local items, then per layer the cluster DC
-covering the most missing items, lowest DC id on ties, escalate on no
-progress) and folds Eq. 1.  Requests need no lockstep: extra greedy passes
-are idempotent, so per-request walks equal the block-lockstep oracle.
+(Pallas, TPU).  The kernel lives in ``csrc/route_expand.cu``: each request
+walks its own greedy (local items, then per layer the cluster DC covering
+the most missing items, lowest DC id on ties, escalate on no progress) and
+folds Eq. 1.  Requests need no lockstep: extra greedy passes are
+idempotent, so per-request walks equal the block-lockstep oracle.
 
-A request's walk is a chain of up to ``L * (D + 1)`` dependent passes, so
-the kernel takes the latency of one warp's walk; its bytes (``R * K * 12``)
-take less than a launch on an H100.  So every load of a request is issued
-before its first use, and the walk and the fold touch no memory: lane ``l``
-holds slots ``l + 32 j`` in registers (:func:`slots_instance` says how many
-a lane), counts and argmax are warp reductions, and the picks are stored
-once.  Past 256 slots each warp stages its slots in its own region of
-shared memory instead.
+:func:`route_expand_ragged` takes the flat item stream as the router holds
+it (bits, sizes, request offsets, origins): no ``[R, K]`` tile, so no
+padding, and no bound on a request's length.  A warp walks a request of up
+to :data:`WARP_SHARE` slots; a longer one gets a block of 512 threads of
+its own.  A request's walk is a chain of up to ``L * (D + 1)`` dependent
+passes, so a launch takes the latency of its longest walk, not its bytes.
+An item is missing exactly while its bitmask shares no bit with the DCs
+taken so far, so a pass reads the bits where they lie and no slot is
+staged.
 
-For tensors on the CPU :func:`route_expand` takes the plain version,
-:func:`repro_torch.kernels.ref.route_expand_ref`; for CUDA tensors it
-launches the kernel or raises.
+For tensors on the CPU the wrapper takes its plain version
+(:func:`repro_torch.kernels.ref.route_expand_ragged_ref`); for CUDA tensors
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import ref
 from .cuda_lib import check, library, register_counter, stream_ptr
 
-__all__ = ["LAUNCHES", "MAX_DCS", "MAX_LAYERS", "MAX_SLOTS", "route_expand", "slots_instance"]
+__all__ = ["MAX_DCS", "MAX_LAYERS", "RAGGED_LAUNCHES", "WARP_SHARE", "pack_ragged",
+           "ragged_buffers", "ragged_int_views", "ragged_order", "route_expand_ragged",
+           "unpack_ragged"]
 
-LAUNCHES = register_counter("route_expand")
+RAGGED_LAUNCHES = register_counter("route_expand_ragged")
 MAX_DCS = 31  # one int32 bitmask per item, one warp lane per DC (bit 31 = sign)
 MAX_LAYERS = 127  # per-layer masks and miss counts held one a lane, 4 words
-# requests (warps) per CTA: 2 and 4 time the same on an H100, 8 up to 10%
-# slower at batches of 64 and 256 (tools/kernel_ab.py)
-BLOCK_R = 4
-REG_SLOTS = (1, 2, 4, 8)  # the register instances' slots a lane: K <= 256
-_SMEM_MAX = 232448  # dynamic shared memory a block may use on Hopper
+# slots a warp of the ragged kernel walks alone (8 a lane); a longer request
+# gets a block of its own
+WARP_SHARE = 256
 
 
-def _smem_region(K: int) -> int:
-    words = -(-K // 4) * 4  # bits and sizes as 4-byte words, picks as int8
-    return 9 * words
-
-
-MAX_SLOTS = _SMEM_MAX // 9 // 4 * 4  # the most item slots one warp stages
-
-
-def slots_instance(K: int) -> int:
-    """Item slots a lane holds in registers for ``K`` slots a request (the
-    smallest of 1, 2, 4, 8 with ``32 * S >= K``), or 0 when ``K > 256`` and
-    each warp stages its slots in shared memory.  Raises past
-    :data:`MAX_SLOTS`, which no instance takes."""
-    if K < 0 or K > MAX_SLOTS:
-        raise ValueError(f"route_expand takes 0 to {MAX_SLOTS} item slots, got {K}")
-    return next((s for s in REG_SLOTS if K <= 32 * s), 0)
-
-
-def _check_inputs(bits, sizes, lens, origin, comp, rtt, ibw) -> None:
-    if bits.dim() != 2:
-        raise ValueError(f"bits must be [R, K], got {tuple(bits.shape)}")
-    R, K = bits.shape
+def _check_comp(comp) -> None:
     if comp.dim() != 2 or comp.shape[0] < 1:
         raise ValueError(f"comp must be [L + 1, D], got {tuple(comp.shape)}")
-    D = comp.shape[1]
-    if D > MAX_DCS:
-        raise ValueError(f"route_expand takes at most {MAX_DCS} DCs, got {D}")
+    if comp.shape[1] > MAX_DCS:
+        raise ValueError(f"route_expand takes at most {MAX_DCS} DCs, got {comp.shape[1]}")
     if comp.shape[0] - 1 > MAX_LAYERS:
         raise ValueError(f"route_expand takes at most {MAX_LAYERS} layers, got "
                          f"{comp.shape[0] - 1}")
-    slots_instance(K)
-    shapes = (
-        ("sizes", sizes, (R, K), torch.float32),
-        ("lens", lens, (R,), torch.int32),
-        ("origin", origin, (R,), torch.int32),
-        ("comp", comp, tuple(comp.shape), torch.int32),
-        ("rtt", rtt, (D, D), torch.float32),
-        ("ibw", ibw, (D, D), torch.float32),
-        ("bits", bits, (R, K), torch.int32),
-    )
+
+
+def _check_like(bits, shapes) -> None:
+    """Each ``(name, tensor, shape, dtype)`` of ``shapes`` as the launch
+    needs it: that shape and dtype, contiguous, on ``bits``' device."""
     for name, t, shape, dt in shapes:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
@@ -92,44 +67,111 @@ def _check_inputs(bits, sizes, lens, origin, comp, rtt, ibw) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def route_expand(
-    bits: torch.Tensor,  # [R, K] i32 per-item replica bitmask (bit d = DC d)
-    sizes: torch.Tensor,  # [R, K] f32 item bytes (0 where padded)
-    lens: torch.Tensor,  # [R] i32 real item count per request
+def ragged_order(lens: np.ndarray) -> Tuple[np.ndarray, int]:
+    """``(order [R] i32, n_long)``: the requests longer than
+    :data:`WARP_SHARE`, each walked by a block, then the rest, a warp each."""
+    long = lens > WARP_SHARE
+    order = np.concatenate([np.flatnonzero(long), np.flatnonzero(~long)]).astype(np.int32)
+    return order, int(long.sum())
+
+
+def pack_ragged(bits: np.ndarray, sizes: np.ndarray, bounds: np.ndarray, origin: np.ndarray,
+                out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, int]:
+    """The ragged inputs in one int32 buffer, for one upload: ``(buf,
+    n_long)`` with ``buf = [bits N | sizes N (f32 bits) | offsets R + 1 |
+    origin R | order R]``; written into ``out`` when given (pinned memory,
+    say).  :func:`unpack_ragged` takes it apart again."""
+    N, R = len(bits), len(origin)
+    order, n_long = ragged_order(np.diff(bounds))
+    buf = np.empty(2 * N + 3 * R + 1, np.int32) if out is None else out
+    buf[:N] = bits
+    buf[N:2 * N].view(np.float32)[:] = sizes
+    buf[2 * N:2 * N + R + 1] = bounds
+    buf[2 * N + R + 1:2 * N + 2 * R + 1] = origin
+    buf[2 * N + 2 * R + 1:] = order
+    return buf, n_long
+
+
+def unpack_ragged(buf: torch.Tensor, N: int, R: int) -> Tuple[torch.Tensor, ...]:
+    """``(bits, sizes, offsets, origin, order)`` as views of a
+    :func:`pack_ragged` buffer."""
+    return (buf[:N], buf[N:2 * N].view(torch.float32), buf[2 * N:2 * N + R + 1],
+            buf[2 * N + R + 1:2 * N + 2 * R + 1], buf[2 * N + 2 * R + 1:])
+
+
+def ragged_int_views(ints: torch.Tensor, N: int, R: int, L: int) -> Tuple[torch.Tensor, ...]:
+    """``(served [N] i8, layers_used [R] i32, miss_after [R, L+1] i32)`` as
+    views of an int32 buffer laid out ``[layers_used | miss_after |
+    served]``."""
+    return (ints[R * (L + 2):].view(torch.int8)[:N], ints[:R],
+            ints[R:R * (L + 2)].view(R, L + 1))
+
+
+def ragged_buffers(N: int, R: int, D: int, L: int, device) -> Tuple[torch.Tensor, ...]:
+    """The ragged outputs as views of two buffers, so a caller reads back
+    all integer outputs in one copy: ``(ints, floats, served [N] i8,
+    bytes_rd [R, D] f32, layers_used [R] i32, miss_after [R, L+1] i32,
+    straggler [R] f32, wan [R] f32)``; :func:`ragged_int_views` lays out
+    ``ints``."""
+    ints = torch.empty(R * (L + 2) + -(-N // 4), dtype=torch.int32, device=device)
+    floats = torch.empty(R * (D + 2), dtype=torch.float32, device=device)
+    served, layers_used, miss_after = ragged_int_views(ints, N, R, L)
+    return (ints, floats, served, floats[:R * D].view(R, D), layers_used, miss_after,
+            floats[R * D:R * (D + 1)], floats[R * (D + 1):])
+
+
+def _check_ragged(bits, sizes, offsets, origin, order, comp, rtt, ibw) -> None:
+    _check_comp(comp)
+    N, R, D = bits.shape[0], origin.shape[0], comp.shape[1]
+    _check_like(bits, (
+        ("bits", bits, (N,), torch.int32), ("sizes", sizes, (N,), torch.float32),
+        ("offsets", offsets, (R + 1,), torch.int32), ("origin", origin, (R,), torch.int32),
+        ("order", order, (R,), torch.int32), ("comp", comp, tuple(comp.shape), torch.int32),
+        ("rtt", rtt, (D, D), torch.float32), ("ibw", ibw, (D, D), torch.float32),
+    ))
+
+
+def route_expand_ragged(
+    bits: torch.Tensor,  # [N] i32 per-item replica bitmask, the flat item stream
+    sizes: torch.Tensor,  # [N] f32 item bytes
+    offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
     origin: torch.Tensor,  # [R] i32 origin DC per request
     comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
     rtt: torch.Tensor,  # [D, D] f32 env RTT matrix
     ibw: torch.Tensor,  # [D, D] f32 elementwise 1 / bandwidth matrix
+    order: Optional[torch.Tensor] = None,  # [R] i32, long requests first
+    n_long: Optional[int] = None,
+    out: Optional[tuple] = None,  # ragged_buffers(...) to write into
 ) -> Tuple[torch.Tensor, ...]:
-    """Same contract as ``ref.route_expand_ref``: ``(served [R, K] i32,
+    """Same contract as ``ref.route_expand_ragged_ref``: ``(served [N] i8,
     bytes_rd [R, D] f32, layers_used [R] i32, miss_after [R, L+1] i32,
-    straggler_s [R] f32, wan_bytes [R] f32)``."""
+    straggler_s [R] f32, wan_bytes [R] f32)``.  ``order`` and ``n_long``
+    come from :func:`ragged_order` when not given."""
     if bits.device.type == "cpu":
-        return ref.route_expand_ref(bits, sizes, lens, origin, comp, rtt, ibw)
+        return ref.route_expand_ragged_ref(bits, sizes, offsets, origin, comp, rtt, ibw)
     if bits.device.type != "cuda":
         raise ValueError(f"route_expand runs on cpu or cuda, not {bits.device}")
-    _check_inputs(bits, sizes, lens, origin, comp, rtt, ibw)
-    R, K = bits.shape
-    L = comp.shape[0] - 1
-    D = comp.shape[1]
     dev = bits.device
-    served = torch.empty((R, K), dtype=torch.int32, device=dev)
-    bytes_rd = torch.empty((R, D), dtype=torch.float32, device=dev)
-    layers_used = torch.empty(R, dtype=torch.int32, device=dev)
-    miss_after = torch.empty((R, L + 1), dtype=torch.int32, device=dev)
-    straggler = torch.empty(R, dtype=torch.float32, device=dev)
-    wan = torch.empty(R, dtype=torch.float32, device=dev)
+    if order is None:
+        order_np, n_long = ragged_order(np.diff(offsets.cpu().numpy()))
+        order = torch.as_tensor(order_np, device=dev)
+    _check_ragged(bits, sizes, offsets, origin, order, comp, rtt, ibw)
+    N, R = bits.shape[0], origin.shape[0]
+    L, D = comp.shape[0] - 1, comp.shape[1]
+    if out is None:
+        out = ragged_buffers(N, R, D, L, dev)
+    served, bytes_rd, layers_used, miss_after, straggler, wan = out[2:]
     lib = library().get()
     with torch.cuda.device(dev):
         check(
-            lib.route_expand_launch(
-                bits.data_ptr(), sizes.data_ptr(), lens.data_ptr(), origin.data_ptr(),
-                comp.data_ptr(), rtt.data_ptr(), ibw.data_ptr(), served.data_ptr(),
-                bytes_rd.data_ptr(), layers_used.data_ptr(), miss_after.data_ptr(),
-                straggler.data_ptr(), wan.data_ptr(), R, K, D, L, BLOCK_R,
-                stream_ptr(dev),
+            lib.route_expand_ragged_launch(
+                bits.data_ptr(), sizes.data_ptr(), offsets.data_ptr(), origin.data_ptr(),
+                order.data_ptr(), int(n_long), comp.data_ptr(), rtt.data_ptr(),
+                ibw.data_ptr(), served.data_ptr(), bytes_rd.data_ptr(),
+                layers_used.data_ptr(), miss_after.data_ptr(), straggler.data_ptr(),
+                wan.data_ptr(), R, D, L, stream_ptr(dev),
             ),
-            "route_expand_launch",
+            "route_expand_ragged_launch",
         )
-        LAUNCHES.bump()
+        RAGGED_LAUNCHES.bump()
     return served, bytes_rd, layers_used, miss_after, straggler, wan

@@ -15,6 +15,9 @@ Two ways to produce spans:
   — explicit-timestamp spans for events whose start/end were computed by
   a simulator rather than observed live.
 
+Beside the spans, ``tracer.count("route.device_slots", n, variant=...)``
+adds to a named counter under its tags (:attr:`Tracer.counters`).
+
 Records are held in a bounded deque so a forgotten tracer can never grow
 without limit.  Span ids come from one atomic counter and each thread
 nests on a stack of its own, so threads of a pool may trace at once.
@@ -154,6 +157,10 @@ class Tracer:
         self.clock = clock
         self._enabled = enabled
         self.records: deque = deque(maxlen=max_spans)
+        # counters by (name, sorted tags), for work that a span's tags do
+        # not sum over threads and calls
+        self.counters: Dict[tuple, float] = {}
+        self._count_lock = threading.Lock()
         self._ids = itertools.count()
         self._local = threading.local()  # .stack: this thread's open span sids
 
@@ -205,6 +212,15 @@ class Tracer:
         )
         return sid
 
+    def count(self, name: str, n: float = 1, **tags) -> None:
+        """Add ``n`` to the counter ``name`` under ``tags`` (a no-op when
+        disabled); :attr:`counters` holds the totals."""
+        if not self.enabled:
+            return
+        key = (name, tuple(sorted(tags.items())))
+        with self._count_lock:
+            self.counters[key] = self.counters.get(key, 0) + n
+
     def _finish(self, span: Span) -> None:
         # context-manager spans may end out of LIFO order under odd control
         # flow; remove this sid wherever it sits in the stack
@@ -222,6 +238,7 @@ class Tracer:
     # -- lifecycle ---------------------------------------------------------
     def reset(self) -> None:
         self.records.clear()
+        self.counters.clear()
         self._local = threading.local()
         self._ids = itertools.count()
 

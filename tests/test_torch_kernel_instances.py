@@ -1,13 +1,14 @@
 """The instances of the port's route-expansion and embedding-bag kernels.
 
-``route_expand.slots_instance`` and ``embedding_bag.instance`` name the
-instance the CUDA entry point runs; here they are checked against the
-documented rule, and the port's plain versions (what the wrappers run for
-CPU tensors, and what the kernels are held to on the card) against the JAX
-package's Pallas kernels in interpret mode and its oracles at the shapes
-where one instance hands over to the next.  Integer route outputs must be
-equal; route floats use the tolerances of ``tests/test_route_kernel.py``,
-bags those of ``tests/test_kernels.py`` (1e-4 in f32, 3e-2 in bf16).
+``route_expand.ragged_order`` says which reads a warp walks and which a
+block, and ``embedding_bag.instance`` names the instance the CUDA entry
+point runs; here they are checked against the documented rule, and the
+port's plain versions (what the wrappers run for CPU tensors, and what the
+kernels are held to on the card) against the JAX package's Pallas kernels
+in interpret mode and its oracles at the shapes where one instance hands
+over to the next.  Integer route outputs must be equal; route floats use
+the tolerances of ``tests/test_route_kernel.py``, bags those of
+``tests/test_kernels.py`` (1e-4 in f32, 3e-2 in bf16).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,21 +26,27 @@ from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
 
 # ------------------------------------------------------------ route expansion
 @pytest.mark.parametrize(
-    "K,slots",
-    [(0, 1), (1, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (129, 8), (256, 8),
-     (257, 0), (1100, 0), (tre.MAX_SLOTS, 0)],
+    "K,walker",
+    [(0, "warp"), (1, "warp"), (32, "warp"), (33, "warp"), (64, "warp"), (65, "warp"),
+     (128, "warp"), (129, "warp"), (256, "warp"), (257, "block"), (1100, "block"),
+     (25_825, "block")],
 )
-def test_slots_instance(K, slots):
-    """Slots a lane: the smallest register instance with 32 * S >= K, shared
-    memory (0) past 256."""
-    assert tre.slots_instance(K) == slots
+def test_read_walked_by_a_warp_or_a_block(K, walker):
+    """A read of up to a warp's share of slots gets a warp, a longer one a
+    block of its own, listed first."""
+    lens = np.array([3, K, 3])
+    order, n_long = tre.ragged_order(lens)
+    assert sorted(order.tolist()) == [0, 1, 2] and order.dtype == np.int32
+    assert n_long == (walker == "block")
+    if walker == "block":
+        assert order[0] == 1
 
 
-def test_slots_instance_past_shared_memory_raises():
-    assert 9 * tre.MAX_SLOTS <= 232448 < 9 * (tre.MAX_SLOTS + 4)
-    for K in (-1, tre.MAX_SLOTS + 1):
-        with pytest.raises(ValueError, match="item slots"):
-            tre.slots_instance(K)
+def test_ragged_takes_reads_past_a_warps_shared_memory():
+    """No bound on a read's length: 40,000 slots in one read, more than the
+    232,448 bytes of a block's shared memory held at 9 bytes a slot."""
+    assert 9 * 40_000 > 232_448
+    tre._check_ragged(*_ragged_shaped(40_000, 3, 5))
 
 
 def _route_problem(seed, R, K, D, L, p_rep):
@@ -70,48 +77,58 @@ def _route_problem(seed, R, K, D, L, p_rep):
     return bits, sizes, lens.astype(np.int32), origin, comp, rtt, ibw
 
 
+def _flat(prob):
+    """A padded batch's requests as the flat item stream, as CPU tensors."""
+    bits, sizes, lens = prob[:3]
+    keep = np.arange(bits.shape[1])[None, :] < lens[:, None]
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (bits[keep], sizes[keep], offsets, *prob[3:])]
+
+
 @pytest.mark.parametrize("K,D,L,p_rep", [(256, 5, 3, 0.35), (257, 5, 3, 0.35),
                                          (256, 31, 4, 0.1), (257, 31, 4, 0.1)])
 def test_route_expand_at_instance_boundary_matches_jax(K, D, L, p_rep):
-    """The last register instance (256 slots) and the first shared-memory
-    one (257), at the lane's 5 DCs and at 31 (every mask bit)."""
+    """The longest read a warp walks (256 slots) and the shortest a block
+    walks (257), at the lane's 5 DCs and at 31 (every mask bit)."""
     prob = _route_problem(K + D, 6, K, D, L, p_rep)
-    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in prob]
+    t = _flat(prob)
     reset_launch_counters()
-    got = [o.numpy() for o in tre.route_expand(*t)]  # CPU: the plain version
-    assert launch_counters()["route_expand"].n == 0
-    for o, w in zip(got, tref.route_expand_ref(*t)):
+    got = [o.numpy() for o in tre.route_expand_ragged(*t)]  # CPU: the plain version
+    assert launch_counters()["route_expand_ragged"].n == 0
+    for o, w in zip(got, tref.route_expand_ragged_ref(*t)):
         np.testing.assert_array_equal(o, w.numpy())
     j = [jnp.asarray(x) for x in prob]
     lens = prob[2]
+    bounds = np.concatenate([[0], np.cumsum(lens)])
     for want in (jref.route_expand_ref(*j), jax_route_kernel(*j, block_r=8, interpret=True)):
         served, bytes_rd, layers, miss, strag, wan = (np.asarray(w) for w in want)
         for r, k in enumerate(lens):
-            np.testing.assert_array_equal(got[0][r, :k], served[r, :k])
+            np.testing.assert_array_equal(got[0][bounds[r]:bounds[r + 1]], served[r, :k])
         np.testing.assert_array_equal(got[2], layers)
         np.testing.assert_array_equal(got[3], miss)
         np.testing.assert_allclose(got[1], bytes_rd, rtol=1e-5, atol=1e-4)
         np.testing.assert_allclose(got[4], strag, rtol=1e-5, atol=1e-7)
         np.testing.assert_allclose(got[5], wan, rtol=1e-5, atol=1e-4)
-    assert (got[0][1] == -1).all() and got[3][1].sum() == 0  # the empty row
+    assert lens[1] == 0 and got[3][1].sum() == 0  # the empty read
 
 
-def _cuda_shaped(K, n_layers):
-    """Tensors of a route batch's shapes (on the CPU: only their shapes,
-    dtypes and contiguity reach the wrapper's checks)."""
+def _ragged_shaped(N, n_layers, D):
+    """Tensors of a one-read ragged batch's shapes (on the CPU: only their
+    shapes, dtypes and contiguity reach the wrapper's checks)."""
     z = torch.zeros
-    return (z((1, K), dtype=torch.int32), z((1, K)), z(1, dtype=torch.int32),
-            z(1, dtype=torch.int32), z((n_layers + 1, 5), dtype=torch.int32), z((5, 5)),
-            z((5, 5)))
+    i32 = dict(dtype=torch.int32)
+    return (z(N, **i32), z(N), torch.tensor([0, N], **i32), z(1, **i32), z(1, **i32),
+            z((n_layers + 1, D), **i32), z((D, D)), z((D, D)))
 
 
-@pytest.mark.parametrize("K,n_layers,match", [(tre.MAX_SLOTS + 1, 3, "item slots"),
-                                              (8, tre.MAX_LAYERS + 1, "layers")])
-def test_route_expand_shapes_no_instance_takes_raise(K, n_layers, match):
-    """The CUDA wrapper refuses what no instance takes before a launch."""
+@pytest.mark.parametrize("n_layers,D,match", [(tre.MAX_LAYERS + 1, 5, "layers"),
+                                              (3, tre.MAX_DCS + 1, "DCs")])
+def test_route_expand_shapes_no_instance_takes_raise(n_layers, D, match):
+    """The CUDA wrapper refuses what the kernel cannot take before a launch."""
     with pytest.raises(ValueError, match=match):
-        tre._check_inputs(*_cuda_shaped(K, n_layers))
-    tre._check_inputs(*_cuda_shaped(min(K, tre.MAX_SLOTS), min(n_layers, tre.MAX_LAYERS)))
+        tre._check_ragged(*_ragged_shaped(8, n_layers, D))
+    tre._check_ragged(*_ragged_shaped(8, min(n_layers, tre.MAX_LAYERS), min(D, tre.MAX_DCS)))
 
 
 # ------------------------------------------------------------- embedding bag

@@ -23,7 +23,7 @@ from repro_torch.kernels.dhd_spmv import dhd_ell_step as torch_dhd_single_wrappe
 from repro_torch.kernels.dhd_spmv import dhd_ell_step_batch as torch_dhd_wrapper
 from repro_torch.kernels.embedding_bag import embedding_bag as torch_bag_wrapper
 from repro_torch.kernels.flash_attention import flash_attention as torch_attn_wrapper
-from repro_torch.kernels.route_expand import route_expand as torch_route_wrapper
+from repro_torch.kernels.route_expand import route_expand_ragged as torch_ragged_wrapper
 
 DHD_TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -148,8 +148,26 @@ SWEEP = [
 ]
 
 
+def _flat(prob):
+    """A padded batch's requests as the flat item stream, as CPU tensors."""
+    bits, sizes, lens = prob[:3]
+    keep = np.arange(bits.shape[1])[None, :] < lens[:, None]
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return (_t(bits[keep]), _t(sizes[keep]), _t(offsets), *(_t(x) for x in prob[3:]))
+
+
+def _ragged_on_tiles(fn, prob):
+    """``fn`` (the ragged wrapper or its plain version) on a padded batch,
+    its picks laid back out as ``[R, K]`` (-1 past each request's length)."""
+    out = [o.numpy() for o in fn(*_flat(prob))]
+    bits, _, lens = prob[:3]
+    served = np.full(bits.shape, -1, np.int32)
+    served[np.arange(bits.shape[1])[None, :] < lens[:, None]] = out[0]
+    return (served, *out[1:])
+
+
 def _route_both(prob):
-    got = tuple(o.numpy() for o in tref.route_expand_ref(*(_t(x) for x in prob)))
+    got = _ragged_on_tiles(tref.route_expand_ragged_ref, prob)
     want_ref = jref.route_expand_ref(*(jnp.asarray(x) for x in prob))
     want_kernel = jax_route_kernel(*(jnp.asarray(x) for x in prob), block_r=8,
                                    interpret=True)
@@ -185,9 +203,8 @@ def test_wrappers_take_plain_version_on_cpu():
     want = tref.dhd_ell_ref_batch(_t(heat), _t(cols), _t(vals), _t(q))
     assert torch.equal(got, want)
     prob = _rand_problem(np.random.default_rng(3), 8, 1, 24, 5, 3)
-    got_r = torch_route_wrapper(*(_t(x) for x in prob))
-    want_r = tref.route_expand_ref(*(_t(x) for x in prob))
-    for a, b in zip(got_r, want_r):
+    ragged = _flat(prob)
+    for a, b in zip(torch_ragged_wrapper(*ragged), tref.route_expand_ragged_ref(*ragged)):
         assert torch.equal(a, b)
     got_s = torch_dhd_single_wrapper(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0]))
     assert torch.equal(got_s, tref.dhd_ell_ref(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0])))
@@ -200,8 +217,8 @@ def test_wrappers_take_plain_version_on_cpu():
                        tref.embedding_bag_ref(tab, idx, mode="mean"))
     counts = {k: c.n for k, c in launch_counters().items()}
     assert set(counts) == {
-        "dhd_count", "dhd_flow", "dhd_count_single", "dhd_flow_single", "route_expand",
-        "flash_attention", "embedding_bag",
+        "dhd_count", "dhd_flow", "dhd_count_single", "dhd_flow_single",
+        "route_expand_ragged", "flash_attention", "embedding_bag",
     }
     assert all(n == 0 for n in counts.values()), counts
 
@@ -244,9 +261,9 @@ def test_route_expand_candidates_and_device_kind():
 
     assert tops.route_expand_candidates("cuda", n_dcs=5) == [{"impl": "kernel"}]
     assert tops.route_expand_candidates("cpu", n_dcs=5) == [
-        {"impl": "ref"}, {"impl": "subsets"}
+        {"impl": "kernel"}, {"impl": "subsets"}
     ]
-    assert tops.route_expand_candidates("cpu", n_dcs=12) == [{"impl": "ref"}]
+    assert tops.route_expand_candidates("cpu", n_dcs=12) == [{"impl": "kernel"}]
     kind = Autotuner.device_kind()
     assert kind.startswith("cuda:") if torch.cuda.is_available() else kind == "cpu:cpu"
 

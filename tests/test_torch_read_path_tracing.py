@@ -8,7 +8,7 @@
   one ``facade.serve_batch`` span, its five children on the calling thread
   (``facade.pool_wait`` tagged with the dispatch that ran), one
   ``shard.route`` per origin sub-batch parented to it, and the router's
-  phases under each, with the path the 64-read gate implies; results equal
+  phases under each, with the path the item gate implies; results equal
   with the tracer on and off;
 * the controller's ``controller.*`` counters land in an injected enabled
   registry only, within the steps' wall time, and leave ``history``,
@@ -39,8 +39,8 @@ from repro_torch.serve import AdmissionConfig, AdmissionController
 
 FACADE_CHILDREN = {"facade.split", "facade.pool_wait", "facade.merge",
                    "facade.fetch_rows", "facade.observe"}
-# reads per origin: one sub-batch over the 64-read gate, some under it, one alone
-READS_BY_ORIGIN = {0: 70, 1: 10, 2: 1, 3: 5, 4: 3}
+# reads per origin: one sub-batch over the item gate, some under it, one alone
+READS_BY_ORIGIN = {0: 800, 1: 10, 2: 1, 3: 5, 4: 3}
 
 
 def _inputs(seed, env):
@@ -171,15 +171,27 @@ def test_facade_and_router_spans_of_one_mixed_batch(parallel):
         assert 0.0 <= r.tags["cpu_s"] and wait.t0 <= r.t0 <= r.t1 <= wait.t1
     route_of = {r.sid: r for r in routes}
 
-    gate = get_route_fast_config().min_requests
+    gate = get_route_fast_config().min_items
+    items_of = {}
+    for items, o in reqs:
+        items_of[o] = items_of.get(o, 0) + len(items)
     expands = [r for r in recs if r.name == "route.expand"]
     assert len(expands) == len(routes)
     for r in expands:
         reads = route_of[r.parent].tags["reads"]
-        want = "scalar" if reads == 1 else "fused" if reads >= gate else "numpy"
-        assert r.tags == {"path": want, "reads": reads}
+        items = items_of[route_of[r.parent].tags["origin"]]
+        want = "scalar" if reads == 1 else "fused" if items >= gate else "numpy"
+        assert r.tags == {"path": want, "reads": reads, "items": items}
         kids = sorted(c.name for c in recs if c.parent == r.sid)
         assert kids == (["route.device", "route.pack"] if want == "fused" else [])
+        if want == "fused":
+            (dev,) = [c for c in recs if c.parent == r.sid and c.name == "route.device"]
+            assert dev.tags == {"layout": "ragged", "variant": "subsets", "slots": items,
+                                "reads": reads, "layers": store.lg.n_layers}
+    assert {"fused", "numpy", "scalar"} <= {r.tags["path"] for r in expands}
+    slots = {k: v for k, v in tracer.counters.items() if k[0] == "route.device_slots"}
+    assert slots == {("route.device_slots", (("variant", "subsets"),)):
+                     sum(r.tags["items"] for r in expands if r.tags["path"] == "fused")}
     for r in recs:
         if r.name in ("route.prologue", "route.epilogue"):
             assert route_of[r.parent].tags["reads"] > 1
@@ -206,13 +218,16 @@ def test_flat_store_router_spans_nest_under_its_serve_batch():
     store = GeoGraphStore(g, env, wl, config=PlacementConfig(precache=False, dhd_steps=4),
                           device="cpu", tracer=tracer)
     tracer.reset()
-    store.serve_batch(_mixed_requests(pats)[:40])
+    reqs = _mixed_requests(pats)[:40]
+    store.serve_batch(reqs)
     recs = list(tracer.records)
     (root,) = [r for r in recs if r.name == "store.serve_batch"]
     assert sorted(r.name for r in recs if r.parent == root.sid) == [
         "route.epilogue", "route.expand", "route.prologue"]
     (expand,) = [r for r in recs if r.name == "route.expand"]
-    assert expand.tags == {"path": "numpy", "reads": 40}
+    items = sum(len(it) for it, _ in reqs)
+    want = "fused" if items >= get_route_fast_config().min_items else "numpy"
+    assert expand.tags == {"path": want, "reads": 40, "items": items}
 
 
 # ------------------------------------------------- the controller's counters

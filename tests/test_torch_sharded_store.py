@@ -453,7 +453,7 @@ def test_controller_drives_sharded_store_end_to_end():
 # ------------------------------------------------- kernels fast-path parity
 @pytest.mark.parametrize("n_shards", [2, 5])
 def test_single_origin_fast_path_through_the_kernel_wrapper(n_shards, monkeypatch):
-    """The fast path pinned from 2 requests up and to the route-expansion
+    """The fast path pinned from 1 item up and to the ragged route-expansion
     kernel's wrapper: every sub-batch of two or more requests goes through
     it (its plain version on CPU tensors), float-identical to the JAX
     package's unsharded store on the numpy path."""
@@ -471,18 +471,18 @@ def test_single_origin_fast_path_through_the_kernel_wrapper(n_shards, monkeypatc
     monkeypatch.setattr(autotune, "_AUTOTUNER", tuner)
     monkeypatch.setattr(tuner, "lookup", lambda op, sig, device=None: {"impl": "kernel"})
     calls = []
-    wrapper = ops._route_expand_kernel
-    monkeypatch.setattr(ops, "_route_expand_kernel",
-                        lambda *a: calls.append(a[0].shape) or wrapper(*a))
+    wrapper = ops._route_expand_ragged_kernel
+    monkeypatch.setattr(ops, "_route_expand_ragged_kernel",
+                        lambda *a, **kw: calls.append(a[0].shape) or wrapper(*a, **kw))
     old = routing.get_route_fast_config()
-    routing.set_route_fast_config(routing.RouteFastConfig(min_requests=2))
+    routing.set_route_fast_config(routing.RouteFastConfig(min_items=1))
     try:
         got = port.serve_batch(reqs)
     finally:
         routing.set_route_fast_config(old)
     _same_results(got, want)
     sub_batches = {o for _, o in reqs}
-    assert len(calls) == len(sub_batches)  # one tile launch per origin sub-batch
+    assert len(calls) == len(sub_batches)  # one ragged launch per origin sub-batch
     assert port.last_serve_seconds == max(port.last_shard_seconds.values())
 
 

@@ -5,9 +5,10 @@
 * the port's own build gives the JAX store's replica sets and routing table;
 * on a ``store_from_numpy`` copy of the JAX store, ``serve_batch`` is
   request-for-request identical to JAX's on every impl of the fast path
-  (subset histogram, the tile version pinned through the autotuner, the
-  kernel wrapper pinned through the autotuner) and on the numpy path — the
-  contract of ``tests/test_route_kernel.py``;
+  (subset histogram; the kernel wrapper pinned through the autotuner; an
+  autotuner entry the port no longer has, which falls back to the subset
+  histogram) and on the numpy path — the contract of
+  ``tests/test_route_kernel.py``;
 * ``maintain()`` leaves identical replica sets.
 
 The competitor strategies and offline planning have their own files
@@ -21,7 +22,12 @@ from repro.core.routing import route_online_batch as jax_route_online_batch
 from repro.core.store import GeoGraphStore as JaxStore
 from repro_torch.convert import store_arrays, store_from_numpy
 from repro_torch.core.placement import PlacementConfig
-from repro_torch.core.routing import route_online_batch
+from repro_torch.core.routing import (
+    RouteFastConfig,
+    get_route_fast_config,
+    route_online_batch,
+    set_route_fast_config,
+)
 from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
 from repro_torch.obs import MetricsRegistry, set_default_registry
 
@@ -100,7 +106,7 @@ def _pin_route_impl(monkeypatch, impl):
 
 
 @pytest.mark.parametrize("n_req", [64, 200])
-@pytest.mark.parametrize("path", ["subsets", "tile", "kernel", "numpy"])
+@pytest.mark.parametrize("path", ["subsets", "stale", "kernel", "numpy"])
 def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
     port = store_from_numpy(
         store_arrays(jax_store), config=PlacementConfig(precache=True, dhd_steps=8),
@@ -108,9 +114,11 @@ def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
     )
     reqs = _requests(jax_store, n_req, seed=n_req)
     fast = None
-    if path in ("tile", "kernel"):
-        # the JAX side has no CUDA kernel: both packages pin their tile
-        # version; the port's kernel wrapper takes it on CPU tensors
+    if path in ("stale", "kernel"):
+        # the JAX side has no CUDA kernel: it runs its tile version; the
+        # port has none, so "ref" is a stale entry it answers with its
+        # default, the subset histogram, and a "kernel" pin runs the
+        # wrapper's plain version on CPU tensors
         _pin_route_impl(monkeypatch, "ref")
         if path == "kernel":
             from repro_torch.kernels import autotune as ttune
@@ -128,6 +136,10 @@ def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
         want = jax_route_online_batch(jax_store.lg, jax_store.state, reqs, fast=False)
     reg = MetricsRegistry().enable()
     old = set_default_registry(reg)
+    # the JAX store's gate counts reads (64 up), the port's items: open the
+    # port's so both batches take the fast path
+    old_gate = get_route_fast_config()
+    set_route_fast_config(RouteFastConfig(min_items=1))
     try:
         if fast is None:
             got = port.serve_batch(reqs, observe=False)
@@ -135,6 +147,7 @@ def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
             got = route_online_batch(port.lg, port.state, reqs, fast=False, device="cpu")
     finally:
         set_default_registry(old)
+        set_route_fast_config(old_gate)
     _assert_same_results(got, want)
     assert all(c.n == 0 for c in launch_counters().values())
     # the batch really took the path under test (a "kernel" pin on CPU
@@ -143,7 +156,7 @@ def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
         impl: reg.counter("kernels.dispatch", op="route_expand", path=impl).value
         for impl in ("subsets", "ref", "kernel")
     }
-    expect = {"subsets": "subsets", "tile": "ref", "kernel": "ref"}.get(path)
+    expect = {"subsets": "subsets", "stale": "subsets", "kernel": "ref"}.get(path)
     assert taken == {i: float(i == expect) for i in taken}
 
 

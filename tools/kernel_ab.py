@@ -13,9 +13,9 @@ unpacked with ``git archive``).  Each checkout's
 together) into ``build/kernel_ab/`` and loaded with ``ctypes``; all expose
 the same C entry points.  The inputs are those ``chip_smoke.py`` records:
 
-* route expansion: the store batches of 64, 256 and 1024 requests that phase
-  4 packs, after this checkout's phase 3 (store build, serving, ``maintain``)
-  has run on the card;
+* route expansion: the flat inputs of the store batches of 64, 256 and 1024
+  requests that launch the ragged kernel in this checkout's phase 3 (store
+  build, serving, ``maintain``), recorded on the card;
 * embedding bags: phase 11's BST table (2^22 x 32, f32) and Zipf ids, 20 a
   bag, at 512 and 262,144 bags, in sum and mean.
 
@@ -23,8 +23,8 @@ Every build is held against the port's plain version first (route outputs
 ``served``, ``layers_used`` and ``miss_after`` equal, bags within 1e-4);
 then each kernel is timed by CUDA-graph replay, the builds' graphs replayed
 in turns (base, this, this, base).  This checkout's route kernel is also
-timed at 2, 4 and 8 requests a block and with no layers above 0 (its
-loads, fold and stores without the greedy walk), in turns; its bag kernel
+timed with no layers above 0 (its loads, fold and stores without the
+greedy walk), in turns; its bag kernel
 on two control id sets (a hot 4 MB set, uniform ids).  Prints ptxas' registers
 and spills of each build's kernels and, as its last line, one JSON object.
 """
@@ -44,59 +44,58 @@ import chip_smoke as smoke  # noqa: E402  (timers, inputs, tolerances)
 from tools.dhd_ab import build, in_turns  # noqa: E402
 
 SOURCES = ("route_expand.cu", "embedding_bag.cu")
-ENTRIES = ("route_expand_launch", "embedding_bag_fwd")
-BLOCK_RS = (2, 4, 8)
+ENTRIES = ("route_expand_ragged_launch", "embedding_bag_fwd")
 
 
 def route_cases(builds: dict) -> list:
     import numpy as np
     import torch
 
-    from repro_torch.core.routing import pack_request_tiles
     from repro_torch.kernels.cuda_lib import stream_ptr
-    from repro_torch.kernels.ref import route_expand_ref
-    from repro_torch.kernels.route_expand import BLOCK_R, slots_instance
+    from repro_torch.kernels.ref import route_expand_ragged_ref
+    from repro_torch.kernels.route_expand import ragged_buffers, ragged_order
 
-    store, *_ = smoke.main_path({})
+    store, *_, rec = smoke.main_path({})
     rows = []
-    for bs in smoke.BATCHES:
-        prob = pack_request_tiles(store.lg, store.state, smoke.request_stream(store, bs, seed=bs))
+    for bs, prob in sorted(rec.routes.items()):
         args = [torch.as_tensor(np.ascontiguousarray(x), device=smoke.DEVICE) for x in prob]
-        R, K = prob[0].shape
-        D, L = prob[4].shape[1], prob[4].shape[0] - 1
-        want = route_expand_ref(*args)
+        bits, _, offsets, origin, comp = prob[:5]
+        N, R, D, L = len(bits), len(origin), comp.shape[1], comp.shape[0] - 1
+        order, n_long = ragged_order(np.diff(offsets))
+        order_t = torch.as_tensor(order, device=smoke.DEVICE)
+        want = route_expand_ragged_ref(*args)
         fns, keep = {}, []  # keep: outputs the launches write, alive while timed
-        for label, (lib, _) in builds.items():
-            outs = [torch.empty_like(w) for w in want]
-            keep.append(outs)
-            ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in outs]
 
-            def launch(lib=lib, ptrs=ptrs, block_r=BLOCK_R):
-                lib.route_expand_launch(*ptrs, R, K, D, L, block_r, stream_ptr(args[0].device))
+        def ptrs_of(bufs):
+            return ([a.data_ptr() for a in args[:4]] + [order_t.data_ptr(), n_long]
+                    + [a.data_ptr() for a in args[4:]] + [b.data_ptr() for b in bufs[2:]])
+
+        for label, (lib, _) in builds.items():
+            bufs = ragged_buffers(N, R, D, L, smoke.DEVICE)
+            keep.append(bufs)
+
+            def launch(lib=lib, ptrs=ptrs_of(bufs)):
+                lib.route_expand_ragged_launch(*ptrs, R, D, L, stream_ptr(args[0].device))
 
             launch()
             torch.cuda.synchronize()
-            for i, what in ((0, "served"), (2, "layers_used"), (3, "miss_after")):
-                if not torch.equal(outs[i], want[i]):
-                    smoke.fail(f"{label} route_expand, batch {bs}: {what} differs from the "
-                               "plain version")
+            for i, what in ((2, "served"), (4, "layers_used"), (5, "miss_after")):
+                if not torch.equal(bufs[i], want[i - 2]):
+                    smoke.fail(f"{label} route_expand_ragged, batch {bs}: {what} differs from "
+                               "the plain version")
             fns[label] = launch
-        row = {"kernel": "route_expand", "batch": bs, "shape": [R, K, D, L],
-               "items": int(prob[2].sum()), "slots_instance": slots_instance(K),
-               **{f"ms_{x}": t for x, t in in_turns(fns).items()}}
+        row = {"kernel": "route_expand_ragged", "batch": bs, "reads": R, "items": N, "D": D,
+               "L": L, **{f"ms_{x}": t for x, t in in_turns(fns).items()}}
         lib = builds["this"][0]
-        outs = [torch.empty_like(w) for w in want]
-        ptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in outs]
-        variants = {
-            f"block_r {b}": (lambda b=b: lib.route_expand_launch(
-                *ptrs, R, K, D, L, b, stream_ptr(args[0].device)))
-            for b in BLOCK_RS
-        }
+        ptrs = ptrs_of(ragged_buffers(N, R, D, L, smoke.DEVICE))
         # the same launch with no layers above 0: every load, the local
         # pass, the fold and the stores, but no greedy walk
-        variants["no walk (L = 0)"] = lambda: lib.route_expand_launch(
-            *ptrs, R, K, D, 0, BLOCK_R, stream_ptr(args[0].device))
-        row["ms_this_variants"] = in_turns(variants)
+        row["ms_this_variants"] = in_turns({
+            "as recorded": lambda: lib.route_expand_ragged_launch(
+                *ptrs, R, D, L, stream_ptr(args[0].device)),
+            "no walk (L = 0)": lambda: lib.route_expand_ragged_launch(
+                *ptrs, R, D, 0, stream_ptr(args[0].device)),
+        })
         rows.append(row)
         print(json.dumps(row), flush=True)
     del store
