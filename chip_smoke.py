@@ -20,10 +20,12 @@ Phases, each of which fails the run with a nonzero exit:
    request-identical to the numpy router, a batch launches the ragged route
    expansion exactly when its items reach the router's item gate, and
    every kernel of that path (batched DHD count + flow, the ragged route
-   expansion) must have run.  The flat inputs each batch's launch took are
-   recorded.
+   expansion) must have run.  Each launch must read the store's route
+   tables on the card (item ids over tables keyed by item id); its inputs
+   (ids, the tables, offsets, origins) are recorded.
 4. Kernels against their plain PyTorch versions on the card: the ragged
-   route expansion on the flat inputs phase 3 recorded and on ``SWEEP`` (31
+   route expansion on the inputs phase 3 recorded (also against a launch
+   over the rows its ids stand for), and on ``SWEEP`` (31
    DCs, all-tie reads, reads with no items, and lengths around a warp's 32
    lanes and its share of 256 slots, and past 1,024); DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
@@ -94,9 +96,9 @@ Phases, each of which fails the run with a nonzero exit:
     ``maintain()``: every batch request-identical to the numpy router and
     to a CPU mirror, replica sets and routes after ``maintain()`` equal to
     the mirror's, ``route_expand_ragged`` launched by each batch over the
-    item gate and both batched DHD kernels launched; both held against
-    their plain versions on the inputs RP+SR's own launches took (phase 4's
-    tolerances).
+    item gate (over the store's route tables) and both batched DHD kernels
+    launched; both held against their plain versions on the inputs RP+SR's
+    own launches took (phase 4's tolerances).
 13. Offline routing and layouts at full size (Figs. 13-15): ``plan_offline``
     over all 26,000 vertices of the phase-12 GeoLayer store, the
     consolidated-or-in-place choice of ``bench_offline.py:27-55``, and the
@@ -250,13 +252,15 @@ Phases, each of which fails the run with a nonzero exit:
     256 reads of ``snb3s-nbr-over`` (seed ``RAGGED_SEED``) holding its
     longest read (26,182 items), one launch an origin's sub-batch:
     picks, layers and missing counts equal, bytes and latencies within
-    phase 4's tolerances, and ``route_online_batch`` on the card
-    request-identical to the numpy router; the store's ``serve_batch`` of
-    the drain launches the kernel once a sub-batch over the item gate.
-    Prints each launch's graph-replayed time beside its bound, and numpy
-    against fused routing, timed in turns, of one-origin sub-batches of 2
-    to 64 reads drawn as the cell draws them and of short reads up to
-    65,536 items (the item gate's crossover).
+    phase 4's tolerances, over the store's route tables, and
+    ``route_online_batch`` on the card, with the tables and without (the
+    rows as tables), request-identical to the numpy router; the store's
+    ``serve_batch`` of the drain launches the kernel once a sub-batch over
+    the item gate.  Prints each launch's graph-replayed time beside its
+    bound, and numpy against fused routing over the tables, timed in turns,
+    of one-origin sub-batches of 2 to 64 reads drawn as the cell draws them
+    and of short reads up to 65,536 items (the item gate's crossover,
+    reported, not applied).
 
 Kernel times (``ms``, and ``library_ms`` for the PyTorch calls beside them)
 come from CUDA-graph replay: 20 launches captured in one graph, replayed
@@ -605,7 +609,7 @@ def main_path(report: dict):
 
     inputs = build_inputs()
     with DHDRecorder(ops) as rec, RouteRecorder(ops) as route:
-        rec.routes = {}  # batch size -> the flat inputs of its launch
+        rec.routes = {}  # batch size -> the inputs of its launch (ids over tables)
         return (*_drive_main_path(report, inputs, rec, route), rec)
 
 
@@ -651,6 +655,9 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder, route: "RouteRecord
         launches[f"serve_{bs}"] = {k: v - before[k] for k, v in counts().items()}
         if gated_launch(f"serve_batch({bs})", reqs,
                         launches[f"serve_{bs}"]["route_expand_ragged"]):
+            if route.last_inputs != "ids":
+                fail(f"serve_batch({bs}) on the card routed without the store's route "
+                     "tables")
             rec.routes[bs] = route.last
         want = route_online_batch(store.lg, store.state, reqs, fast=False)
         if not same_results(got, want):
@@ -2944,22 +2951,37 @@ def flat_route_problem(rng, lens, D, L, p_rep=0.35, all_ties=False):
 def check_ragged(name, prob, timed: bool) -> dict:
     """The ragged kernel against its plain version on the card: picks,
     layers and missing counts equal, bytes and latencies within phase 4's
-    tolerances; timed, its graph-replayed time beside its bound."""
+    tolerances; timed, its graph-replayed time beside its bound.  ``prob``
+    is ``(ids, table_bits, table_sizes, offsets, origin, comp, rtt, ibw)``,
+    item ids over tables keyed by item id, as a store's router launches
+    it, or the rows form ``(bits, sizes, offsets, origin, comp, rtt,
+    ibw)``, taken as the tables over ids ``0 .. N - 1``.  A launch over a
+    store's tables is also held to the launch over the rows its ids stand
+    for (every output equal).  The bound counts 9 B a slot and 4 B x (7 + L
+    + D) a read (``geobench.roofline.ragged_bytes``) and the 4 B an id."""
     import numpy as np
     import torch
 
     from geobench.roofline import ragged_bytes
     from repro_torch.kernels.cuda_lib import library, stream_ptr
-    from repro_torch.kernels.ref import route_expand_ragged_ref
+    from repro_torch.kernels.ref import route_expand_ragged_ids_ref
     from repro_torch.kernels.route_expand import (
         ragged_buffers,
         ragged_order,
         route_expand_ragged,
     )
 
+    inputs = "ids" if len(prob) == 8 else "rows"
+    if inputs == "rows":
+        prob = (np.arange(len(prob[0]), dtype=np.int32), *prob)
     args = tuple(torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in prob)
     got = route_expand_ragged(*args)
-    want = route_expand_ragged_ref(*args)
+    want = route_expand_ragged_ids_ref(*args)
+    rows = None
+    if inputs == "ids":
+        i = args[0].long()
+        rows = route_expand_ragged(torch.arange(len(i), dtype=torch.int32, device="cuda"),
+                                   args[1][i], args[2][i], *args[3:])
     torch.cuda.synchronize()
     for i, label in ((0, "served"), (2, "layers_used"), (3, "miss_after")):
         if not torch.equal(got[i], want[i]):
@@ -2970,55 +2992,56 @@ def check_ragged(name, prob, timed: bool) -> dict:
             fail(f"route_expand_ragged {name}: output {i} outside rtol {rtol} / atol {atol}")
         if got[i].numel():
             err = max(err, float((got[i] - want[i]).abs().max()))
-    bits, sizes, offsets, origin, comp = prob[:5]
+    if rows is not None and not all(torch.equal(a, b) for a, b in zip(got, rows)):
+        fail(f"route_expand_ragged {name}: differs from the launch over the rows its ids "
+             "stand for")
+    offsets, origin, comp = prob[3:6]
     lens = np.diff(offsets)
     order, n_long = ragged_order(lens)
-    R, N, D, L = len(origin), len(bits), comp.shape[1], comp.shape[0] - 1
-    out = {"case": name, "max_abs_err": err, "reads": R, "items": N,
+    R, N, D, L = len(origin), len(prob[0]), comp.shape[1], comp.shape[0] - 1
+    out = {"case": name, "inputs": inputs, "max_abs_err": err, "reads": R, "items": N,
            "longest": int(lens.max(initial=0)), "blocks_alone": n_long, "D": D, "L": L}
     if timed:
         lib = library().get()
         order_t = torch.as_tensor(order, device="cuda")
         bufs = ragged_buffers(N, R, D, L, args[0].device)
-        ptrs = ([a.data_ptr() for a in args[:4]] + [order_t.data_ptr(), n_long]
-                + [a.data_ptr() for a in args[4:]] + [b.data_ptr() for b in bufs[2:]])
+        ptrs = ([a.data_ptr() for a in args[:5]] + [order_t.data_ptr(), n_long]
+                + [a.data_ptr() for a in args[5:]] + [b.data_ptr() for b in bufs[2:]])
 
         # the C entry point straight, into the buffers above
         def launch():
-            lib.route_expand_ragged_launch(*ptrs, R, D, L, stream_ptr(args[0].device))
+            lib.route_expand_ragged_ids_launch(*ptrs, R, D, L, stream_ptr(args[0].device))
 
-        nbytes = ragged_bytes(N, R, D, L)
+        nbytes = ragged_bytes(N, R, D, L) + 4 * N
         out.update(
             **kernel_ms(launch), wrapper_ms=host_loop_ms(lambda: route_expand_ragged(*args)),
-            plain_ms=host_loop_ms(lambda: route_expand_ragged_ref(*args), warmup=1, iters=3),
+            plain_ms=host_loop_ms(lambda: route_expand_ragged_ids_ref(*args), warmup=1,
+                                  iters=3),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         )
     return out
 
 
-def _wall_ms(fn, reps: int = 7) -> float:
+def _tables_of(store):
+    """``(host bytes, (bits, bytes) on the card)``: the route tables the
+    store hands its router on the card."""
+    import torch
+
+    host, tables = store.route_tables.handed(store.route_index, torch.device("cuda"))
+    if tables is None:
+        fail("the store keeps no route tables on the card")
+    return host, tables
+
+
+def _ids_of(store, sub):
+    """The id-keyed inputs the router hands the card for a sub-batch."""
     import numpy as np
 
-    fn()
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t)
-    return float(np.median(times)) * 1e3
-
-
-def _flat_of(store, sub):
-    """The flat item stream the router hands the card for a sub-batch."""
-    import numpy as np
-
-    from repro_torch.core.routing import _bit_pack
-
-    items = np.concatenate([np.asarray(it, np.int64) for it, _ in sub])
+    items = np.concatenate([np.asarray(it, np.int64) for it, _ in sub]).astype(np.int32)
     bounds = np.concatenate([[0], np.cumsum([len(it) for it, _ in sub])]).astype(np.int32)
+    _, (tb, tz) = _tables_of(store)
     lg = store.lg
-    return (_bit_pack(store.state.delta[items]),
-            store.g.item_size()[items].astype(np.float32), bounds,
+    return (items, tb.cpu().numpy(), tz.cpu().numpy(), bounds,
             np.asarray([o for _, o in sub], np.int32), np.asarray(lg.comp_of_dc, np.int32),
             np.asarray(lg.env.rtt_s, np.float32),
             np.asarray(1.0 / lg.env.bw_Bps_safe(), np.float32))
@@ -3081,13 +3104,15 @@ def _gate_rows(store, pats, label: str, rng, uniform: bool) -> list:
                 sub.append((pats[p].items, 0))
                 n += int(lens[p])
             subs.append(sub)
+    host, tables = _tables_of(store)
     rows = []
     for sub in subs:
         n = sum(len(it) for it, _ in sub)
         ms = _in_turns_ms({
-            "numpy": lambda: route_online_batch(store.lg, store.state, sub, fast=False),
-            "fused": lambda: route_online_batch(store.lg, store.state, sub, fast=True,
-                                                device="cuda"),
+            "numpy": lambda: route_online_batch(store.lg, store.state, sub, sizes=host,
+                                                fast=False),
+            "fused": lambda: route_online_batch(store.lg, store.state, sub, sizes=host,
+                                                fast=True, device="cuda", tables=tables),
         })
         rows.append({"config": label, "reads": len(sub), "items": n, "numpy_ms": ms["numpy"],
                      "fused_ms": ms["fused"]})
@@ -3131,17 +3156,22 @@ def ragged_phase(report: dict) -> dict:
         subs.setdefault(o, []).append((it, o))
     gate = get_route_fast_config().min_items
     drain, shapes = [], []
+    host, tables = _tables_of(store)
     for o, sub in sorted(subs.items()):
-        flat = _flat_of(store, sub)
-        r = check_ragged(f"drain origin {o}", flat, timed=True)
-        got = route_online_batch(store.lg, store.state, sub, fast=True, device="cuda")
+        r = check_ragged(f"drain origin {o}", _ids_of(store, sub), timed=True)
         want = route_online_batch(store.lg, store.state, sub, fast=False)
-        if not same_results(got, want):
-            fail(f"route_online_batch on the card differs from the numpy router (origin {o})")
-        r.update(origin=o, numpy_ms=_wall_ms(
-            lambda: route_online_batch(store.lg, store.state, sub, fast=False), reps=3),
-                 fused_ms=_wall_ms(lambda: route_online_batch(
-                     store.lg, store.state, sub, fast=True, device="cuda"), reps=3))
+        for form, kw in (("the store's tables", {"sizes": host, "tables": tables}),
+                         ("no tables", {})):
+            got = route_online_batch(store.lg, store.state, sub, fast=True, device="cuda", **kw)
+            if not same_results(got, want):
+                fail(f"route_online_batch on the card with {form} differs from the numpy "
+                     f"router (origin {o})")
+        r.update(origin=o, **_in_turns_ms({
+            "numpy_ms": lambda: route_online_batch(store.lg, store.state, sub, sizes=host,
+                                                   fast=False),
+            "fused_ms": lambda: route_online_batch(store.lg, store.state, sub, sizes=host,
+                                                   fast=True, device="cuda", tables=tables),
+        }, reps=3))
         drain.append(r)
         shapes.append([r["reads"], r["items"], r["blocks_alone"]])
         print(f"drain origin {o}: {r['reads']} reads, {r['items']} items (longest "
@@ -3312,6 +3342,9 @@ def competitor_phase(report: dict, inputs):
             served[bs] = (reqs, got, serve_s)
             if gated_launch(f"RP+SR serve_batch({bs})", reqs,
                             launches[f"serve_{bs}"]["route_expand_ragged"]):
+                if route.last_inputs != "ids":
+                    fail(f"RP+SR serve_batch({bs}) on the card routed without the store's "
+                         "route tables")
                 probs[bs] = route.last
         rec.phase = "maintain"
         before = launch_counts()
@@ -3680,43 +3713,67 @@ def cp_window(store) -> float:
 
 
 class RouteRecorder:
-    """Installed over ``kernels.ops.route_expand_flat`` (the name the
-    routing fast path calls): passes every call on and keeps, as numpy, the
-    flat inputs of the widest call (most items) and of the last."""
+    """Installed over ``kernels.ops.route_expand_flat`` and
+    ``route_expand_flat_ids`` (the names the routing fast path calls,
+    without and with a store's route tables): passes every call on and
+    keeps, as numpy, the inputs of the widest call (most items) and of the
+    last, as :func:`check_ragged` takes them: ``(ids, table_bits,
+    table_sizes, offsets, origin, comp, rtt, ibw)`` of a call over tables
+    (as they stood), the rows form of a call without.  ``last_inputs`` is
+    the last call's (``"ids"`` or ``"rows"``); ``inputs`` counts the calls
+    by it."""
 
     def __init__(self, ops) -> None:
         import threading
 
         self.ops = ops
         self.fn = ops.route_expand_flat
+        self.fn_ids = ops.route_expand_flat_ids
         self.calls = 0
-        self.widest = None
-        self.last = None
+        self.inputs = {"rows": 0, "ids": 0}
+        self.widest = self.last = self.last_inputs = None
         self._lock = threading.Lock()  # shard threads may route at once
+
+    @staticmethod
+    def _host(x, dt):
+        import numpy as np
+
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        return np.ascontiguousarray(x, dt)
+
+    def _keep(self, prob, inputs: str) -> None:
+        with self._lock:
+            self.calls += 1
+            self.inputs[inputs] += 1
+            self.last, self.last_inputs = prob, inputs
+            if self.widest is None or len(prob[0]) > len(self.widest[0]):
+                self.widest = prob
 
     def __call__(self, bits, sizes, bounds, origin, comp, rtt, ibw, device=None):
         import numpy as np
 
-        def host(x, dt):
-            x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
-            return np.ascontiguousarray(x, dt)
-
-        prob = tuple(host(x, dt) for x, dt in (
+        self._keep(tuple(self._host(x, dt) for x, dt in (
             (bits, np.int32), (sizes, np.float32), (bounds, np.int32), (origin, np.int32),
-            (comp, np.int32), (rtt, np.float32), (ibw, np.float32)))
-        with self._lock:
-            self.calls += 1
-            self.last = prob
-            if self.widest is None or len(prob[0]) > len(self.widest[0]):
-                self.widest = prob
+            (comp, np.int32), (rtt, np.float32), (ibw, np.float32))), "rows")
         return self.fn(bits, sizes, bounds, origin, comp, rtt, ibw, device=device)
+
+    def call_ids(self, ids, bounds, origin, tables, comp, rtt, ibw, device=None):
+        import numpy as np
+
+        self._keep(tuple(self._host(x, dt) for x, dt in (
+            (ids, np.int32), (tables[0], np.int32), (tables[1], np.float32),
+            (bounds, np.int32), (origin, np.int32), (comp, np.int32), (rtt, np.float32),
+            (ibw, np.float32))), "ids")
+        return self.fn_ids(ids, bounds, origin, tables, comp, rtt, ibw, device=device)
 
     def __enter__(self) -> "RouteRecorder":
         self.ops.route_expand_flat = self
+        self.ops.route_expand_flat_ids = self.call_ids
         return self
 
     def __exit__(self, *exc) -> None:
         self.ops.route_expand_flat = self.fn
+        self.ops.route_expand_flat_ids = self.fn_ids
 
 
 class CheckedStore:
@@ -4148,6 +4205,7 @@ def control_plane_phase(report: dict, card: str) -> dict:
 
     r = check_ragged("control plane, widest call", rec["route"].widest, timed=True)
     checks = {"route_expand_ragged": r}
+    say(f"route expansion calls on path (c) by inputs: {rec['route'].inputs}")
     say(f"route_expand_ragged on path (c)'s widest call ({r['reads']} reads, {r['items']} "
         f"items): exact, max abs err {r['max_abs_err']:.3g}, kernel "
         f"{r['ms']:.4f} ms (host loop {r['host_loop_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "

@@ -1,0 +1,171 @@
+"""Each item's replica bitmask and bytes in tables keyed by item id that
+follow the route index (paper §VI serving on the card).
+
+On a card the fused router hands the ragged kernel item ids alone, and
+every routing call folds bytes from one host table, so no call gathers
+``[K, D]`` replica rows or copies ``g.item_size()``.  A store keeps one
+:class:`RouteTables`:
+
+  * ``host_bytes`` — the item bytes on the host, equal to
+    ``g.item_size()`` and of its dtype (a scalar route sums them in it),
+    from which the router's exact epilogue folds;
+  * on each card the store's shards use, an int32 replica bitmask a row
+    (bit d = ``delta[i, d]``, as ``routing._bit_pack`` makes it) and the
+    float32 item bytes (the rounding the rows form applies); none on the
+    CPU, where the router hands the kernel no tables.
+
+The tables follow the store's :class:`~repro_torch.core.route_index.RouteIndex`
+through its change events, as the sharded store's route partitions do:
+``"rows"`` re-derives those rows' bitmasks, ``"grow"`` inserts the new
+rows, ``"take"`` permutes the rows, ``"rebuild"`` derives everything
+afresh.  Each event fires once the placement ``delta`` it derived from is
+current, so after any placement or graph mutation the tables are never
+older than ``delta``.  Tables bound to another index than the one a store
+holds now are not handed to the router (:meth:`RouteTables.handed`).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..obs import Tracer
+from .route_index import RouteIndex
+from .routing import _bit_pack
+
+__all__ = ["RouteTables"]
+
+DeviceTables = Tuple[torch.Tensor, torch.Tensor]  # ([I] i32 bitmask, [I] f32 bytes)
+
+
+def _device_key(device) -> torch.device:
+    """``device`` with its index: ``"cuda"`` names the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class RouteTables:
+    """Item-keyed route tables of one store: ``host_bytes`` and, per
+    device, ``device_tables[device] = (bits, bytes)``.
+
+    ``delta_fn`` and ``sizes_fn`` return the store's *current* placement
+    map and item bytes (the store swaps both arrays on growth and
+    compaction, so the tables hold providers, never the arrays).
+    ``tracer`` counts ``route.table_rows``, the rows each event re-derives
+    or moves, tagged ``event`` (the event's kind).  A set follows each
+    device it is asked to keep; a store asks for its cards alone, since the
+    router reads the device tables on a card only."""
+
+    def __init__(
+        self,
+        delta_fn: Callable[[], np.ndarray],
+        sizes_fn: Callable[[], np.ndarray],
+        devices: Iterable = (),
+        tracer: Optional[Tracer] = None,
+    ) -> None:
+        self._delta_fn = delta_fn
+        self._sizes_fn = sizes_fn
+        self._tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.index: Optional[RouteIndex] = None
+        self.host_bytes = np.zeros(0, dtype=np.float32)
+        self.device_tables: Dict[torch.device, DeviceTables] = {}
+        for device in devices:
+            self.add_device(device)
+
+    # ------------------------------------------------------------ binding
+    def add_device(self, device) -> None:
+        """Keep a set of tables on ``device`` too (built at once when bound)."""
+        key = _device_key(device)
+        if key in self.device_tables:
+            return
+        self.device_tables[key] = self._upload(key, None) if self.index is not None else None
+
+    def bind(self, index: RouteIndex) -> None:
+        """Follow ``index``'s events from now on, and derive every table
+        afresh; a no-op for the index already bound."""
+        if index is self.index:
+            return
+        self.index = index
+        index.subscribe(functools.partial(self._on_event, index))
+        self._rebuild()
+
+    def handed(self, index: Optional[RouteIndex], device) -> Tuple[
+            Optional[np.ndarray], Optional[DeviceTables]]:
+        """What a store hands ``route_online_batch`` when it routes on
+        ``device`` with ``index``: ``(host_bytes, device tables)`` while
+        the tables follow ``index``, the device tables only on a card (the
+        id path runs there alone); ``(None, None)`` for any other index."""
+        if index is None or index is not self.index:
+            return None, None
+        key = _device_key(device)
+        return self.host_bytes, (self.device_tables.get(key) if key.type == "cuda" else None)
+
+    # -------------------------------------------------------------- events
+    def _on_event(self, index: RouteIndex, kind: str, payload: object) -> None:
+        if index is not self.index:
+            return  # an index the store has since replaced
+        if kind == "rows":
+            rows = np.asarray(payload, dtype=np.int64)
+            if len(rows) == 0:
+                return
+            bits = _bit_pack(self._delta_fn()[rows])
+            for dev, (tb, _) in self.device_tables.items():
+                tb[torch.as_tensor(rows, device=dev)] = torch.as_tensor(bits, device=dev)
+            n = len(rows)
+        elif kind == "grow":
+            n = self._grow(*payload)
+        elif kind == "take":
+            order = np.asarray(payload, dtype=np.int64)
+            self.host_bytes = self.host_bytes[order]
+            for dev, (tb, tz) in self.device_tables.items():
+                o = torch.as_tensor(order, device=dev)
+                self.device_tables[dev] = (tb[o], tz[o])
+            n = len(order)
+        elif kind == "rebuild":
+            n = self._rebuild()
+        else:  # pragma: no cover - future event kinds must not silently drop
+            raise ValueError(f"unknown route-index event {kind!r}")
+        self._tracer.count("route.table_rows", n, event=kind)
+
+    def _grow(self, old_n_nodes: int, n_new_vertices: int, n_new_edges: int) -> int:
+        """Insert the new rows in the v|e id layout (``grow_item_rows``):
+        new vertices after the old ones, the old edges shifted past them,
+        new edges at the end; their entries come from the grown ``delta``
+        and item bytes."""
+        delta = self._delta_fn()
+        n = delta.shape[0]
+        sizes = self._sizes_fn()
+        if len(sizes) != n:
+            raise RuntimeError(f"{len(sizes)} item bytes for {n} placement rows on growth")
+        self.host_bytes = sizes
+        a, nv, ne = old_n_nodes, n_new_vertices, n_new_edges
+        new_rows = np.concatenate([np.arange(a, a + nv), np.arange(n - ne, n)])
+        bits = _bit_pack(delta[new_rows])
+        z = sizes[new_rows].astype(np.float32)
+        for dev, (tb, tz) in self.device_tables.items():
+            grown = []
+            for old, fresh in ((tb, bits), (tz, z)):
+                t = torch.empty(n, dtype=old.dtype, device=dev)
+                t[:a] = old[:a]
+                t[a + nv:n - ne] = old[a:]
+                t[torch.as_tensor(new_rows, device=dev)] = torch.as_tensor(fresh, device=dev)
+                grown.append(t)
+            self.device_tables[dev] = (grown[0], grown[1])
+        return len(new_rows)
+
+    def _rebuild(self) -> int:
+        self.host_bytes = self._sizes_fn()
+        bits = _bit_pack(self._delta_fn())
+        for dev in self.device_tables:
+            self.device_tables[dev] = self._upload(dev, bits)
+        return len(bits)
+
+    def _upload(self, dev: torch.device, bits: Optional[np.ndarray]) -> DeviceTables:
+        if bits is None:
+            bits = _bit_pack(self._delta_fn())
+        return (torch.tensor(bits, device=dev),
+                torch.tensor(self.host_bytes.astype(np.float32), device=dev))

@@ -112,8 +112,8 @@ def _obs_handles(reg) -> _ObsHandles:
 class RouteFastConfig:
     """Eligibility gate for the fused batch expansion on the device.
 
-    The fast path pays fixed costs a call (the bit-pack, one upload of the
-    flat item stream, the launch, one readback), and its work grows with the
+    The fast path pays fixed costs a call (one upload of the flat item
+    stream, the launch, one readback), and its work grows with the
     batch's items, not its reads, so the gate counts items: a batch of two
     or more reads takes it from ``min_items`` items up (a read alone keeps
     the scalar router).  ``max_dcs`` is the int32 replica-bitmask budget
@@ -434,8 +434,10 @@ def _bit_pack(delta_all: np.ndarray) -> np.ndarray:
 
 def _route_batch_fast(
     lg: LayeredGraph,
-    delta_all: np.ndarray,  # [K, D] replica rows for the flat item stream
+    delta_all: Optional[np.ndarray],  # [K, D] replica rows for the flat item stream
     sizes_all: np.ndarray,  # [K] item bytes, flat
+    items_all: np.ndarray,  # [K] item ids, flat
+    tables: Optional[tuple],  # ([I] i32 bitmask, [I] f32 bytes) on device, or None
     req_id: np.ndarray,  # [K] request id per flat item
     bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
     lens: np.ndarray,  # [R]
@@ -447,39 +449,47 @@ def _route_batch_fast(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Fused expansion for the whole batch on the kernels fast path.
 
-    Bit-packs the batch's replica rows (bit d = replica at DC d) and hands
-    the flat item stream as it is to the ragged expansion
-    (``kernels.ops.route_expand_flat``): no padding, no bound on a read's
-    length.  The card runs the CUDA kernel and nothing else.  On the CPU
-    the autotuned winner for the bucketed ``(reads, longest read, D, L)``
-    picks the subset-histogram router (``"subsets"``, ``kernels.ops.
+    With ``tables`` (the ids form) the ragged expansion takes the flat item
+    ids as they are (``kernels.ops.route_expand_flat_ids``) and reads each
+    item's replica bitmask and bytes from the tables on the device; no row
+    is gathered or packed here.  Without (the rows form) it bit-packs the
+    batch's replica rows ``delta_all`` (bit d = replica at DC d) and hands
+    the bitmasks and bytes as the tables over the stream's own slots
+    (``kernels.ops.route_expand_flat``).  Neither pads, nor bounds a read's
+    length.  The card runs the one CUDA kernel and nothing else.  On the CPU the ids form
+    takes the kernel's plain version; the rows form takes the autotuned
+    winner for the bucketed ``(reads, longest read, D, L)``: the
+    subset-histogram router (``"subsets"``, ``kernels.ops.
     route_expand_subsets`` — default for small DC counts, per-pass work
     independent of the item count) or the kernel's plain version
     (``"kernel"``).  Every impl produces the numpy router's exact greedy
-    picks.  ``tracer`` records ``route.pack`` (bit-pack, on the host) and
-    ``route.device`` (the expansion call: upload, launch and readback on
-    the card), tagged ``layout`` (``"ragged"``), ``variant`` (which kernel
-    or plain version ran), ``slots`` (item slots handed to it), ``reads``
-    and ``layers``, and counts ``route.device_slots`` by ``variant``.
-    Returns ``(served [K], layers_used [R])``; all byte/latency folds are
-    recomputed exactly on the host by the shared epilogue, so results are
-    bit-identical to the numpy path.
+    picks.  ``tracer`` records ``route.pack`` (bit-pack, on the host; empty
+    but for the constants in the ids form) and ``route.device`` (the
+    expansion call: upload, launch and readback on the card), tagged
+    ``layout`` (``"ragged"``), ``variant`` (which kernel or plain version
+    ran), ``inputs`` (``"ids"`` or ``"rows"``), ``slots`` (item slots
+    handed to it), ``reads`` and ``layers``, and counts
+    ``route.device_slots`` by ``variant``.  Returns ``(served [K],
+    layers_used [R])``; all byte/latency folds are recomputed exactly on
+    the host by the shared epilogue, so results are bit-identical to the
+    numpy path.
     """
     ops, autotune = _get_kops()
     dev = resolve_device(device)
     R = len(lens)
-    K = delta_all.shape[0]
-    D = delta_all.shape[1]
+    K = len(items_all)
+    D = lg.env.n_dcs
     L = lg.n_layers
     t0 = time.perf_counter() if obs else 0.0
     with tracer.span("route.pack", track="route"):
-        bits_flat = _bit_pack(delta_all)
         impl = "kernel"
-        if dev.type == "cpu" and D <= ops.SUBSET_MAX_DCS:
-            sig = (autotune.shape_bucket(R, floor=8),
-                   autotune.shape_bucket(int(lens.max()), floor=8), D, L)
-            cfg = autotune.get_autotuner().lookup("route_expand", sig) or {}
-            impl = "kernel" if cfg.get("impl") == "kernel" else "subsets"
+        if tables is None:
+            bits_flat = _bit_pack(delta_all)
+            if dev.type == "cpu" and D <= ops.SUBSET_MAX_DCS:
+                sig = (autotune.shape_bucket(R, floor=8),
+                       autotune.shape_bucket(int(lens.max()), floor=8), D, L)
+                cfg = autotune.get_autotuner().lookup("route_expand", sig) or {}
+                impl = "kernel" if cfg.get("impl") == "kernel" else "subsets"
         if impl == "kernel":
             comp, rtt, ibw = _fast_env_arrays(lg, dev)
     if impl == "kernel":
@@ -487,9 +497,13 @@ def _route_batch_fast(
     else:
         variant = "subsets"
     tracer.count("route.device_slots", K, variant=variant)
-    with tracer.span("route.device", track="route", layout="ragged", variant=variant, slots=K,
-                     reads=R, layers=L):
-        if impl == "subsets":
+    with tracer.span("route.device", track="route", layout="ragged", variant=variant,
+                     inputs="rows" if tables is None else "ids", slots=K, reads=R, layers=L):
+        if tables is not None:
+            served, layers_used, miss_after = ops.route_expand_flat_ids(
+                items_all, bounds, origin, tables, comp, rtt, ibw, device=dev
+            )
+        elif impl == "subsets":
             served, layers_used, miss_after = ops.route_expand_subsets(
                 bits_flat, req_id, R, origin, lg.comp_of_dc
             )
@@ -523,6 +537,7 @@ def route_online_batch(
     fast: Optional[bool] = None,
     device: DeviceLike = None,
     tracer: Optional[Tracer] = None,
+    tables: Optional[tuple] = None,
 ) -> List[RouteResult]:
     """Bottom-up expanding retrieval for a whole request batch at once.
 
@@ -545,15 +560,23 @@ def route_online_batch(
     bytes/latency on the host in f64, so its results are bit-identical to
     the numpy path.
 
+    ``sizes`` is the item bytes (``None``: a fresh ``lg.g.item_size()``,
+    which a store's route tables spare it).  ``tables`` are a store's
+    current ``(bitmask, bytes)`` tables keyed by item id on ``device``
+    (:class:`~repro_torch.core.route_tables.RouteTables`): with them the
+    fused path hands the card the item ids alone, without them it gathers
+    and packs the replica rows.
+
     ``registry`` routes serving/routing telemetry into an explicit
     :class:`~repro_torch.obs.MetricsRegistry` (a shard's private registry);
     ``None`` falls back to the process default.
 
     ``tracer`` records the batch's phases under the caller's open span:
-    ``route.prologue`` (flatten, gather the replica rows and sizes),
-    ``route.expand`` tagged ``path`` (``"scalar"``, ``"numpy"`` or
-    ``"fused"``), ``reads`` and ``items`` — on the fused path with the children
-    ``route.pack`` and ``route.device`` — and ``route.epilogue``.
+    ``route.prologue`` (flatten, gather the item sizes and, but on the fused
+    path with tables, the replica rows), ``route.expand`` tagged ``path``
+    (``"scalar"``, ``"numpy"`` or ``"fused"``), ``reads`` and ``items`` — on
+    the fused path with the children ``route.pack`` and ``route.device`` —
+    and ``route.epilogue``.
     """
     env = lg.env
     R = len(requests)
@@ -596,10 +619,13 @@ def route_online_batch(
         req_id = np.repeat(np.arange(R, dtype=np.int64), lens)
         D = env.n_dcs
         bounds = np.concatenate([[0], np.cumsum(lens)])
-        # one gather each of the batch's replica rows and item bytes; every
-        # greedy pass and the shared epilogue reuse them
-        delta_all = state.delta[items_all]  # [K, D]
-        sz_all = sizes[items_all]  # [K] f64
+        fused = _fast_eligible(fast, _FAST_CONFIG, D, len(items_all), lg.n_layers)
+        ids_form = fused and tables is not None
+        # one gather each of the batch's item bytes and (but where the
+        # card reads them from its tables) replica rows; every greedy pass
+        # and the shared epilogue reuse them
+        delta_all = None if ids_form else state.delta[items_all]  # [K, D]
+        sz_all = np.take(sizes, items_all)  # [K]; take gathers twice as fast as []
 
         # coverage telemetry: per-layer resolved-item counters + expansion
         # timing, all gated so the disabled path costs one attribute load
@@ -607,13 +633,12 @@ def route_online_batch(
         if obs:
             _obs_handles(reg).requests.inc(R)
 
-    fused = _fast_eligible(fast, _FAST_CONFIG, D, len(items_all), lg.n_layers)
     with tr.span("route.expand", track="route", path="fused" if fused else "numpy",
                  reads=R, items=len(items_all)):
         if fused:
             served, layers_used = _route_batch_fast(
-                lg, delta_all, sz_all, req_id, bounds, lens, origin, reg, obs,
-                device=device, tracer=tr,
+                lg, delta_all, sz_all, items_all, tables if ids_form else None, req_id,
+                bounds, lens, origin, reg, obs, device=device, tracer=tr,
             )
         else:
             served, layers_used = _expand_numpy(

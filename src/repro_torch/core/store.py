@@ -39,6 +39,7 @@ from .placement import (
     step_heat_caches,
 )
 from .route_index import RouteIndex
+from .route_tables import RouteTables
 from .routing import (
     OfflineLayout,
     RouteResult,
@@ -131,6 +132,14 @@ class GeoGraphStore:
         # wall-clock seconds of the last serve_batch routing pass
         self.last_serve_seconds = 0.0
         self.route_index: Optional[RouteIndex] = None
+        # each item's replica bitmask and bytes keyed by item id, following
+        # the route index's events; handed to the router with the index (the
+        # bytes on the host always, the device tables on a card, where alone
+        # the router reads them)
+        self.route_tables = RouteTables(
+            lambda: self.state.delta, lambda: self.g.item_size(),
+            devices=[self.device] if self.device.type == "cuda" else [], tracer=self.tracer,
+        )
         # content-stable uid per item row: assigned monotonically at birth,
         # row-selected (never renumbered) on compaction.  Placement-journal
         # fingerprints digest uids instead of raw rows, so memo keys survive
@@ -232,6 +241,7 @@ class GeoGraphStore:
             # copies.
             self.route_index = RouteIndex.build(self.state.delta, self.env)
             self.state.route = self.route_index.nearest
+            self.route_tables.bind(self.route_index)
         elif name == "random":
             baselines.route_random(self.state, self.workload, self.env, seed=seed)
         elif name == "greedy":
@@ -273,9 +283,10 @@ class GeoGraphStore:
             if self.routing_name == "stepwise":
                 # serving.* counters/histograms are emitted batch-granular
                 # inside route_online_batch, where the flat arrays live
+                sizes, tables = self.route_tables.handed(self.route_index, self.device)
                 results = route_online_batch(
-                    self.lg, self.state, norm, registry=self._registry,
-                    device=self.device, tracer=self.tracer,
+                    self.lg, self.state, norm, sizes=sizes, registry=self._registry,
+                    device=self.device, tracer=self.tracer, tables=tables,
                 )
             else:
                 results = [self._route_by_table(it, o) for it, o in norm]

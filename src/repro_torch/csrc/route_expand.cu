@@ -17,8 +17,8 @@
 //
 // Bound on an H100: a request's walk is a chain of up to L * (D + 1)
 // dependent passes, so a call takes the latency of one walk, not its bytes
-// (9 bytes a slot of bits, sizes and picks at 3.35 TB/s is below the
-// launch floor).  The design keeps the walk off per-slot state: every load
+// (13 bytes a slot of ids, table entries and picks at 3.35 TB/s is below
+// the launch floor).  The design keeps the walk off per-slot state: every load
 // of a request's prologue (its offsets and origin, the comp table, the
 // origin's rtt and 1/bw columns) is issued before the first use, counts
 // and argmax are warp collectives (redux.sync, eight DCs' reductions in
@@ -26,7 +26,11 @@
 //
 // route_expand_ragged_kernel takes the flat item stream with request
 // offsets, no [R, K] tile and no bound on a request's length; a request
-// past a warp's share gets a block of its own, and no slot is staged.
+// past a warp's share gets a block of its own, and no slot is staged.  The
+// stream carries item ids alone: a slot's bitmask and bytes are the table
+// entries of its id, in tables keyed by item id that the store keeps on the
+// card (a caller with rows in hand passes them as the tables over ids 0 ..
+// N - 1).
 //
 // Masks and miss counts per layer live one a lane: lane i holds layer
 // i + 32 c's in word c (c < 4, L <= 127).
@@ -183,14 +187,26 @@ __device__ __forceinline__ void store_request(int64_t r, int lane, const Request
 constexpr int kRaggedThreads = 512;
 constexpr int kRaggedWarps = kRaggedThreads / kWarp;
 
+// A request's slots: slot k holds item id ids[k], whose bitmask and bytes
+// are bits[ids[k]] and sizes[ids[k]] (the tables keyed by item id).
+struct Slots {
+  const int* ids;  // the request's first slot
+  const unsigned* bits;
+  const float* sizes;
+
+  __device__ __forceinline__ int item(int k) const { return __ldg(ids + k); }
+  __device__ __forceinline__ unsigned bit(int i) const { return __ldg(bits + i); }
+  __device__ __forceinline__ float size(int i) const { return __ldg(sizes + i); }
+};
+
 // Per-DC counts of the missing slots (no bit of `chosen`) holding a bit of
 // `allowed`; lane d returns DC d's count over the group that walks the
 // request (a warp, or the whole block when kCta).  With `nmiss`, also the
 // number of missing slots.  `red` is the block's scratch for this pass.
 template <bool kCta>
-__device__ __forceinline__ int ragged_cover(const unsigned* __restrict__ bits, int len,
-                                            int rank, unsigned chosen, unsigned allowed,
-                                            int lane, int warp, int* red, int* nmiss) {
+__device__ __forceinline__ int ragged_cover(const Slots& src, int len, int rank,
+                                            unsigned chosen, unsigned allowed, int lane,
+                                            int warp, int* red, int* nmiss) {
   constexpr int stride = kCta ? kRaggedThreads : kWarp;
   int c[kWarp];
 #pragma unroll
@@ -198,7 +214,7 @@ __device__ __forceinline__ int ragged_cover(const unsigned* __restrict__ bits, i
   int open = 0;
 #pragma unroll 4
   for (int k = rank; k < len; k += stride) {
-    const unsigned b = __ldg(bits + k);
+    const unsigned b = src.bit(src.item(k));
     const bool missing = (b & chosen) == 0u;
     open += missing;
     const unsigned m = missing ? b & allowed : 0u;
@@ -239,8 +255,8 @@ __device__ __forceinline__ int ragged_cover(const unsigned* __restrict__ bits, i
 // One request's walk and fold by a warp, or by the whole block when kCta
 template <bool kCta>
 __device__ __forceinline__ void ragged_walk(
-    int r, int lane, int warp, const unsigned* __restrict__ bits_all,
-    const float* __restrict__ sizes_all, const int* __restrict__ offsets,
+    int r, int lane, int warp, const int* __restrict__ ids, const unsigned* __restrict__ bits,
+    const float* __restrict__ sizes, const int* __restrict__ offsets,
     const int* __restrict__ origin, const int* __restrict__ comp, const float* __restrict__ rtt,
     const float* __restrict__ ibw, signed char* __restrict__ served, float* __restrict__ bytes_rd,
     int* __restrict__ layers_used, int* __restrict__ miss_after, float* __restrict__ straggler,
@@ -251,12 +267,11 @@ __device__ __forceinline__ void ragged_walk(
   const int beg = __ldg(offsets + r);
   const Request q =
       load_request(r, lane, __ldg(offsets + r + 1) - beg, origin, comp, rtt, ibw, D, L);
-  const unsigned* bits = bits_all + beg;
-  const float* sizes = sizes_all + beg;
+  const Slots src{ids + beg, bits, sizes};
   unsigned chosen = 1u << q.o;
   int buf = 0;
   int nmiss = 0;
-  int cover = ragged_cover<kCta>(bits, q.len, rank, chosen, lane_word(q.allowed, 0), lane, warp,
+  int cover = ragged_cover<kCta>(src, q.len, rank, chosen, lane_word(q.allowed, 0), lane, warp,
                                  red[buf], &nmiss);
   const int local_miss = nmiss;
   unsigned miss[kLayerWords] = {0u, 0u, 0u, 0u};
@@ -280,7 +295,7 @@ __device__ __forceinline__ void ragged_walk(
     }
     if (layer < L && nmiss > 0 && it + 1 < max_it) {  // the next pass's counts
       buf ^= 1;
-      cover = ragged_cover<kCta>(bits, q.len, rank, chosen, lane_word(q.allowed, layer), lane,
+      cover = ragged_cover<kCta>(src, q.len, rank, chosen, lane_word(q.allowed, layer), lane,
                                  warp, red[buf], nullptr);
     }
   }
@@ -294,8 +309,9 @@ __device__ __forceinline__ void ragged_walk(
   for (int i = 0; i < kWarp; ++i) t[i] = 0.f;
 #pragma unroll 4
   for (int k = rank; k < q.len; k += stride) {
-    const unsigned b = __ldg(bits + k);
-    const float z = __ldg(sizes + k);
+    const int i = src.item(k);
+    const unsigned b = src.bit(i);
+    const float z = src.size(i);
     int p = -1;
     if ((b >> q.o) & 1u) {
       p = q.o;
@@ -341,8 +357,9 @@ __device__ __forceinline__ void ragged_walk(
 }
 
 __global__ void __launch_bounds__(kRaggedThreads) route_expand_ragged_kernel(
-    const int* __restrict__ bits,     // [N] flat item stream
-    const float* __restrict__ sizes,  // [N]
+    const int* __restrict__ ids,          // [N] item ids, the flat item stream
+    const unsigned* __restrict__ bits,    // [I] replica bitmask an item id
+    const float* __restrict__ sizes,      // [I] item bytes an item id
     const int* __restrict__ offsets,  // [R + 1] request r's slots: [offsets[r], offsets[r + 1])
     const int* __restrict__ origin,   // [R]
     const int* __restrict__ order,    // [R] the n_long requests a block walks first
@@ -355,38 +372,41 @@ __global__ void __launch_bounds__(kRaggedThreads) route_expand_ragged_kernel(
   __shared__ signed char picks[kRaggedWarps][kWarp];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const unsigned* ubits = reinterpret_cast<const unsigned*>(bits);
   if ((int)blockIdx.x < n_long) {  // block-uniform
-    ragged_walk<true>(__ldg(order + blockIdx.x), lane, warp, ubits, sizes, offsets, origin, comp,
-                      rtt, ibw, served, bytes_rd, layers_used, miss_after, straggler, wan, D, L,
-                      red, sums, picks[warp]);
+    ragged_walk<true>(__ldg(order + blockIdx.x), lane, warp, ids, bits, sizes, offsets, origin,
+                      comp, rtt, ibw, served, bytes_rd, layers_used, miss_after, straggler, wan,
+                      D, L, red, sums, picks[warp]);
     return;
   }
   const int64_t w = (int64_t)(blockIdx.x - n_long) * kRaggedWarps + warp + n_long;
   if (w >= R) return;  // warp-uniform
-  ragged_walk<false>(__ldg(order + w), lane, warp, ubits, sizes, offsets, origin, comp, rtt, ibw,
-                     served, bytes_rd, layers_used, miss_after, straggler, wan, D, L, red, sums,
-                     picks[warp]);
+  ragged_walk<false>(__ldg(order + w), lane, warp, ids, bits, sizes, offsets, origin, comp, rtt,
+                     ibw, served, bytes_rd, layers_used, miss_after, straggler, wan, D, L, red,
+                     sums, picks[warp]);
 }
 
 }  // namespace
 
 // Route a ragged batch: n_long blocks walk order[0 .. n_long) one request
-// each, then each warp of the rest walks one of order[n_long .. R).
-extern "C" int route_expand_ragged_launch(const int* bits, const float* sizes,
-                                          const int* offsets, const int* origin,
-                                          const int* order, int n_long, const int* comp,
-                                          const float* rtt, const float* ibw,
-                                          signed char* served, float* bytes_rd,
-                                          int* layers_used, int* miss_after, float* straggler,
-                                          float* wan, int R, int D, int L, void* stream) {
+// each, then each warp of the rest walks one of order[n_long .. R).  Slot k
+// holds item id ids[k], whose bitmask and bytes are table_bits[ids[k]] and
+// table_sizes[ids[k]].
+extern "C" int route_expand_ragged_ids_launch(const int* ids, const int* table_bits,
+                                              const float* table_sizes, const int* offsets,
+                                              const int* origin, const int* order, int n_long,
+                                              const int* comp, const float* rtt,
+                                              const float* ibw, signed char* served,
+                                              float* bytes_rd, int* layers_used,
+                                              int* miss_after, float* straggler, float* wan,
+                                              int R, int D, int L, void* stream) {
   if (R == 0) return (int)cudaSuccess;
   if (D < 1 || D > kWarp - 1 || L < 0 || L + 1 > kWarp * kLayerWords || n_long < 0 ||
       n_long > R)
     return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)(n_long + (R - n_long + kRaggedWarps - 1) / kRaggedWarps);
   route_expand_ragged_kernel<<<grid, kRaggedThreads, 0, (cudaStream_t)stream>>>(
-      bits, sizes, offsets, origin, order, n_long, comp, rtt, ibw, served, bytes_rd, layers_used,
-      miss_after, straggler, wan, R, D, L);
+      ids, reinterpret_cast<const unsigned*>(table_bits), table_sizes, offsets, origin, order,
+      n_long, comp, rtt, ibw, served, bytes_rd, layers_used, miss_after, straggler, wan, R, D,
+      L);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,11 @@ deployment can afford to leave on:
     a from-scratch masked-argmin rebuild (:meth:`RouteIndex.verify`), the
     index's differential test, run against live state instead of a test
     fixture.
+  * **route-table integrity** — the store's route tables keyed by item id
+    follow the index and equal the live state: on every device the
+    bitmask table is the bit-packed placement map and the byte table the
+    item bytes in f32, and the host byte table is ``g.item_size()`` (a
+    stale row would route a read over replicas that moved).
   * **heat-view aliasing** — every ``HeatCache.heat`` row is still a
     shared-storage view of the demand plane's one ``[D, I]`` table (the demand
     plane's exactly-once deposit depends on it; a silent copy would fork the heat).
@@ -85,6 +90,39 @@ class StoreSanitizer:
                 "!= from-scratch rebuild of the current placement (a patch "
                 "path missed a replica-set delta)"
             )
+
+    def _check_route_tables(self, failures: List[str]) -> None:
+        tables = getattr(self.store, "route_tables", None)
+        idx = getattr(self.store, "route_index", None)
+        if tables is None or idx is None:
+            return
+        if tables.index is not idx:
+            failures.append(
+                "route-table divergence: the route tables follow another index "
+                "than the store's (a re-place did not rebind them)"
+            )
+            return
+        from ..core.routing import _bit_pack
+
+        sizes = self.store.g.item_size()
+        if tables.host_bytes.dtype != sizes.dtype or not np.array_equal(
+            tables.host_bytes, sizes
+        ):
+            failures.append(
+                "route-table divergence: host item bytes != g.item_size() "
+                "(a growth or compaction event was missed)"
+            )
+        bits = _bit_pack(self.store.state.delta)
+        for dev, (tb, tz) in tables.device_tables.items():
+            if not np.array_equal(tb.cpu().numpy(), bits):
+                failures.append(
+                    f"route-table divergence: replica bitmasks on {dev} != the "
+                    "bit-packed placement (a patch event was missed)"
+                )
+            if not np.array_equal(tz.cpu().numpy(), sizes.astype(np.float32)):
+                failures.append(
+                    f"route-table divergence: item bytes on {dev} != g.item_size()"
+                )
 
     def _check_heat_aliasing(self, failures: List[str]) -> None:
         demand = getattr(self.store, "demand", None)
@@ -169,6 +207,7 @@ class StoreSanitizer:
         first batch of failures, returns True when all hold."""
         failures: List[str] = []
         self._check_route_index(failures)
+        self._check_route_tables(failures)
         self._check_heat_aliasing(failures)
         self._check_journal(failures)
         self._check_metrics_merge(failures)

@@ -252,6 +252,8 @@ class ShardedGeoGraphStore:
                 shard.partitions[d] = part
                 self.partitions[d] = part
             self.shards.append(shard)
+            if shard.device.type == "cuda":  # the router reads device tables on a card only
+                self._store.route_tables.add_device(shard.device)
         self._bound_index = None
         self._rebind_index()
         self.straggler = StragglerDetector(
@@ -490,7 +492,9 @@ class ShardedGeoGraphStore:
         self, origin: int, sub: List[Tuple[np.ndarray, int]], parent: Optional[int],
     ) -> Tuple[List[RouteResult], float]:
         """Route one origin's sub-batch on its owning shard, telemetry into
-        that shard's registry and a ``shard.route`` span under ``parent``;
+        that shard's registry and a ``shard.route`` span under ``parent``,
+        with the coordinator's route tables for the shard's device (item
+        bytes on the host; on a card, bitmasks and bytes keyed by item id);
         returns results + wall seconds."""
         shard = self.shards[self.origin_shard[origin]]
         tr = self._store.tracer
@@ -498,9 +502,11 @@ class ShardedGeoGraphStore:
                      origin=origin, reads=len(sub)) as span:
             cpu0 = time.thread_time() if tr.enabled else 0.0
             t0 = time.perf_counter()
+            sizes, tables = self._store.route_tables.handed(self._store.route_index,
+                                                            shard.device)
             res = route_online_batch(
-                self._store.lg, self._store.state, sub, registry=shard.registry,
-                device=shard.device, tracer=tr,
+                self._store.lg, self._store.state, sub, sizes=sizes, registry=shard.registry,
+                device=shard.device, tracer=tr, tables=tables,
             )
             dt = time.perf_counter() - t0
             if tr.enabled:

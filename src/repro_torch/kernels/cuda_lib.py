@@ -56,8 +56,8 @@ _SIGNATURES = {
     "dhd_flow_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "dhd_count_single": (_P, _P, _P, _P, _I, _I, _P),
     "dhd_flow_single": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
-    "route_expand_ragged_launch": (
-        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "route_expand_ragged_ids_launch": (
+        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _P,
     ),
     "flash_attention_fwd": (

@@ -39,6 +39,7 @@ __all__ = [
     "edge_cache_stats",
     "route_expand_candidates",
     "route_expand_flat",
+    "route_expand_flat_ids",
     "route_expand_subsets",
 ]
 
@@ -528,36 +529,69 @@ def route_expand_flat(
     ibw,  # [D, D] elementwise 1 / bandwidth matrix
     device: DeviceLike = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Fused stepwise layered expansion of the flat item stream, on
-    ``device``: the ragged CUDA kernel on the card, its plain version on the
-    CPU; both produce the oracle's exact greedy picks.  On the card the
-    stream, offsets, origins and block order go up in one copy from pinned
-    memory and the integer outputs come back in one.  Returns numpy
-    ``(served [N] i8, layers_used [R] i32, miss_after [R, L+1] i32)``; the
-    byte and latency fold is left to the caller's exact host epilogue."""
+    """:func:`route_expand_flat_ids` on a stream that brings its own rows:
+    the bitmasks and bytes go to ``device`` as the tables over ids ``0 ..
+    N - 1``.  For callers with no route tables (a caller of the router
+    without a store's tables; the CPU, where the router hands none)."""
     dev = resolve_device(device)
+    tables = (_as_device(bits, torch.int32, dev), _as_device(sizes, torch.float32, dev))
+    return _route_flat(np.arange(len(bits), dtype=np.int32), bounds, origin, tables, comp,
+                       rtt, ibw, dev)
+
+
+def route_expand_flat_ids(
+    ids: np.ndarray,  # [N] item ids, the flat item stream
+    bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
+    origin: np.ndarray,  # [R] origin DC per request
+    tables: Tuple[torch.Tensor, torch.Tensor],  # ([I] i32 bitmask, [I] f32 bytes) on device
+    comp,  # [hier + 1, D] layer component ids (numpy or a device tensor)
+    rtt,  # [D, D] env RTT matrix
+    ibw,  # [D, D] elementwise 1 / bandwidth matrix
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fused stepwise layered expansion of a flat stream of item ids over
+    the tables a store keeps on ``device`` (each item's replica bitmask and
+    f32 bytes, keyed by item id): the ragged CUDA kernel on the card, its
+    plain version on the CPU; both produce the oracle's exact greedy picks.
+    On the card the kernel reads each slot's entries by id, so the ids,
+    offsets, origins and block order go up in one copy from pinned memory
+    (``N + 3R + 1`` words) and the integer outputs come back in one.
+    Returns numpy ``(served [N] i8, layers_used [R] i32, miss_after [R,
+    L+1] i32)``; the byte and latency fold is left to the caller's exact
+    host epilogue."""
+    return _route_flat(ids, bounds, origin, tables, comp, rtt, ibw, resolve_device(device))
+
+
+def _route_flat(ids, bounds, origin, tables, comp, rtt, ibw, dev: torch.device):
     t0 = _obs_t0()
-    N, R = len(bits), len(origin)
+    N, R = len(ids), len(origin)
     D = comp.shape[1]
     L = comp.shape[0] - 1
+    table_bits, table_sizes = tables
     origin = np.asarray(origin)
     if R and not (0 <= origin.min() and origin.max() < D):
         raise ValueError(f"origin DCs must lie in [0, {D})")
+    if N and not (0 <= ids.min() and ids.max() < table_bits.shape[0]):
+        raise ValueError(f"item ids must lie in [0, {table_bits.shape[0]})")
+    on = table_bits.device
+    if on.type != dev.type or (dev.index is not None and on != dev) or table_sizes.device != on:
+        raise ValueError(f"the tables are on {on} and {table_sizes.device}, the call on {dev}")
+    dev = on  # "cuda" names the card the tables are on
     if dev.type == "cpu":
         served, _, layers_used, miss_after, _, _ = _route_expand_ragged_kernel(
-            _as_device(bits, torch.int32, dev), _as_device(sizes, torch.float32, dev),
+            _as_device(ids, torch.int32, dev), table_bits, table_sizes,
             _as_device(bounds, torch.int32, dev), _as_device(origin, torch.int32, dev),
             _as_device(comp, torch.int32, dev), _as_device(rtt, torch.float32, dev),
             _as_device(ibw, torch.float32, dev),
         )
         _route_obs("ref", t0)
         return served.numpy(), layers_used.numpy(), miss_after.numpy()
-    host = torch.empty(2 * N + 3 * R + 1, dtype=torch.int32, pin_memory=True)
-    _, n_long = pack_ragged(bits, sizes, bounds, origin, out=host.numpy())
-    b, z, offsets, org, order = unpack_ragged(host.to(dev, non_blocking=True), N, R)
+    host = torch.empty(N + 3 * R + 1, dtype=torch.int32, pin_memory=True)
+    _, n_long = pack_ragged(ids, bounds, origin, out=host.numpy())
+    i, offsets, org, order = unpack_ragged(host.to(dev, non_blocking=True), N, R)
     out = ragged_buffers(N, R, D, L, dev)
     _route_expand_ragged_kernel(
-        b, z, offsets, org, _as_device(comp, torch.int32, dev),
+        i, table_bits, table_sizes, offsets, org, _as_device(comp, torch.int32, dev),
         _as_device(rtt, torch.float32, dev), _as_device(ibw, torch.float32, dev),
         order=order, n_long=n_long, out=out,
     )

@@ -19,6 +19,7 @@ __all__ = [
     "dhd_ell_ref",
     "dhd_ell_ref_batch",
     "embedding_bag_ref",
+    "route_expand_ragged_ids_ref",
     "route_expand_ragged_ref",
 ]
 
@@ -249,3 +250,22 @@ def route_expand_ragged_ref(
     straggler = torch.where(served_d, lat_rd, zero).max(dim=1).values
     wan = torch.where(at_origin, zero, bytes_rd).sum(dim=1)
     return served.to(torch.int8), bytes_rd, layers_used, miss_after, straggler, wan
+
+
+def route_expand_ragged_ids_ref(
+    ids: torch.Tensor,  # [N] i32 item ids, the flat item stream
+    table_bits: torch.Tensor,  # [I] i32 replica bitmask a row
+    table_sizes: torch.Tensor,  # [I] f32 item bytes
+    offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
+    origin: torch.Tensor,  # [R] i32 origin DC per request
+    comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
+    rtt: torch.Tensor,  # [D, D] f32 env RTT matrix
+    ibw: torch.Tensor,  # [D, D] f32 elementwise 1 / bandwidth matrix
+) -> Tuple[torch.Tensor, ...]:
+    """:func:`route_expand_ragged_ref` on the stream of item ids: slot
+    ``k``'s bitmask and bytes are ``table_bits[ids[k]]`` and
+    ``table_sizes[ids[k]]``.  The plain version of
+    ``route_expand_ragged_ids``; same outputs."""
+    ids = ids.long()
+    return route_expand_ragged_ref(table_bits[ids], table_sizes[ids], offsets, origin, comp,
+                                   rtt, ibw)

@@ -8,18 +8,22 @@ folds Eq. 1.  Requests need no lockstep: extra greedy passes are
 idempotent, so per-request walks equal the block-lockstep oracle.
 
 :func:`route_expand_ragged` takes the flat item stream as the router holds
-it (bits, sizes, request offsets, origins): no ``[R, K]`` tile, so no
-padding, and no bound on a request's length.  A warp walks a request of up
-to :data:`WARP_SHARE` slots; a longer one gets a block of 512 threads of
-its own.  A request's walk is a chain of up to ``L * (D + 1)`` dependent
+it (item ids, request offsets, origins) over tables keyed by item id that
+stay on the card (each item's replica bitmask and bytes,
+``core.route_tables.RouteTables``): no ``[R, K]`` tile, so no padding, no
+bound on a request's length, and a call uploads the ids, offsets, origins
+and block order alone.  A caller with the rows in hand passes them as the
+tables over ids ``0 .. N - 1``.  A warp walks a request of up to
+:data:`WARP_SHARE` slots; a longer one gets a block of 512 threads of its
+own.  A request's walk is a chain of up to ``L * (D + 1)`` dependent
 passes, so a launch takes the latency of its longest walk, not its bytes.
 An item is missing exactly while its bitmask shares no bit with the DCs
 taken so far, so a pass reads the bits where they lie and no slot is
 staged.
 
 For tensors on the CPU the wrapper takes its plain version
-(:func:`repro_torch.kernels.ref.route_expand_ragged_ref`); for CUDA tensors
-it launches the kernel or raises.
+(:func:`repro_torch.kernels.ref.route_expand_ragged_ids_ref`); for CUDA
+tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -53,14 +57,14 @@ def _check_comp(comp) -> None:
                          f"{comp.shape[0] - 1}")
 
 
-def _check_like(bits, shapes) -> None:
+def _check_like(ids, shapes) -> None:
     """Each ``(name, tensor, shape, dtype)`` of ``shapes`` as the launch
-    needs it: that shape and dtype, contiguous, on ``bits``' device."""
+    needs it: that shape and dtype, contiguous, on ``ids``' device."""
     for name, t, shape, dt in shapes:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.device != bits.device:
-            raise ValueError(f"{name} is on {t.device}, bits on {bits.device}")
+        if t.device != ids.device:
+            raise ValueError(f"{name} is on {t.device}, ids on {ids.device}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
@@ -75,28 +79,26 @@ def ragged_order(lens: np.ndarray) -> Tuple[np.ndarray, int]:
     return order, int(long.sum())
 
 
-def pack_ragged(bits: np.ndarray, sizes: np.ndarray, bounds: np.ndarray, origin: np.ndarray,
+def pack_ragged(ids: np.ndarray, bounds: np.ndarray, origin: np.ndarray,
                 out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, int]:
     """The ragged inputs in one int32 buffer, for one upload: ``(buf,
-    n_long)`` with ``buf = [bits N | sizes N (f32 bits) | offsets R + 1 |
-    origin R | order R]``; written into ``out`` when given (pinned memory,
-    say).  :func:`unpack_ragged` takes it apart again."""
-    N, R = len(bits), len(origin)
+    n_long)`` with ``buf = [ids N | offsets R + 1 | origin R | order R]``;
+    written into ``out`` when given (pinned memory, say).
+    :func:`unpack_ragged` takes it apart again."""
+    N, R = len(ids), len(origin)
     order, n_long = ragged_order(np.diff(bounds))
-    buf = np.empty(2 * N + 3 * R + 1, np.int32) if out is None else out
-    buf[:N] = bits
-    buf[N:2 * N].view(np.float32)[:] = sizes
-    buf[2 * N:2 * N + R + 1] = bounds
-    buf[2 * N + R + 1:2 * N + 2 * R + 1] = origin
-    buf[2 * N + 2 * R + 1:] = order
+    buf = np.empty(N + 3 * R + 1, np.int32) if out is None else out
+    buf[:N] = ids
+    buf[N:N + R + 1] = bounds
+    buf[N + R + 1:N + 2 * R + 1] = origin
+    buf[N + 2 * R + 1:] = order
     return buf, n_long
 
 
 def unpack_ragged(buf: torch.Tensor, N: int, R: int) -> Tuple[torch.Tensor, ...]:
-    """``(bits, sizes, offsets, origin, order)`` as views of a
-    :func:`pack_ragged` buffer."""
-    return (buf[:N], buf[N:2 * N].view(torch.float32), buf[2 * N:2 * N + R + 1],
-            buf[2 * N + R + 1:2 * N + 2 * R + 1], buf[2 * N + 2 * R + 1:])
+    """``(ids, offsets, origin, order)`` as views of a :func:`pack_ragged`
+    buffer."""
+    return buf[:N], buf[N:N + R + 1], buf[N + R + 1:N + 2 * R + 1], buf[N + 2 * R + 1:]
 
 
 def ragged_int_views(ints: torch.Tensor, N: int, R: int, L: int) -> Tuple[torch.Tensor, ...]:
@@ -120,11 +122,13 @@ def ragged_buffers(N: int, R: int, D: int, L: int, device) -> Tuple[torch.Tensor
             floats[R * D:R * (D + 1)], floats[R * (D + 1):])
 
 
-def _check_ragged(bits, sizes, offsets, origin, order, comp, rtt, ibw) -> None:
+def _check_ragged(ids, table_bits, table_sizes, offsets, origin, order, comp, rtt,
+                  ibw) -> None:
     _check_comp(comp)
-    N, R, D = bits.shape[0], origin.shape[0], comp.shape[1]
-    _check_like(bits, (
-        ("bits", bits, (N,), torch.int32), ("sizes", sizes, (N,), torch.float32),
+    N, I, R, D = ids.shape[0], table_bits.shape[0], origin.shape[0], comp.shape[1]
+    _check_like(ids, (
+        ("ids", ids, (N,), torch.int32), ("table_bits", table_bits, (I,), torch.int32),
+        ("table_sizes", table_sizes, (I,), torch.float32),
         ("offsets", offsets, (R + 1,), torch.int32), ("origin", origin, (R,), torch.int32),
         ("order", order, (R,), torch.int32), ("comp", comp, tuple(comp.shape), torch.int32),
         ("rtt", rtt, (D, D), torch.float32), ("ibw", ibw, (D, D), torch.float32),
@@ -132,8 +136,9 @@ def _check_ragged(bits, sizes, offsets, origin, order, comp, rtt, ibw) -> None:
 
 
 def route_expand_ragged(
-    bits: torch.Tensor,  # [N] i32 per-item replica bitmask, the flat item stream
-    sizes: torch.Tensor,  # [N] f32 item bytes
+    ids: torch.Tensor,  # [N] i32 item ids, the flat item stream
+    table_bits: torch.Tensor,  # [I] i32 replica bitmask an item id
+    table_sizes: torch.Tensor,  # [I] f32 item bytes an item id
     offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
     origin: torch.Tensor,  # [R] i32 origin DC per request
     comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
@@ -143,20 +148,23 @@ def route_expand_ragged(
     n_long: Optional[int] = None,
     out: Optional[tuple] = None,  # ragged_buffers(...) to write into
 ) -> Tuple[torch.Tensor, ...]:
-    """Same contract as ``ref.route_expand_ragged_ref``: ``(served [N] i8,
-    bytes_rd [R, D] f32, layers_used [R] i32, miss_after [R, L+1] i32,
-    straggler_s [R] f32, wan_bytes [R] f32)``.  ``order`` and ``n_long``
-    come from :func:`ragged_order` when not given."""
-    if bits.device.type == "cpu":
-        return ref.route_expand_ragged_ref(bits, sizes, offsets, origin, comp, rtt, ibw)
-    if bits.device.type != "cuda":
-        raise ValueError(f"route_expand runs on cpu or cuda, not {bits.device}")
-    dev = bits.device
+    """Same contract as ``ref.route_expand_ragged_ids_ref``: ``(served [N]
+    i8, bytes_rd [R, D] f32, layers_used [R] i32, miss_after [R, L+1] i32,
+    straggler_s [R] f32, wan_bytes [R] f32)``, slot ``k`` reading
+    ``table_bits[ids[k]]`` and ``table_sizes[ids[k]]``; every id must lie in
+    ``[0, I)``.  ``order`` and ``n_long`` come from :func:`ragged_order`
+    when not given."""
+    if ids.device.type == "cpu":
+        return ref.route_expand_ragged_ids_ref(ids, table_bits, table_sizes, offsets, origin,
+                                               comp, rtt, ibw)
+    if ids.device.type != "cuda":
+        raise ValueError(f"route_expand runs on cpu or cuda, not {ids.device}")
+    dev = ids.device
     if order is None:
         order_np, n_long = ragged_order(np.diff(offsets.cpu().numpy()))
         order = torch.as_tensor(order_np, device=dev)
-    _check_ragged(bits, sizes, offsets, origin, order, comp, rtt, ibw)
-    N, R = bits.shape[0], origin.shape[0]
+    _check_ragged(ids, table_bits, table_sizes, offsets, origin, order, comp, rtt, ibw)
+    N, R = ids.shape[0], origin.shape[0]
     L, D = comp.shape[0] - 1, comp.shape[1]
     if out is None:
         out = ragged_buffers(N, R, D, L, dev)
@@ -164,14 +172,14 @@ def route_expand_ragged(
     lib = library().get()
     with torch.cuda.device(dev):
         check(
-            lib.route_expand_ragged_launch(
-                bits.data_ptr(), sizes.data_ptr(), offsets.data_ptr(), origin.data_ptr(),
-                order.data_ptr(), int(n_long), comp.data_ptr(), rtt.data_ptr(),
-                ibw.data_ptr(), served.data_ptr(), bytes_rd.data_ptr(),
-                layers_used.data_ptr(), miss_after.data_ptr(), straggler.data_ptr(),
-                wan.data_ptr(), R, D, L, stream_ptr(dev),
+            lib.route_expand_ragged_ids_launch(
+                ids.data_ptr(), table_bits.data_ptr(), table_sizes.data_ptr(),
+                offsets.data_ptr(), origin.data_ptr(), order.data_ptr(), int(n_long),
+                comp.data_ptr(), rtt.data_ptr(), ibw.data_ptr(), served.data_ptr(),
+                bytes_rd.data_ptr(), layers_used.data_ptr(), miss_after.data_ptr(),
+                straggler.data_ptr(), wan.data_ptr(), R, D, L, stream_ptr(dev),
             ),
-            "route_expand_ragged_launch",
+            "route_expand_ragged_ids_launch",
         )
         RAGGED_LAUNCHES.bump()
     return served, bytes_rd, layers_used, miss_after, straggler, wan

@@ -93,8 +93,13 @@ def test_route_expand_at_instance_boundary_matches_jax(K, D, L, p_rep):
     walks (257), at the lane's 5 DCs and at 31 (every mask bit)."""
     prob = _route_problem(K + D, 6, K, D, L, p_rep)
     t = _flat(prob)
+    # the wrapper (on the CPU its plain version) takes item ids over tables:
+    # slot k's id perm[k] keys its row
+    perm = torch.randperm(len(t[0]), generator=torch.Generator().manual_seed(K))
+    tables = (torch.empty_like(t[0]), torch.empty_like(t[1]))
+    tables[0][perm], tables[1][perm] = t[0], t[1]
     reset_launch_counters()
-    got = [o.numpy() for o in tre.route_expand_ragged(*t)]  # CPU: the plain version
+    got = [o.numpy() for o in tre.route_expand_ragged(perm.to(torch.int32), *tables, *t[2:])]
     assert launch_counters()["route_expand_ragged"].n == 0
     for o, w in zip(got, tref.route_expand_ragged_ref(*t)):
         np.testing.assert_array_equal(o, w.numpy())
@@ -118,8 +123,8 @@ def _ragged_shaped(N, n_layers, D):
     shapes, dtypes and contiguity reach the wrapper's checks)."""
     z = torch.zeros
     i32 = dict(dtype=torch.int32)
-    return (z(N, **i32), z(N), torch.tensor([0, N], **i32), z(1, **i32), z(1, **i32),
-            z((n_layers + 1, D), **i32), z((D, D)), z((D, D)))
+    return (z(N, **i32), z(N, **i32), z(N), torch.tensor([0, N], **i32), z(1, **i32),
+            z(1, **i32), z((n_layers + 1, D), **i32), z((D, D)), z((D, D)))
 
 
 @pytest.mark.parametrize("n_layers,D,match", [(tre.MAX_LAYERS + 1, 5, "layers"),

@@ -204,7 +204,13 @@ def test_wrappers_take_plain_version_on_cpu():
     assert torch.equal(got, want)
     prob = _rand_problem(np.random.default_rng(3), 8, 1, 24, 5, 3)
     ragged = _flat(prob)
-    for a, b in zip(torch_ragged_wrapper(*ragged), tref.route_expand_ragged_ref(*ragged)):
+    # the wrapper takes item ids over tables: slot k's id perm[k] keys its row
+    bits, sizes, rest = ragged[0], ragged[1], ragged[2:]
+    perm = torch.randperm(len(bits), generator=torch.Generator().manual_seed(3))
+    tables = (torch.empty_like(bits), torch.empty_like(sizes))
+    tables[0][perm], tables[1][perm] = bits, sizes
+    got_r = torch_ragged_wrapper(perm.to(torch.int32), *tables, *rest)
+    for a, b in zip(got_r, tref.route_expand_ragged_ref(*ragged)):
         assert torch.equal(a, b)
     got_s = torch_dhd_single_wrapper(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0]))
     assert torch.equal(got_s, tref.dhd_ell_ref(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0])))

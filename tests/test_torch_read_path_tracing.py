@@ -186,8 +186,9 @@ def test_facade_and_router_spans_of_one_mixed_batch(parallel):
         assert kids == (["route.device", "route.pack"] if want == "fused" else [])
         if want == "fused":
             (dev,) = [c for c in recs if c.parent == r.sid and c.name == "route.device"]
-            assert dev.tags == {"layout": "ragged", "variant": "subsets", "slots": items,
-                                "reads": reads, "layers": store.lg.n_layers}
+            # on the CPU the store hands the router no tables: the rows form
+            assert dev.tags == {"layout": "ragged", "variant": "subsets", "inputs": "rows",
+                                "slots": items, "reads": reads, "layers": store.lg.n_layers}
     assert {"fused", "numpy", "scalar"} <= {r.tags["path"] for r in expands}
     slots = {k: v for k, v in tracer.counters.items() if k[0] == "route.device_slots"}
     assert slots == {("route.device_slots", (("variant", "subsets"),)):

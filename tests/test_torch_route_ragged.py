@@ -7,8 +7,9 @@ and the router's item gate.
   ``_expand_numpy`` and as the benchmark's reference router
   (``geobench/reference/route.py``), and bytes and latencies as the
   reference's;
-* ``pack_ragged`` / ``unpack_ragged``, ``ragged_order`` and
-  ``ragged_buffers``, the one-copy layouts the card's call uses;
+* ``pack_ragged`` / ``unpack_ragged`` (item ids, offsets, origins, block
+  order), ``ragged_order`` and ``ragged_buffers``, the one-copy layouts the
+  card's call uses, and the id-keyed plain version over the tables;
 * the item gate: a sub-batch of 50 reads of about 3k items takes the fused
   path, a lone read the scalar router, two short reads the numpy router.
 """
@@ -29,7 +30,7 @@ from repro_torch.core.routing import (
     route_online_batch,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import route_expand_ragged_ref
+from repro_torch.kernels.ref import route_expand_ragged_ids_ref, route_expand_ragged_ref
 from repro_torch.kernels.route_expand import (
     WARP_SHARE,
     pack_ragged,
@@ -121,19 +122,23 @@ def test_ragged_packing_round_trips_and_orders_long_reads_first():
     assert (lens[order[:n_long]] > WARP_SHARE).all()
     assert (lens[order[n_long:]] <= WARP_SHARE).all()
 
-    buf, n = pack_ragged(bits, sz, bounds, origin)
-    assert n == n_long and buf.dtype == np.int32
-    b, z, off, org, ordr = unpack_ragged(torch.from_numpy(buf), len(items), len(origin))
-    np.testing.assert_array_equal(b.numpy(), bits)
-    np.testing.assert_array_equal(z.numpy(), sz.astype(np.float32))
+    buf, n = pack_ragged(items, bounds, origin)
+    assert n == n_long and buf.dtype == np.int32 and len(buf) == len(items) + 3 * len(origin) + 1
+    i, off, org, ordr = unpack_ragged(torch.from_numpy(buf), len(items), len(origin))
+    np.testing.assert_array_equal(i.numpy(), items)
     np.testing.assert_array_equal(off.numpy(), bounds)
     np.testing.assert_array_equal(org.numpy(), origin)
     np.testing.assert_array_equal(ordr.numpy(), order)
 
-    # the unpacked views route as the arrays do, and ops takes them on the CPU
+    # the unpacked views route over the tables as the gathered rows do, and
+    # ops takes them on the CPU
     ibw = torch.as_tensor(np.where(np.isinf(bw), 0.0, 1.0 / bw), dtype=torch.float32)
     env = (_t(comp, torch.int32), _t(rtt, torch.float32), ibw)
-    want = route_expand_ragged_ref(b, z, off, org, *env)
+    want = route_expand_ragged_ref(_t(bits, torch.int32), _t(sz, torch.float32), off, org, *env)
+    tables = (_t(_bit_pack(delta), torch.int32), _t(sizes, torch.float32))
+    got = route_expand_ragged_ids_ref(i, *tables, off, org, *env)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
     served, layers, miss = ops.route_expand_flat(bits, sizes[items], bounds, origin, *env,
                                                  device="cpu")
     np.testing.assert_array_equal(served, want[0].numpy())

@@ -4,7 +4,8 @@ Twin stores (one per package, built from the same seeded inputs, the port's
 with ``device="cpu"``) pass every check when clean, and each planted fault
 — route-index drift, a forked demand layer, a copied heat row, a re-keyed
 journal, unsorted or out-of-range journal rows, a metrics type clash —
-fails both with the same message.  Attaching, the check cadence and the
+fails both with the same message.  A stale row of the port's route tables
+fails the port's own check.  Attaching, the check cadence and the
 ``REPRO_SANITIZE`` switch behave the same.
 """
 import types
@@ -173,6 +174,24 @@ def test_planted_fault_gives_the_same_failure(twins, fault):
         assert _message(pkg, store) is None  # restored: clean again
     assert messages[0] is not None and fault in messages[0]
     assert messages[0] == messages[1]
+
+
+def test_planted_stale_route_table_row_fails_the_port():
+    """The port's own check, which the JAX package has no tables for: one
+    row of the bitmask table left stale while the placement changed (the
+    patch event missed) fails with its message, and the rows patched
+    through the index pass again."""
+    store = _store(PORT, seed=5)
+    store.route_tables.add_device("cpu")  # a store keeps sets on its cards alone
+    san = tsan.StoreSanitizer(store)
+    assert san.check() is True
+    row = int(np.flatnonzero(store.state.delta.sum(axis=1) >= 2)[0])
+    dc = int(np.flatnonzero(store.state.delta[row])[-1])
+    store.state.delta[row, dc] = False  # no event: the tables keep the old row
+    with pytest.raises(tsan.SanitizerError, match="route-table divergence: replica bitmasks"):
+        san.check()
+    store.route_index.patch_rows(store.state.delta, np.array([row]))
+    assert san.check() is True
 
 
 # -------------------------------------------------------- attach & cadence

@@ -10,12 +10,15 @@ Each ``DIR`` is another checkout of the repository (an earlier commit
 unpacked with ``git archive``).  Each checkout's
 ``src/repro_torch/csrc/{route_expand,embedding_bag}.cu`` is compiled with
 ``nvcc`` (the port's own flags, one process per checkout, all started
-together) into ``build/kernel_ab/`` and loaded with ``ctypes``; all expose
-the same C entry points.  The inputs are those ``chip_smoke.py`` records:
+together) into ``build/kernel_ab/`` and loaded with ``ctypes``.  The
+inputs are those ``chip_smoke.py`` records:
 
-* route expansion: the flat inputs of the store batches of 64, 256 and 1024
+* route expansion: the inputs of the store batches of 64, 256 and 1024
   requests that launch the ragged kernel in this checkout's phase 3 (store
-  build, serving, ``maintain``), recorded on the card;
+  build, serving, ``maintain``), recorded on the card: item ids over the
+  store's route tables, as this checkout launches them; a build without
+  the id-keyed entry (an earlier commit) takes the rows the ids stand for,
+  as its store launched them;
 * embedding bags: phase 11's BST table (2^22 x 32, f32) and Zipf ids, 20 a
   bag, at 512 and 262,144 bags, in sum and mean.
 
@@ -24,13 +27,14 @@ Every build is held against the port's plain version first (route outputs
 then each kernel is timed by CUDA-graph replay, the builds' graphs replayed
 in turns (base, this, this, base).  This checkout's route kernel is also
 timed with no layers above 0 (its loads, fold and stores without the
-greedy walk), in turns; its bag kernel
-on two control id sets (a hot 4 MB set, uniform ids).  Prints ptxas' registers
+greedy walk) and over the rows (ids ``0 .. N - 1``), in turns; its bag
+kernel on two control id sets (a hot 4 MB set, uniform ids).  Prints ptxas' registers
 and spills of each build's kernels and, as its last line, one JSON object.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
 import pathlib
@@ -44,7 +48,27 @@ import chip_smoke as smoke  # noqa: E402  (timers, inputs, tolerances)
 from tools.dhd_ab import build, in_turns  # noqa: E402
 
 SOURCES = ("route_expand.cu", "embedding_bag.cu")
-ENTRIES = ("route_expand_ragged_launch", "embedding_bag_fwd")
+ENTRIES = ("embedding_bag_fwd",)
+IDS_ENTRY = "route_expand_ragged_ids_launch"
+# the rows-form entry of the builds before the id-keyed one: (bits, sizes,
+# offsets, origin, order, n_long, comp, rtt, ibw, six outputs, R, D, L, stream)
+ROWS_ENTRY = "route_expand_ragged_launch"
+
+
+def route_entry(lib):
+    """``(launch, takes_ids)``: a build's ragged route entry, the id-keyed
+    one where it has it, else the rows form of the builds before it."""
+    from repro_torch.kernels import cuda_lib
+
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, IDS_ENTRY):
+        fn, argtypes, ids = getattr(lib, IDS_ENTRY), cuda_lib._SIGNATURES[IDS_ENTRY], True
+    else:
+        fn, argtypes, ids = getattr(lib, ROWS_ENTRY), (_P,) * 5 + (_I,) + (_P,) * 9 + (
+            _I, _I, _I, _P), False
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn, ids
 
 
 def route_cases(builds: dict) -> list:
@@ -52,30 +76,37 @@ def route_cases(builds: dict) -> list:
     import torch
 
     from repro_torch.kernels.cuda_lib import stream_ptr
-    from repro_torch.kernels.ref import route_expand_ragged_ref
+    from repro_torch.kernels.ref import route_expand_ragged_ids_ref
     from repro_torch.kernels.route_expand import ragged_buffers, ragged_order
 
     store, *_, rec = smoke.main_path({})
     rows = []
     for bs, prob in sorted(rec.routes.items()):
-        args = [torch.as_tensor(np.ascontiguousarray(x), device=smoke.DEVICE) for x in prob]
-        bits, _, offsets, origin, comp = prob[:5]
-        N, R, D, L = len(bits), len(origin), comp.shape[1], comp.shape[0] - 1
+        ids_args = [torch.as_tensor(np.ascontiguousarray(x), device=smoke.DEVICE)
+                    for x in prob]
+        ids, tb, tz, offsets, origin, comp = prob[:6]
+        N, R, D, L = len(ids), len(origin), comp.shape[1], comp.shape[0] - 1
+        gathered = (tb[ids], tz[ids])  # the rows the ids stand for
+        row_args = [torch.as_tensor(x, device=smoke.DEVICE) for x in gathered] + ids_args[3:]
         order, n_long = ragged_order(np.diff(offsets))
         order_t = torch.as_tensor(order, device=smoke.DEVICE)
-        want = route_expand_ragged_ref(*args)
+        dev = order_t.device
+        want = route_expand_ragged_ids_ref(*ids_args)
         fns, keep = {}, []  # keep: outputs the launches write, alive while timed
 
-        def ptrs_of(bufs):
-            return ([a.data_ptr() for a in args[:4]] + [order_t.data_ptr(), n_long]
-                    + [a.data_ptr() for a in args[4:]] + [b.data_ptr() for b in bufs[2:]])
+        def ptrs_of(args, n_in, bufs):
+            return ([a.data_ptr() for a in args[:n_in + 2]] + [order_t.data_ptr(), n_long]
+                    + [a.data_ptr() for a in args[n_in + 2:]]
+                    + [b.data_ptr() for b in bufs[2:]])
 
         for label, (lib, _) in builds.items():
+            fn, takes_ids = route_entry(lib)
             bufs = ragged_buffers(N, R, D, L, smoke.DEVICE)
             keep.append(bufs)
+            ptrs = ptrs_of(ids_args, 3, bufs) if takes_ids else ptrs_of(row_args, 2, bufs)
 
-            def launch(lib=lib, ptrs=ptrs_of(bufs)):
-                lib.route_expand_ragged_launch(*ptrs, R, D, L, stream_ptr(args[0].device))
+            def launch(fn=fn, ptrs=ptrs):
+                fn(*ptrs, R, D, L, stream_ptr(dev))
 
             launch()
             torch.cuda.synchronize()
@@ -86,15 +117,21 @@ def route_cases(builds: dict) -> list:
             fns[label] = launch
         row = {"kernel": "route_expand_ragged", "batch": bs, "reads": R, "items": N, "D": D,
                "L": L, **{f"ms_{x}": t for x, t in in_turns(fns).items()}}
-        lib = builds["this"][0]
-        ptrs = ptrs_of(ragged_buffers(N, R, D, L, smoke.DEVICE))
-        # the same launch with no layers above 0: every load, the local
-        # pass, the fold and the stores, but no greedy walk
+        fn, _ = route_entry(builds["this"][0])
+        arange = torch.arange(N, dtype=torch.int32, device=smoke.DEVICE)
+        variant_ptrs = {}
+        for name, args, layers in (("as recorded", ids_args, L),
+                                   ("no walk (L = 0)", ids_args, 0),
+                                   ("over the rows", [arange] + row_args, L)):
+            bufs = ragged_buffers(N, R, D, L, smoke.DEVICE)
+            keep.append((args, bufs))  # written by the launches below while they are timed
+            variant_ptrs[name] = (ptrs_of(args, 3, bufs), layers)
+        # the same launch with no layers above 0 (every load, the local pass,
+        # the fold and the stores, but no greedy walk), and over the rows
+        # its ids stand for, read where they lie
         row["ms_this_variants"] = in_turns({
-            "as recorded": lambda: lib.route_expand_ragged_launch(
-                *ptrs, R, D, L, stream_ptr(args[0].device)),
-            "no walk (L = 0)": lambda: lib.route_expand_ragged_launch(
-                *ptrs, R, D, 0, stream_ptr(args[0].device)),
+            name: (lambda p=p, layers=layers: fn(*p, R, D, layers, stream_ptr(dev)))
+            for name, (p, layers) in variant_ptrs.items()
         })
         rows.append(row)
         print(json.dumps(row), flush=True)
