@@ -253,8 +253,8 @@ Phases, each of which fails the run with a nonzero exit:
     longest read (26,182 items), one launch an origin's sub-batch:
     picks, layers and missing counts equal, bytes and latencies within
     phase 4's tolerances, over the store's route tables, and
-    ``route_online_batch`` on the card, with the tables and without (the
-    rows as tables), request-identical to the numpy router; the store's
+    ``route_online_batch`` on the card over the tables request-identical
+    to the numpy router; the store's
     ``serve_batch`` of the drain launches the kernel once a sub-batch over
     the item gate.  Prints each launch's graph-replayed time beside its
     bound, and numpy against fused routing over the tables, timed in turns,
@@ -616,9 +616,8 @@ def main_path(report: dict):
 def gated_launch(label: str, reqs, launched: int) -> bool:
     """Whether the router's item gate sends ``reqs`` (one routing call) to
     the card; fails the run unless ``launched`` says the same."""
-    from repro_torch.core.routing import get_route_fast_config
+    from repro_torch.core.routing import FUSED_MIN_ITEMS as gate
 
-    gate = get_route_fast_config().min_items
     items = sum(len(it) for it, _ in reqs)
     want = int(len(reqs) > 1 and items >= gate)
     if launched != want:
@@ -655,9 +654,6 @@ def _drive_main_path(report: dict, inputs, rec: DHDRecorder, route: "RouteRecord
         launches[f"serve_{bs}"] = {k: v - before[k] for k, v in counts().items()}
         if gated_launch(f"serve_batch({bs})", reqs,
                         launches[f"serve_{bs}"]["route_expand_ragged"]):
-            if route.last_inputs != "ids":
-                fail(f"serve_batch({bs}) on the card routed without the store's route "
-                     "tables")
             rec.routes[bs] = route.last
         want = route_online_batch(store.lg, store.state, reqs, fast=False)
         if not same_results(got, want):
@@ -3127,7 +3123,8 @@ def ragged_phase(report: dict) -> dict:
     import torch
 
     from geobench.traffic import warmup_reads
-    from repro_torch.core.routing import get_route_fast_config, route_online_batch
+    from repro_torch.core.routing import FUSED_MIN_ITEMS as gate
+    from repro_torch.core.routing import route_online_batch
     from repro_torch.kernels.route_expand import RAGGED_LAUNCHES
 
     sweep = []
@@ -3154,18 +3151,15 @@ def ragged_phase(report: dict) -> dict:
     subs = {}
     for it, o in reqs:
         subs.setdefault(o, []).append((it, o))
-    gate = get_route_fast_config().min_items
     drain, shapes = [], []
     host, tables = _tables_of(store)
     for o, sub in sorted(subs.items()):
         r = check_ragged(f"drain origin {o}", _ids_of(store, sub), timed=True)
         want = route_online_batch(store.lg, store.state, sub, fast=False)
-        for form, kw in (("the store's tables", {"sizes": host, "tables": tables}),
-                         ("no tables", {})):
-            got = route_online_batch(store.lg, store.state, sub, fast=True, device="cuda", **kw)
-            if not same_results(got, want):
-                fail(f"route_online_batch on the card with {form} differs from the numpy "
-                     f"router (origin {o})")
+        got = route_online_batch(store.lg, store.state, sub, sizes=host, fast=True,
+                                 device="cuda", tables=tables)
+        if not same_results(got, want):
+            fail(f"route_online_batch on the card differs from the numpy router (origin {o})")
         r.update(origin=o, **_in_turns_ms({
             "numpy_ms": lambda: route_online_batch(store.lg, store.state, sub, sizes=host,
                                                    fast=False),
@@ -3342,9 +3336,6 @@ def competitor_phase(report: dict, inputs):
             served[bs] = (reqs, got, serve_s)
             if gated_launch(f"RP+SR serve_batch({bs})", reqs,
                             launches[f"serve_{bs}"]["route_expand_ragged"]):
-                if route.last_inputs != "ids":
-                    fail(f"RP+SR serve_batch({bs}) on the card routed without the store's "
-                         "route tables")
                 probs[bs] = route.last
         rec.phase = "maintain"
         before = launch_counts()
@@ -3713,25 +3704,19 @@ def cp_window(store) -> float:
 
 
 class RouteRecorder:
-    """Installed over ``kernels.ops.route_expand_flat`` and
-    ``route_expand_flat_ids`` (the names the routing fast path calls,
-    without and with a store's route tables): passes every call on and
-    keeps, as numpy, the inputs of the widest call (most items) and of the
-    last, as :func:`check_ragged` takes them: ``(ids, table_bits,
-    table_sizes, offsets, origin, comp, rtt, ibw)`` of a call over tables
-    (as they stood), the rows form of a call without.  ``last_inputs`` is
-    the last call's (``"ids"`` or ``"rows"``); ``inputs`` counts the calls
-    by it."""
+    """Installed over ``kernels.ops.route_expand_flat_ids`` (the name the
+    routing fast path calls): passes every call on and keeps, as numpy, the
+    inputs of the widest call (most items) and of the last, as
+    :func:`check_ragged` takes them: ``(ids, table_bits, table_sizes,
+    offsets, origin, comp, rtt, ibw)``, the tables as they stood."""
 
     def __init__(self, ops) -> None:
         import threading
 
         self.ops = ops
-        self.fn = ops.route_expand_flat
-        self.fn_ids = ops.route_expand_flat_ids
+        self.fn = ops.route_expand_flat_ids
         self.calls = 0
-        self.inputs = {"rows": 0, "ids": 0}
-        self.widest = self.last = self.last_inputs = None
+        self.widest = self.last = None
         self._lock = threading.Lock()  # shard threads may route at once
 
     @staticmethod
@@ -3741,39 +3726,26 @@ class RouteRecorder:
         x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
         return np.ascontiguousarray(x, dt)
 
-    def _keep(self, prob, inputs: str) -> None:
-        with self._lock:
-            self.calls += 1
-            self.inputs[inputs] += 1
-            self.last, self.last_inputs = prob, inputs
-            if self.widest is None or len(prob[0]) > len(self.widest[0]):
-                self.widest = prob
-
-    def __call__(self, bits, sizes, bounds, origin, comp, rtt, ibw, device=None):
+    def __call__(self, ids, bounds, origin, tables, comp, rtt, ibw, device=None):
         import numpy as np
 
-        self._keep(tuple(self._host(x, dt) for x, dt in (
-            (bits, np.int32), (sizes, np.float32), (bounds, np.int32), (origin, np.int32),
-            (comp, np.int32), (rtt, np.float32), (ibw, np.float32))), "rows")
-        return self.fn(bits, sizes, bounds, origin, comp, rtt, ibw, device=device)
-
-    def call_ids(self, ids, bounds, origin, tables, comp, rtt, ibw, device=None):
-        import numpy as np
-
-        self._keep(tuple(self._host(x, dt) for x, dt in (
+        prob = tuple(self._host(x, dt) for x, dt in (
             (ids, np.int32), (tables[0], np.int32), (tables[1], np.float32),
             (bounds, np.int32), (origin, np.int32), (comp, np.int32), (rtt, np.float32),
-            (ibw, np.float32))), "ids")
-        return self.fn_ids(ids, bounds, origin, tables, comp, rtt, ibw, device=device)
+            (ibw, np.float32)))
+        with self._lock:
+            self.calls += 1
+            self.last = prob
+            if self.widest is None or len(prob[0]) > len(self.widest[0]):
+                self.widest = prob
+        return self.fn(ids, bounds, origin, tables, comp, rtt, ibw, device=device)
 
     def __enter__(self) -> "RouteRecorder":
-        self.ops.route_expand_flat = self
-        self.ops.route_expand_flat_ids = self.call_ids
+        self.ops.route_expand_flat_ids = self
         return self
 
     def __exit__(self, *exc) -> None:
-        self.ops.route_expand_flat = self.fn
-        self.ops.route_expand_flat_ids = self.fn_ids
+        self.ops.route_expand_flat_ids = self.fn
 
 
 class CheckedStore:
@@ -3877,13 +3849,9 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
     import numpy as np
     import torch
 
+    from repro_torch.core import routing
     from repro_torch.core.placement import PlacementConfig
-    from repro_torch.core.routing import (
-        RouteFastConfig,
-        get_route_fast_config,
-        route_online_batch,
-        set_route_fast_config,
-    )
+    from repro_torch.core.routing import route_online_batch
     from repro_torch.core.store import GeoGraphStore
     from repro_torch.distributed import ShardedGeoGraphStore
     from repro_torch.kernels.cuda_lib import reset_launch_counters
@@ -4050,8 +4018,8 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
     before = link_bytes(sh.merged_metrics())
     wave_s0 = sh.registry.snapshot().get("migration.device_wave_s", {}).get("-", {})
     waves = []
-    old = get_route_fast_config()
-    set_route_fast_config(RouteFastConfig(min_items=CP_FAST_MIN_ITEMS))
+    gate = routing.FUSED_MIN_ITEMS
+    routing.FUSED_MIN_ITEMS = CP_FAST_MIN_ITEMS
     try:
         with recording(sh) as recorded:
             reset_launch_counters()
@@ -4063,7 +4031,7 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
             wall = time.perf_counter() - t
             launches = launch_counts()
     finally:
-        set_route_fast_config(old)
+        routing.FUSED_MIN_ITEMS = gate
     m = ctl.metrics()
     sizes = np.asarray(checked.sizes)
     lat = {p: np.asarray([h.latency_s for h in done if h.priority == p]) for p in (0, 1)}
@@ -4092,7 +4060,7 @@ def _drive_control_plane(inputs_fn, device: str, n_req: int, say, recording) -> 
         f"drains, each request-identical to the numpy router; drain wall median "
         f"{c['drain_median_wall_s'] * 1e3:.3f} ms (p99 {c['drain_wall_s_p99'] * 1e3:.3f}); "
         f"drain sizes {c['drain_sizes']} (the route fast path was pinned from "
-        f"{CP_FAST_MIN_ITEMS} item up, under the default gate of {old.min_items}); wall "
+        f"{CP_FAST_MIN_ITEMS} item up, under the default gate of {gate}); wall "
         f"{wall:.2f} s")
     say(f"path (c): sim-clock p50/p99 by class {c['sim_p50_p99_s']}; deadline misses "
         f"{m['deadline_misses']} by cause {m['misses_by_cause']}; targets by shard "
@@ -4179,11 +4147,7 @@ def control_plane_phase(report: dict, card: str) -> dict:
 
     import torch
 
-    from repro_torch.core.routing import (
-        RouteFastConfig,
-        get_route_fast_config,
-        set_route_fast_config,
-    )
+    from repro_torch.core import routing
     from repro_torch.kernels import ops
 
     def say(msg: str) -> None:
@@ -4205,7 +4169,6 @@ def control_plane_phase(report: dict, card: str) -> dict:
 
     r = check_ragged("control plane, widest call", rec["route"].widest, timed=True)
     checks = {"route_expand_ragged": r}
-    say(f"route expansion calls on path (c) by inputs: {rec['route'].inputs}")
     say(f"route_expand_ragged on path (c)'s widest call ({r['reads']} reads, {r['items']} "
         f"items): exact, max abs err {r['max_abs_err']:.3g}, kernel "
         f"{r['ms']:.4f} ms (host loop {r['host_loop_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
@@ -4238,15 +4201,15 @@ def control_plane_phase(report: dict, card: str) -> dict:
 
     # one drain of path (c) under the profiler, with path (c)'s routing gate
     drain = res["largest_drain"]
-    old = get_route_fast_config()
-    set_route_fast_config(RouteFastConfig(min_items=CP_FAST_MIN_ITEMS))
+    gate = routing.FUSED_MIN_ITEMS
+    routing.FUSED_MIN_ITEMS = CP_FAST_MIN_ITEMS
     try:
         sh.serve_batch(drain, observe=False)
         torch.cuda.synchronize()
         wall_ms, busy_ms, by_kind, _ = profiled(lambda: sh.serve_batch(drain, observe=False),
                                                 reps=5)
     finally:
-        set_route_fast_config(old)
+        routing.FUSED_MIN_ITEMS = gate
     out["drain_profile"] = {"requests": len(drain), "wall_ms_profiled": wall_ms,
                             "device_ms": busy_ms, "device_share": busy_ms / wall_ms,
                             "by_kind_ms": by_kind}

@@ -1,18 +1,21 @@
 """Each item's replica bitmask and bytes in tables keyed by item id that
 follow the route index (paper §VI serving on the card).
 
-On a card the fused router hands the ragged kernel item ids alone, and
-every routing call folds bytes from one host table, so no call gathers
+The fused router hands the ragged kernel item ids alone, on every device,
+and every routing call folds bytes from one host table, so no call gathers
 ``[K, D]`` replica rows or copies ``g.item_size()``.  A store keeps one
 :class:`RouteTables`:
 
   * ``host_bytes`` — the item bytes on the host, equal to
     ``g.item_size()`` and of its dtype (a scalar route sums them in it),
     from which the router's exact epilogue folds;
-  * on each card the store's shards use, an int32 replica bitmask a row
-    (bit d = ``delta[i, d]``, as ``routing._bit_pack`` makes it) and the
-    float32 item bytes (the rounding the rows form applies); none on the
-    CPU, where the router hands the kernel no tables.
+  * on each device the store's shards use, an int32 replica bitmask a row
+    (bit d = ``delta[i, d]``, as :func:`_bit_pack` makes it) and the
+    float32 item bytes.  This module owns that format and its limits: a
+    store of more DCs than a bitmask holds
+    (:data:`~repro_torch.kernels.route_expand.MAX_DCS`) or more layers than
+    the kernel walks (:data:`~repro_torch.kernels.route_expand.MAX_LAYERS`)
+    keeps no device tables, and its router routes on numpy.
 
 The tables follow the store's :class:`~repro_torch.core.route_index.RouteIndex`
 through its change events, as the sharded store's route partitions do:
@@ -26,18 +29,28 @@ holds now are not handed to the router (:meth:`RouteTables.handed`).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.route_expand import MAX_DCS, MAX_LAYERS
 from ..obs import Tracer
 from .route_index import RouteIndex
-from .routing import _bit_pack
 
 __all__ = ["RouteTables"]
 
 DeviceTables = Tuple[torch.Tensor, torch.Tensor]  # ([I] i32 bitmask, [I] f32 bytes)
+
+
+def _bit_pack(delta: np.ndarray) -> np.ndarray:
+    """``[K]`` int32 replica bitmask per row of ``delta`` (bit d = DC d),
+    one OR a DC column: no float copy of the rows, which at 300k rows took
+    ten times as long."""
+    bits = delta[:, 0].astype(np.int32)
+    for d in range(1, delta.shape[1]):
+        bits |= delta[:, d].astype(np.int32) << d
+    return bits
 
 
 def _device_key(device) -> torch.device:
@@ -54,35 +67,45 @@ class RouteTables:
 
     ``delta_fn`` and ``sizes_fn`` return the store's *current* placement
     map and item bytes (the store swaps both arrays on growth and
-    compaction, so the tables hold providers, never the arrays).
-    ``tracer`` counts ``route.table_rows``, the rows each event re-derives
-    or moves, tagged ``event`` (the event's kind).  A set follows each
-    device it is asked to keep; a store asks for its cards alone, since the
-    router reads the device tables on a card only."""
+    compaction, so the tables hold providers, never the arrays), and
+    ``n_layers_fn`` its layered graph's bridge layers.  ``tracer`` counts
+    ``route.table_rows``, the rows each event re-derives or moves, tagged
+    ``event`` (the event's kind).  A set follows each device it is asked to
+    keep, unless the store exceeds the kernel's limits (:meth:`fits`)."""
 
     def __init__(
         self,
         delta_fn: Callable[[], np.ndarray],
         sizes_fn: Callable[[], np.ndarray],
+        n_layers_fn: Callable[[], int],
         devices: Iterable = (),
         tracer: Optional[Tracer] = None,
     ) -> None:
         self._delta_fn = delta_fn
         self._sizes_fn = sizes_fn
+        self._n_layers_fn = n_layers_fn
         self._tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.index: Optional[RouteIndex] = None
         self.host_bytes = np.zeros(0, dtype=np.float32)
+        self._devices: List[torch.device] = []
         self.device_tables: Dict[torch.device, DeviceTables] = {}
         for device in devices:
             self.add_device(device)
+
+    def fits(self) -> bool:
+        """Whether the store's replica sets fit an int32 bitmask and its
+        layers the kernel's walk; else no device tables are kept."""
+        return self._delta_fn().shape[1] <= MAX_DCS and self._n_layers_fn() <= MAX_LAYERS
 
     # ------------------------------------------------------------ binding
     def add_device(self, device) -> None:
         """Keep a set of tables on ``device`` too (built at once when bound)."""
         key = _device_key(device)
-        if key in self.device_tables:
+        if key in self._devices:
             return
-        self.device_tables[key] = self._upload(key, None) if self.index is not None else None
+        self._devices.append(key)
+        if self.index is not None and self.fits():
+            self.device_tables[key] = self._upload(key, _bit_pack(self._delta_fn()))
 
     def bind(self, index: RouteIndex) -> None:
         """Follow ``index``'s events from now on, and derive every table
@@ -97,12 +120,11 @@ class RouteTables:
             Optional[np.ndarray], Optional[DeviceTables]]:
         """What a store hands ``route_online_batch`` when it routes on
         ``device`` with ``index``: ``(host_bytes, device tables)`` while
-        the tables follow ``index``, the device tables only on a card (the
-        id path runs there alone); ``(None, None)`` for any other index."""
+        the tables follow ``index`` (the device tables ``None`` where none
+        are kept); ``(None, None)`` for any other index."""
         if index is None or index is not self.index:
             return None, None
-        key = _device_key(device)
-        return self.host_bytes, (self.device_tables.get(key) if key.type == "cuda" else None)
+        return self.host_bytes, self.device_tables.get(_device_key(device))
 
     # -------------------------------------------------------------- events
     def _on_event(self, index: RouteIndex, kind: str, payload: object) -> None:
@@ -159,13 +181,12 @@ class RouteTables:
 
     def _rebuild(self) -> int:
         self.host_bytes = self._sizes_fn()
-        bits = _bit_pack(self._delta_fn())
-        for dev in self.device_tables:
-            self.device_tables[dev] = self._upload(dev, bits)
-        return len(bits)
+        delta = self._delta_fn()
+        if self.fits():
+            bits = _bit_pack(delta)
+            self.device_tables = {dev: self._upload(dev, bits) for dev in self._devices}
+        return delta.shape[0]
 
-    def _upload(self, dev: torch.device, bits: Optional[np.ndarray]) -> DeviceTables:
-        if bits is None:
-            bits = _bit_pack(self._delta_fn())
+    def _upload(self, dev: torch.device, bits: np.ndarray) -> DeviceTables:
         return (torch.tensor(bits, device=dev),
                 torch.tensor(self.host_bytes.astype(np.float32), device=dev))

@@ -29,10 +29,8 @@ from .latency import GeoEnvironment
 from .layered_graph import LayeredGraph
 
 __all__ = [
+    "FUSED_MIN_ITEMS",
     "RouteResult",
-    "RouteFastConfig",
-    "get_route_fast_config",
-    "set_route_fast_config",
     "route_online",
     "route_online_batch",
     "OfflineLayout",
@@ -107,38 +105,15 @@ def _obs_handles(reg) -> _ObsHandles:
     return h
 
 
-# --------------------------------------------------------- fast-path config
-@dataclasses.dataclass
-class RouteFastConfig:
-    """Eligibility gate for the fused batch expansion on the device.
-
-    The fast path pays fixed costs a call (one upload of the flat item
-    stream, the launch, one readback), and its work grows with the
-    batch's items, not its reads, so the gate counts items: a batch of two
-    or more reads takes it from ``min_items`` items up (a read alone keeps
-    the scalar router).  ``max_dcs`` is the int32 replica-bitmask budget
-    (bit 31 is the sign bit)."""
-
-    enabled: bool = True
-    # below this the numpy loop wins: on an H100 host, timed in turns on
-    # one-origin sub-batches of whole 1-/2-hop neighbourhoods (the reads
-    # that reach this size), numpy was faster up to 17,680 items and the
-    # fused path from 18,387 on; short reads crossed between 8,210 and 16,399
-    min_items: int = 18_000
-    max_dcs: int = 31
-
-
-_FAST_CONFIG = RouteFastConfig()
-
-
-def get_route_fast_config() -> RouteFastConfig:
-    return _FAST_CONFIG
-
-
-def set_route_fast_config(config: RouteFastConfig) -> RouteFastConfig:
-    global _FAST_CONFIG
-    _FAST_CONFIG = config
-    return config
+# The fused expansion's item gate: a batch of two or more reads takes it
+# from this many items up (a read alone keeps the scalar router).  The fused
+# path pays fixed costs a call (one upload of the flat item stream, the
+# launch, one readback) and its work grows with the batch's items, not its
+# reads.  Below this the numpy loop wins: on an H100 host, timed in turns on
+# one-origin sub-batches of whole 1-/2-hop neighbourhoods (the reads that
+# reach this size), numpy was faster up to 17,680 items and the fused path
+# from 18,387 on; short reads crossed between 8,210 and 16,399.
+FUSED_MIN_ITEMS = 18_000
 
 
 # ------------------------------------------------------------------- online
@@ -368,24 +343,6 @@ def _observe_scalar(
         h.grid.add(wan_link)
 
 
-def _get_kops():
-    """The kernels package, imported on the first fast-path call so the
-    numpy router imports fast."""
-    from ..kernels import autotune, ops
-
-    return ops, autotune
-
-
-def _fast_eligible(
-    fast: Optional[bool], config: RouteFastConfig, D: int, n_items: int, n_layers: int,
-) -> bool:
-    if fast is False or not config.enabled or n_items == 0:
-        return False
-    if D > config.max_dcs or n_layers > 64:
-        return False  # int32 bitmask / stats-lane budget
-    return fast is True or n_items >= config.min_items
-
-
 # per-(LayeredGraph, device) copies of the expansion constants (layer
 # components, RTT, 1/bandwidth) as device tensors: a host->device copy per
 # batch would cost a transfer and a sync for arrays that never change.
@@ -395,14 +352,11 @@ _FAST_ENV_CACHE: Dict[tuple, Tuple[LayeredGraph, tuple]] = {}
 
 
 def reset_routing_caches() -> None:
-    """Reset every module-level routing cache/singleton: the per-layer tag
-    intern table, the fast-path config and the per-graph device-tensor
-    cache.  Test isolation hook — everything here rebuilds lazily on next
-    use."""
-    global _FAST_CONFIG
+    """Reset every module-level routing cache: the per-layer tag intern
+    table and the per-graph device-tensor cache.  Test isolation hook —
+    everything here rebuilds lazily on next use."""
     _LAYER_TAGS.clear()
     _FAST_ENV_CACHE.clear()
-    _FAST_CONFIG = RouteFastConfig()
 
 
 def _fast_env_arrays(lg: LayeredGraph, device: torch.device) -> tuple:
@@ -422,95 +376,48 @@ def _fast_env_arrays(lg: LayeredGraph, device: torch.device) -> tuple:
     return arrs
 
 
-def _bit_pack(delta_all: np.ndarray) -> np.ndarray:
-    """``[K]`` int32 replica bitmask per row of ``delta_all`` (bit d = DC d),
-    one OR a DC column: no float copy of the rows, which at 300k rows took
-    ten times as long."""
-    bits = delta_all[:, 0].astype(np.int32)
-    for d in range(1, delta_all.shape[1]):
-        bits |= delta_all[:, d].astype(np.int32) << d
-    return bits
-
-
 def _route_batch_fast(
     lg: LayeredGraph,
-    delta_all: Optional[np.ndarray],  # [K, D] replica rows for the flat item stream
-    sizes_all: np.ndarray,  # [K] item bytes, flat
     items_all: np.ndarray,  # [K] item ids, flat
-    tables: Optional[tuple],  # ([I] i32 bitmask, [I] f32 bytes) on device, or None
-    req_id: np.ndarray,  # [K] request id per flat item
+    tables: tuple,  # ([I] i32 bitmask, [I] f32 bytes) on device
     bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
-    lens: np.ndarray,  # [R]
     origin: np.ndarray,  # [R]
     reg,
     obs: bool,
     device: DeviceLike,
     tracer: Tracer,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Fused expansion for the whole batch on the kernels fast path.
+    """Fused expansion for the whole batch over a store's route tables.
 
-    With ``tables`` (the ids form) the ragged expansion takes the flat item
-    ids as they are (``kernels.ops.route_expand_flat_ids``) and reads each
-    item's replica bitmask and bytes from the tables on the device; no row
-    is gathered or packed here.  Without (the rows form) it bit-packs the
-    batch's replica rows ``delta_all`` (bit d = replica at DC d) and hands
-    the bitmasks and bytes as the tables over the stream's own slots
-    (``kernels.ops.route_expand_flat``).  Neither pads, nor bounds a read's
-    length.  The card runs the one CUDA kernel and nothing else.  On the CPU the ids form
-    takes the kernel's plain version; the rows form takes the autotuned
-    winner for the bucketed ``(reads, longest read, D, L)``: the
-    subset-histogram router (``"subsets"``, ``kernels.ops.
-    route_expand_subsets`` — default for small DC counts, per-pass work
-    independent of the item count) or the kernel's plain version
-    (``"kernel"``).  Every impl produces the numpy router's exact greedy
-    picks.  ``tracer`` records ``route.pack`` (bit-pack, on the host; empty
-    but for the constants in the ids form) and ``route.device`` (the
-    expansion call: upload, launch and readback on the card), tagged
-    ``layout`` (``"ragged"``), ``variant`` (which kernel or plain version
-    ran), ``inputs`` (``"ids"`` or ``"rows"``), ``slots`` (item slots
-    handed to it), ``reads`` and ``layers``, and counts
-    ``route.device_slots`` by ``variant``.  Returns ``(served [K],
-    layers_used [R])``; all byte/latency folds are recomputed exactly on
-    the host by the shared epilogue, so results are bit-identical to the
-    numpy path.
+    The ragged expansion (``kernels.ops.route_expand_flat_ids``) takes the
+    flat item ids as they are and reads each item's replica bitmask and
+    bytes from the tables on the device; no row is gathered or packed here,
+    no read is padded or bounded in length.  The card runs the one CUDA
+    kernel, the CPU its plain version; both produce the numpy router's
+    exact greedy picks.  ``tracer`` records ``route.device`` (the expansion
+    call: upload, launch and readback on the card), tagged ``layout``
+    (``"ragged"``), ``variant`` (``"ragged"`` on the card,
+    ``"ragged_plain"`` on the CPU), ``slots`` (item slots handed to it),
+    ``reads`` and ``layers``, and counts ``route.device_slots`` by
+    ``variant``.  Returns ``(served [K], layers_used [R])``; all
+    byte/latency folds are recomputed exactly on the host by the shared
+    epilogue, so results are bit-identical to the numpy path.
     """
-    ops, autotune = _get_kops()
+    from ..kernels import ops  # on the first fused call: the numpy router imports fast
+
     dev = resolve_device(device)
-    R = len(lens)
+    R = len(origin)
     K = len(items_all)
-    D = lg.env.n_dcs
     L = lg.n_layers
     t0 = time.perf_counter() if obs else 0.0
-    with tracer.span("route.pack", track="route"):
-        impl = "kernel"
-        if tables is None:
-            bits_flat = _bit_pack(delta_all)
-            if dev.type == "cpu" and D <= ops.SUBSET_MAX_DCS:
-                sig = (autotune.shape_bucket(R, floor=8),
-                       autotune.shape_bucket(int(lens.max()), floor=8), D, L)
-                cfg = autotune.get_autotuner().lookup("route_expand", sig) or {}
-                impl = "kernel" if cfg.get("impl") == "kernel" else "subsets"
-        if impl == "kernel":
-            comp, rtt, ibw = _fast_env_arrays(lg, dev)
-    if impl == "kernel":
-        variant = "ragged" if dev.type == "cuda" else "ragged_plain"
-    else:
-        variant = "subsets"
+    comp, rtt, ibw = _fast_env_arrays(lg, dev)
+    variant = "ragged" if dev.type == "cuda" else "ragged_plain"
     tracer.count("route.device_slots", K, variant=variant)
     with tracer.span("route.device", track="route", layout="ragged", variant=variant,
-                     inputs="rows" if tables is None else "ids", slots=K, reads=R, layers=L):
-        if tables is not None:
-            served, layers_used, miss_after = ops.route_expand_flat_ids(
-                items_all, bounds, origin, tables, comp, rtt, ibw, device=dev
-            )
-        elif impl == "subsets":
-            served, layers_used, miss_after = ops.route_expand_subsets(
-                bits_flat, req_id, R, origin, lg.comp_of_dc
-            )
-        else:
-            served, layers_used, miss_after = ops.route_expand_flat(
-                bits_flat, sizes_all, bounds, origin, comp, rtt, ibw, device=dev
-            )
+                     slots=K, reads=R, layers=L):
+        served, layers_used, miss_after = ops.route_expand_flat_ids(
+            items_all, bounds, origin, tables, comp, rtt, ibw, device=dev
+        )
     served = served.astype(np.int64)
     if obs:
         h = _obs_handles(reg)
@@ -553,19 +460,18 @@ def route_online_batch(
     per-shard sub-batches) takes :func:`_expand_single_origin` instead of
     the lockstep loop — same results, less work per pass.
 
-    ``fast`` pins the fused expansion (:mod:`repro_torch.kernels`) on
-    ``device`` (``None`` = the card): ``True`` forces it, ``False`` forbids
-    it, ``None`` (default) lets :class:`RouteFastConfig`'s item gate decide.
-    The fast path computes the same greedy picks on the device and re-folds
-    bytes/latency on the host in f64, so its results are bit-identical to
-    the numpy path.
+    ``tables`` are a store's current ``(bitmask, bytes)`` tables keyed by
+    item id on ``device`` (``None`` = the card;
+    :class:`~repro_torch.core.route_tables.RouteTables`).  With them a batch
+    of two or more reads takes the fused expansion
+    (:mod:`repro_torch.kernels`) from :data:`FUSED_MIN_ITEMS` items up, or
+    at any size with ``fast=True``; ``fast=False`` forbids it, and
+    ``fast=True`` without tables raises.  The fused path computes the same
+    greedy picks on the device and re-folds bytes/latency on the host in
+    f64, so its results are bit-identical to the numpy path.
 
     ``sizes`` is the item bytes (``None``: a fresh ``lg.g.item_size()``,
-    which a store's route tables spare it).  ``tables`` are a store's
-    current ``(bitmask, bytes)`` tables keyed by item id on ``device``
-    (:class:`~repro_torch.core.route_tables.RouteTables`): with them the
-    fused path hands the card the item ids alone, without them it gathers
-    and packs the replica rows.
+    which a store's route tables spare it).
 
     ``registry`` routes serving/routing telemetry into an explicit
     :class:`~repro_torch.obs.MetricsRegistry` (a shard's private registry);
@@ -573,11 +479,12 @@ def route_online_batch(
 
     ``tracer`` records the batch's phases under the caller's open span:
     ``route.prologue`` (flatten, gather the item sizes and, but on the fused
-    path with tables, the replica rows), ``route.expand`` tagged ``path``
-    (``"scalar"``, ``"numpy"`` or ``"fused"``), ``reads`` and ``items`` — on
-    the fused path with the children ``route.pack`` and ``route.device`` —
-    and ``route.epilogue``.
+    path, the replica rows), ``route.expand`` tagged ``path`` (``"scalar"``,
+    ``"numpy"`` or ``"fused"``), ``reads`` and ``items`` — on the fused path
+    with the child ``route.device`` — and ``route.epilogue``.
     """
+    if fast and tables is None:
+        raise ValueError("fast=True needs a store's route tables (tables=)")
     env = lg.env
     R = len(requests)
     if R == 0:
@@ -619,12 +526,13 @@ def route_online_batch(
         req_id = np.repeat(np.arange(R, dtype=np.int64), lens)
         D = env.n_dcs
         bounds = np.concatenate([[0], np.cumsum(lens)])
-        fused = _fast_eligible(fast, _FAST_CONFIG, D, len(items_all), lg.n_layers)
-        ids_form = fused and tables is not None
+        K = len(items_all)
+        fused = (tables is not None and fast is not False and K > 0
+                 and (fast is True or K >= FUSED_MIN_ITEMS))
         # one gather each of the batch's item bytes and (but where the
-        # card reads them from its tables) replica rows; every greedy pass
+        # device reads them from its tables) replica rows; every greedy pass
         # and the shared epilogue reuse them
-        delta_all = None if ids_form else state.delta[items_all]  # [K, D]
+        delta_all = None if fused else state.delta[items_all]  # [K, D]
         sz_all = np.take(sizes, items_all)  # [K]; take gathers twice as fast as []
 
         # coverage telemetry: per-layer resolved-item counters + expansion
@@ -637,8 +545,7 @@ def route_online_batch(
                  reads=R, items=len(items_all)):
         if fused:
             served, layers_used = _route_batch_fast(
-                lg, delta_all, sz_all, items_all, tables if ids_form else None, req_id,
-                bounds, lens, origin, reg, obs, device=device, tracer=tr,
+                lg, items_all, tables, bounds, origin, reg, obs, device=device, tracer=tr,
             )
         else:
             served, layers_used = _expand_numpy(

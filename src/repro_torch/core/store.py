@@ -134,11 +134,10 @@ class GeoGraphStore:
         self.route_index: Optional[RouteIndex] = None
         # each item's replica bitmask and bytes keyed by item id, following
         # the route index's events; handed to the router with the index (the
-        # bytes on the host always, the device tables on a card, where alone
-        # the router reads them)
+        # bytes on the host, the bitmasks and bytes on the store's device)
         self.route_tables = RouteTables(
-            lambda: self.state.delta, lambda: self.g.item_size(),
-            devices=[self.device] if self.device.type == "cuda" else [], tracer=self.tracer,
+            lambda: self.state.delta, lambda: self.g.item_size(), lambda: self.lg.n_layers,
+            devices=[self.device], tracer=self.tracer,
         )
         # content-stable uid per item row: assigned monotonically at birth,
         # row-selected (never renumbered) on compaction.  Placement-journal

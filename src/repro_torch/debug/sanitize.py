@@ -102,7 +102,7 @@ class StoreSanitizer:
                 "than the store's (a re-place did not rebind them)"
             )
             return
-        from ..core.routing import _bit_pack
+        from ..core.route_tables import _bit_pack
 
         sizes = self.store.g.item_size()
         if tables.host_bytes.dtype != sizes.dtype or not np.array_equal(

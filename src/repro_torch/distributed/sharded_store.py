@@ -252,8 +252,7 @@ class ShardedGeoGraphStore:
                 shard.partitions[d] = part
                 self.partitions[d] = part
             self.shards.append(shard)
-            if shard.device.type == "cuda":  # the router reads device tables on a card only
-                self._store.route_tables.add_device(shard.device)
+            self._store.route_tables.add_device(shard.device)
         self._bound_index = None
         self._rebind_index()
         self.straggler = StragglerDetector(
@@ -494,7 +493,8 @@ class ShardedGeoGraphStore:
         """Route one origin's sub-batch on its owning shard, telemetry into
         that shard's registry and a ``shard.route`` span under ``parent``,
         with the coordinator's route tables for the shard's device (item
-        bytes on the host; on a card, bitmasks and bytes keyed by item id);
+        bytes on the host, bitmasks and bytes keyed by item id on the
+        device);
         returns results + wall seconds."""
         shard = self.shards[self.origin_shard[origin]]
         tr = self._store.tracer

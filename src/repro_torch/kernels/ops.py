@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from ..device import DeviceLike, on_cuda, resolve_device
+from ..device import DeviceLike, resolve_device
 from ..obs import get_registry
 from . import ref
 from .dhd_spmv import dhd_ell_step, dhd_ell_step_batch
@@ -37,10 +37,7 @@ __all__ = [
     "dhd_step_batch",
     "diffuse_batch",
     "edge_cache_stats",
-    "route_expand_candidates",
-    "route_expand_flat",
     "route_expand_flat_ids",
-    "route_expand_subsets",
 ]
 
 
@@ -71,10 +68,9 @@ _EDGE_CACHE_MAX = 8
 
 
 def reset_kernel_caches() -> None:
-    """Drop the identity-keyed edge cache and the subset-mask table
-    (test isolation hook; both rebuild lazily on next use)."""
+    """Drop the identity-keyed edge cache (test isolation hook; it rebuilds
+    lazily on next use)."""
     _EDGE_CACHE.clear()
-    _SUBSET_HAS_CACHE.clear()
 
 
 def edge_cache_stats() -> dict:
@@ -473,7 +469,7 @@ def diffuse_batch(
 # seconds) instead of the P² histogram _obs_dispatch feeds
 _ROUTE_OBS_KEYS = {
     path: ((("op", "route_expand"), ("path", path)),)
-    for path in ("kernel", "ref", "subsets")
+    for path in ("kernel", "ref")
 }
 
 
@@ -496,47 +492,10 @@ def _route_obs(path: str, t0: Optional[float]) -> None:
     pair[1].inc(time.perf_counter() - t0)
 
 
-def route_expand_candidates(
-    backend: Optional[str] = None, n_dcs: Optional[int] = None
-) -> list:
-    """Autotuner candidate configs for ``route_expand`` on ``backend``.
-
-    CUDA has one: the ragged kernel (the card runs nothing else).  CPU pits
-    its plain version against the subset-histogram router, offered only
-    when the DC count keeps its ``2**D`` histogram small (``n_dcs`` unknown
-    counts as eligible — dispatch re-checks)."""
-    if backend is None:
-        backend = "cuda" if on_cuda() else "cpu"
-    cands = [{"impl": "kernel"}]
-    if backend != "cuda" and (n_dcs is None or n_dcs <= SUBSET_MAX_DCS):
-        cands.append({"impl": "subsets"})
-    return cands
-
-
 def _as_device(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype).contiguous()
     return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dtype)
-
-
-def route_expand_flat(
-    bits: np.ndarray,  # [N] i32 per-item replica bitmask, the flat item stream
-    sizes: np.ndarray,  # [N] f32 item bytes
-    bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
-    origin: np.ndarray,  # [R] origin DC per request
-    comp,  # [hier + 1, D] layer component ids (numpy or a device tensor)
-    rtt,  # [D, D] env RTT matrix
-    ibw,  # [D, D] elementwise 1 / bandwidth matrix
-    device: DeviceLike = None,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """:func:`route_expand_flat_ids` on a stream that brings its own rows:
-    the bitmasks and bytes go to ``device`` as the tables over ids ``0 ..
-    N - 1``.  For callers with no route tables (a caller of the router
-    without a store's tables; the CPU, where the router hands none)."""
-    dev = resolve_device(device)
-    tables = (_as_device(bits, torch.int32, dev), _as_device(sizes, torch.float32, dev))
-    return _route_flat(np.arange(len(bits), dtype=np.int32), bounds, origin, tables, comp,
-                       rtt, ibw, dev)
 
 
 def route_expand_flat_ids(
@@ -559,10 +518,7 @@ def route_expand_flat_ids(
     Returns numpy ``(served [N] i8, layers_used [R] i32, miss_after [R,
     L+1] i32)``; the byte and latency fold is left to the caller's exact
     host epilogue."""
-    return _route_flat(ids, bounds, origin, tables, comp, rtt, ibw, resolve_device(device))
-
-
-def _route_flat(ids, bounds, origin, tables, comp, rtt, ibw, dev: torch.device):
+    dev = resolve_device(device)
     t0 = _obs_t0()
     N, R = len(ids), len(origin)
     D = comp.shape[1]
@@ -578,12 +534,21 @@ def _route_flat(ids, bounds, origin, tables, comp, rtt, ibw, dev: torch.device):
         raise ValueError(f"the tables are on {on} and {table_sizes.device}, the call on {dev}")
     dev = on  # "cuda" names the card the tables are on
     if dev.type == "cpu":
-        served, _, layers_used, miss_after, _, _ = _route_expand_ragged_kernel(
-            _as_device(ids, torch.int32, dev), table_bits, table_sizes,
-            _as_device(bounds, torch.int32, dev), _as_device(origin, torch.int32, dev),
-            _as_device(comp, torch.int32, dev), _as_device(rtt, torch.float32, dev),
-            _as_device(ibw, torch.float32, dev),
-        )
+        # the plain version makes a few hundred small ops a call: intra-op
+        # threads gain little on them, and where other processes share the
+        # host each op's barrier waits on descheduled threads (on 8 cores
+        # shared by 6 processes, 20 ms a call on this thread, 2 s on 8)
+        n_threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            served, _, layers_used, miss_after, _, _ = _route_expand_ragged_kernel(
+                _as_device(ids, torch.int32, dev), table_bits, table_sizes,
+                _as_device(bounds, torch.int32, dev), _as_device(origin, torch.int32, dev),
+                _as_device(comp, torch.int32, dev), _as_device(rtt, torch.float32, dev),
+                _as_device(ibw, torch.float32, dev),
+            )
+        finally:
+            torch.set_num_threads(n_threads)
         _route_obs("ref", t0)
         return served.numpy(), layers_used.numpy(), miss_after.numpy()
     host = torch.empty(N + 3 * R + 1, dtype=torch.int32, pin_memory=True)
@@ -598,85 +563,3 @@ def _route_flat(ids, bounds, origin, tables, comp, rtt, ibw, dev: torch.device):
     served, layers_used, miss_after = ragged_int_views(out[0].cpu(), N, R, L)
     _route_obs("kernel", t0)
     return served.numpy(), layers_used.numpy(), miss_after.numpy()
-
-
-# subset-histogram router: with D data centers an item's routing behaviour is
-# fully determined by its replica bitmask, so a batch collapses to at most
-# 2**D distinct item classes per request.  Histogramming the flat item stream
-# over (request, bitmask) turns every greedy pass into [R, 2**D]-sized work —
-# independent of the item count: the CPU's default for small D.
-SUBSET_MAX_DCS = 8
-
-_SUBSET_HAS_CACHE: dict = {}
-
-
-def _subset_has(n_dc: int) -> Tuple[np.ndarray, np.ndarray]:
-    hit = _SUBSET_HAS_CACHE.get(n_dc)
-    if hit is None:
-        s = np.arange(1 << n_dc, dtype=np.int64)
-        has = ((s[:, None] >> np.arange(n_dc)) & 1).astype(bool)  # [S, D]
-        hit = (has, has.astype(np.float64))
-        _SUBSET_HAS_CACHE.clear()
-        _SUBSET_HAS_CACHE[n_dc] = hit
-    return hit
-
-
-def route_expand_subsets(
-    bits_flat: np.ndarray,  # [K] i32/i64 per-item replica bitmask, flat stream
-    req_id: np.ndarray,  # [K] request id per flat item (sorted by request)
-    n_requests: int,
-    origin: np.ndarray,  # [R] origin DC per request
-    comp: np.ndarray,  # [hier + 1, D] layer component ids
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Stepwise layered expansion over per-request replica-subset histograms.
-
-    Runs the exact greedy of ``route_online`` (same coverage counts — an
-    item contributes to a DC's coverage iff its bitmask holds that DC's bit —
-    same lowest-DC-id argmax tie-break, same layer escalation) but on
-    ``[R, 2**D]`` subset counts, then scatters each subset's serving DC back
-    to its items with one gather.  Returns
-    ``(served [K] i64, layers_used [R] i64, miss_after [R, hier + 1] i64)``;
-    the byte/latency fold is left to the caller's exact host epilogue.
-    """
-    t0 = _obs_t0()
-    R = int(n_requests)
-    L = comp.shape[0] - 1
-    D = comp.shape[1]
-    S = 1 << D
-    has, has_f = _subset_has(D)
-    # [R, S] item count per (request, replica subset); exact as f64 (< 2^53)
-    cnt = np.bincount(
-        req_id * S + bits_flat.astype(np.int64), minlength=R * S
-    ).reshape(R, S).astype(np.float64)
-    origin_in = has[:, origin].T  # [R, S] subset holds the origin's bit
-    serve = np.where(origin_in, origin[:, None], -1)  # [R, S] per-subset DC
-    missing = ~origin_in
-    miss_cnt = (cnt * missing).sum(axis=1)
-    miss_after = np.zeros((R, L + 1), dtype=np.int64)
-    miss_after[:, 0] = miss_cnt
-    ar_R = np.arange(R)
-    layers_used = np.zeros(R, dtype=np.int64)
-    for layer in range(1, L + 1):
-        if not miss_cnt.any():
-            break  # untouched miss_after columns stay 0 == fully resolved
-        cl = comp[layer]
-        allowed = cl[origin][:, None] == cl[None, :]  # [R, D]
-        allowed[ar_R, origin] = False
-        layers_used = np.where(
-            (miss_cnt > 0) & allowed.any(axis=1), layer, layers_used
-        )
-        while True:
-            cover = (cnt * missing) @ has_f  # [R, D] exact integer counts
-            cover[~allowed] = 0.0
-            best = cover.argmax(axis=1)  # first max == lowest DC id
-            progressed = cover[ar_R, best] > 0
-            if not progressed.any():
-                break
-            hit = missing & has[:, best].T & progressed[:, None]
-            serve = np.where(hit, best[:, None], serve)
-            missing &= ~hit
-            miss_cnt = (cnt * missing).sum(axis=1)
-        miss_after[:, layer] = miss_cnt
-    served = serve[req_id, bits_flat]
-    _route_obs("subsets", t0)
-    return served, layers_used, miss_after

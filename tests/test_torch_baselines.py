@@ -136,18 +136,17 @@ def test_insert_patterns_incremental_falls_back(small_setup, port_setup, placeme
 
 
 def test_rp_sr_batch_through_the_kernel_wrapper(small_setup, port_setup, monkeypatch):
-    """RP+SR (random placement, stepwise routing) with the fast path pinned
-    to the route-expansion kernel's wrapper, as on the card: Random-3 puts
-    replicas at up to four DCs, tiles the GeoLayer store never makes.  On
-    CPU tensors the wrapper runs its plain version."""
+    """RP+SR (random placement, stepwise routing) with the item gate opened,
+    so every batch takes the route-expansion kernel's wrapper over the
+    store's route tables, as on the card: Random-3 puts replicas at up to
+    four DCs, tiles the GeoLayer store never makes.  On CPU tensors the
+    wrapper runs its plain version."""
     from repro.core.routing import route_online_batch as jax_route_online_batch
-    from repro_torch.kernels import autotune as ttune
+    from repro_torch.core import routing as trouting
 
     got, want, _, _ = _twin(small_setup, port_setup, "random", "stepwise")
     assert got.state.delta.sum(axis=1).max() == 4
-    tuner = ttune.Autotuner()
-    monkeypatch.setattr(ttune, "_AUTOTUNER", tuner)
-    monkeypatch.setattr(tuner, "lookup", lambda op, sig, device=None: {"impl": "kernel"})
+    monkeypatch.setattr(trouting, "FUSED_MIN_ITEMS", 1)
     reset_launch_counters()
     for n, seed in ((64, 1), (200, 2)):
         reqs = _request_ix(port_setup[4], got.env.n_dcs, n, seed)

@@ -261,19 +261,6 @@ def test_dhd_step_batch_dispatch_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **DHD_TOL)
 
 
-def test_route_expand_candidates_and_device_kind():
-    from repro_torch.kernels import ops as tops
-    from repro_torch.kernels.autotune import Autotuner
-
-    assert tops.route_expand_candidates("cuda", n_dcs=5) == [{"impl": "kernel"}]
-    assert tops.route_expand_candidates("cpu", n_dcs=5) == [
-        {"impl": "kernel"}, {"impl": "subsets"}
-    ]
-    assert tops.route_expand_candidates("cpu", n_dcs=12) == [{"impl": "kernel"}]
-    kind = Autotuner.device_kind()
-    assert kind.startswith("cuda:") if torch.cuda.is_available() else kind == "cpu:cpu"
-
-
 # ------------------------------------------------------- single-field DHD
 SINGLE_CASES = [
     # n, ELL width beyond the max degree (self-pad slots of weight 0)

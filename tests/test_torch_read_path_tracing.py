@@ -25,7 +25,7 @@ from repro_torch.core.graph import Graph, build_csr
 from repro_torch.core.latency import make_paper_env
 from repro_torch.core.patterns import Workload, generate_khop_patterns
 from repro_torch.core.placement import PlacementConfig
-from repro_torch.core.routing import get_route_fast_config
+from repro_torch.core.routing import FUSED_MIN_ITEMS
 from repro_torch.core.store import GeoGraphStore
 from repro_torch.distributed import ShardedGeoGraphStore
 from repro_torch.obs import (
@@ -171,7 +171,7 @@ def test_facade_and_router_spans_of_one_mixed_batch(parallel):
         assert 0.0 <= r.tags["cpu_s"] and wait.t0 <= r.t0 <= r.t1 <= wait.t1
     route_of = {r.sid: r for r in routes}
 
-    gate = get_route_fast_config().min_items
+    gate = FUSED_MIN_ITEMS
     items_of = {}
     for items, o in reqs:
         items_of[o] = items_of.get(o, 0) + len(items)
@@ -183,22 +183,23 @@ def test_facade_and_router_spans_of_one_mixed_batch(parallel):
         want = "scalar" if reads == 1 else "fused" if items >= gate else "numpy"
         assert r.tags == {"path": want, "reads": reads, "items": items}
         kids = sorted(c.name for c in recs if c.parent == r.sid)
-        assert kids == (["route.device", "route.pack"] if want == "fused" else [])
+        assert kids == (["route.device"] if want == "fused" else [])
         if want == "fused":
             (dev,) = [c for c in recs if c.parent == r.sid and c.name == "route.device"]
-            # on the CPU the store hands the router no tables: the rows form
-            assert dev.tags == {"layout": "ragged", "variant": "subsets", "inputs": "rows",
-                                "slots": items, "reads": reads, "layers": store.lg.n_layers}
+            # on the CPU the store hands the router its tables there: the
+            # kernel's plain version over them
+            assert dev.tags == {"layout": "ragged", "variant": "ragged_plain", "slots": items,
+                                "reads": reads, "layers": store.lg.n_layers}
     assert {"fused", "numpy", "scalar"} <= {r.tags["path"] for r in expands}
     slots = {k: v for k, v in tracer.counters.items() if k[0] == "route.device_slots"}
-    assert slots == {("route.device_slots", (("variant", "subsets"),)):
+    assert slots == {("route.device_slots", (("variant", "ragged_plain"),)):
                      sum(r.tags["items"] for r in expands if r.tags["path"] == "fused")}
     for r in recs:
         if r.name in ("route.prologue", "route.epilogue"):
             assert route_of[r.parent].tags["reads"] > 1
     assert {r.name for r in recs} == ({"facade.serve_batch", "shard.route", "route.expand",
-                                       "route.pack", "route.device", "route.prologue",
-                                       "route.epilogue"} | FACADE_CHILDREN)
+                                       "route.device", "route.prologue", "route.epilogue"}
+                                      | FACADE_CHILDREN)
     assert all(by_sid.get(r.parent) is not None for r in recs if r is not root)
 
     # the same batch with the tracer off: the same results, no span
@@ -227,7 +228,7 @@ def test_flat_store_router_spans_nest_under_its_serve_batch():
         "route.epilogue", "route.expand", "route.prologue"]
     (expand,) = [r for r in recs if r.name == "route.expand"]
     items = sum(len(it) for it, _ in reqs)
-    want = "fused" if items >= get_route_fast_config().min_items else "numpy"
+    want = "fused" if items >= FUSED_MIN_ITEMS else "numpy"
     assert expand.tags == {"path": want, "reads": 40, "items": items}
 
 

@@ -10,8 +10,9 @@ and the router's item gate.
 * ``pack_ragged`` / ``unpack_ragged`` (item ids, offsets, origins, block
   order), ``ragged_order`` and ``ragged_buffers``, the one-copy layouts the
   card's call uses, and the id-keyed plain version over the tables;
-* the item gate: a sub-batch of 50 reads of about 3k items takes the fused
-  path, a lone read the scalar router, two short reads the numpy router.
+* the item gate, over a store's route tables: a sub-batch of 50 reads of
+  about 3k items takes the fused path, a lone read the scalar router, two
+  short reads the numpy router.
 """
 import types
 
@@ -23,12 +24,9 @@ from geobench.reference.route import route_one
 from repro_torch.core.graph import Graph
 from repro_torch.core.latency import make_paper_env
 from repro_torch.core.layered_graph import build_layered_graph
-from repro_torch.core.routing import (
-    _bit_pack,
-    _expand_numpy,
-    get_route_fast_config,
-    route_online_batch,
-)
+from repro_torch.core import routing
+from repro_torch.core.route_tables import _bit_pack
+from repro_torch.core.routing import _expand_numpy, route_online_batch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import route_expand_ragged_ids_ref, route_expand_ragged_ref
 from repro_torch.kernels.route_expand import (
@@ -131,7 +129,7 @@ def test_ragged_packing_round_trips_and_orders_long_reads_first():
     np.testing.assert_array_equal(ordr.numpy(), order)
 
     # the unpacked views route over the tables as the gathered rows do, and
-    # ops takes them on the CPU
+    # ops takes the ids over the tables on the CPU
     ibw = torch.as_tensor(np.where(np.isinf(bw), 0.0, 1.0 / bw), dtype=torch.float32)
     env = (_t(comp, torch.int32), _t(rtt, torch.float32), ibw)
     want = route_expand_ragged_ref(_t(bits, torch.int32), _t(sz, torch.float32), off, org, *env)
@@ -139,8 +137,8 @@ def test_ragged_packing_round_trips_and_orders_long_reads_first():
     got = route_expand_ragged_ids_ref(i, *tables, off, org, *env)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    served, layers, miss = ops.route_expand_flat(bits, sizes[items], bounds, origin, *env,
-                                                 device="cpu")
+    served, layers, miss = ops.route_expand_flat_ids(items, bounds, origin, tables, *env,
+                                                     device="cpu")
     np.testing.assert_array_equal(served, want[0].numpy())
     np.testing.assert_array_equal(layers, want[2].numpy())
     np.testing.assert_array_equal(miss, want[3].numpy())
@@ -176,25 +174,28 @@ def _gate_store():
     lg = build_layered_graph(g, env)
     state = types.SimpleNamespace(delta=rng.random((g.n_items, env.n_dcs)) < 0.3)
     state.delta[np.arange(g.n_items), rng.integers(0, env.n_dcs, g.n_items)] = True
-    return lg, state, rng
+    sizes = g.item_size()
+    tables = (torch.as_tensor(_bit_pack(state.delta)), torch.as_tensor(sizes, dtype=torch.float32))
+    return lg, state, rng, sizes, tables
 
 
 @pytest.mark.parametrize("reads,items,path", [(50, 3000, "fused"), (1, 3000, "scalar"),
                                               (2, 10, "numpy")],
                          ids=["50 reads of about 3k items", "a lone read", "two short reads"])
 def test_item_gate_picks_the_path(reads, items, path):
-    lg, state, rng = _gate_store()
+    lg, state, rng, sizes, tables = _gate_store()
     jitter = items // 20
     requests = [(np.sort(rng.choice(lg.g.n_items, items + int(rng.integers(-jitter, jitter + 1)),
                                     replace=False)), int(rng.integers(0, 5)))
                 for _ in range(reads)]
     tracer = Tracer(enabled=True)
-    got = route_online_batch(lg, state, requests, device="cpu", tracer=tracer)
+    got = route_online_batch(lg, state, requests, sizes=sizes, device="cpu", tracer=tracer,
+                             tables=tables)
     (expand,) = [r for r in tracer.records if r.name == "route.expand"]
     n_items = sum(len(it) for it, _ in requests)
     assert expand.tags == {"path": path, "reads": reads, "items": n_items}
     if reads > 1:
-        assert (n_items >= get_route_fast_config().min_items) == (path == "fused")
+        assert (n_items >= routing.FUSED_MIN_ITEMS) == (path == "fused")
     want = route_online_batch(lg, state, requests, fast=False, device="cpu")
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.served_by, b.served_by)

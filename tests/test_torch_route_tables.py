@@ -1,23 +1,28 @@
-"""The router's id path over route tables keyed by item id, on the CPU.
+"""The router's fused form, item ids over route tables keyed by item id,
+on the CPU.
 
 * the id-keyed plain version (``ops.route_expand_flat_ids``, the kernel's
-  plain version) equals the rows path and the numpy router bit for bit:
-  picks, layers used and missing counts, and through ``route_online_batch``
-  every ``RouteResult`` field, on reads a warp walks (up to 256 items), reads
-  a block walks, and the 26,182-item read of ``snb-sf3-5shard-nbr``;
+  plain version) equals the numpy router bit for bit: picks, layers used
+  and missing counts, and through ``route_online_batch`` every
+  ``RouteResult`` field, on reads a warp walks (up to 256 items), reads a
+  block walks, and the 26,182-item read of ``snb-sf3-5shard-nbr``;
+  ``fast=True`` without tables raises;
 * a store's ``RouteTables`` follow each ``RouteIndex`` event kind (``rows``
   through ``maintain()``, ``delete_items`` and a migration wave, ``grow``
   through ``apply_updates()``, ``take`` through a compaction, ``rebuild``
   through a re-derived index and a full re-place): after each, the bitmask
   table equals the bit-packed ``state.delta``, the byte tables equal
   ``g.item_size()``, and routing with the tables equals the numpy router on
-  the fresh ``state.delta``.  A store keeps device tables on its cards
-  alone, so these tests ask its tables for a set on the CPU, which follows
-  the events by the same code;
-* who takes which path: the store hands its tables only with its current
-  index and only on a card, so on the CPU (where it keeps no device
-  tables), and without a route index, the router takes the rows form.
+  the fresh ``state.delta``.  A store keeps its tables on its own device,
+  the CPU here, where they follow the events by the code a card's do;
+* who takes which path: the store hands its tables with its current index
+  on any device, so a flat or sharded store on the CPU routes a batch over
+  the gate in the fused form over its own tables; without a route index, or
+  past the kernel's DC or layer limits, no tables are handed and the router
+  routes on numpy.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -27,14 +32,9 @@ from repro_torch.core.latency import make_paper_env
 from repro_torch.core.layered_graph import build_layered_graph
 from repro_torch.core.patterns import Pattern, Workload, generate_khop_patterns
 from repro_torch.core.placement import PlacementConfig
-from repro_torch.core.routing import (
-    RouteFastConfig,
-    _bit_pack,
-    _expand_numpy,
-    get_route_fast_config,
-    route_online_batch,
-    set_route_fast_config,
-)
+from repro_torch.core import routing
+from repro_torch.core.route_tables import RouteTables, _bit_pack
+from repro_torch.core.routing import _expand_numpy, route_online_batch
 from repro_torch.core.store import GeoGraphStore
 from repro_torch.data.synthetic import community_graph
 from repro_torch.distributed.sharded_store import ShardedGeoGraphStore
@@ -81,6 +81,8 @@ def _same_results(got, want):
 
 @pytest.mark.parametrize("one_origin", [False, True], ids=["mixed origins", "one origin"])
 def test_id_form_equals_rows_form_and_numpy_router(one_origin):
+    """The ids form against the numpy router (the name keeps the rows form,
+    which the ids form replaced)."""
     lg, state, sizes, reqs, tables = _problem(3 + one_origin, one_origin)
     items = np.concatenate([it for it, _ in reqs]).astype(np.int64)
     bounds = np.concatenate([[0], np.cumsum([len(it) for it, _ in reqs])])
@@ -88,10 +90,6 @@ def test_id_form_equals_rows_form_and_numpy_router(one_origin):
     comp, rtt = lg.comp_of_dc, lg.env.rtt_s
     ibw = 1.0 / lg.env.bw_Bps_safe()
     ids = ops.route_expand_flat_ids(items, bounds, origin, tables, comp, rtt, ibw, device="cpu")
-    rows = ops.route_expand_flat(_bit_pack(state.delta[items]), sizes[items], bounds, origin,
-                                 comp, rtt, ibw, device="cpu")
-    for a, b in zip(ids, rows):
-        np.testing.assert_array_equal(a, b)
     req_id = np.repeat(np.arange(len(reqs)), np.diff(bounds))
     served, layers = _expand_numpy(lg, state.delta[items], req_id, origin, MetricsRegistry(),
                                    False)
@@ -103,13 +101,21 @@ def test_id_form_equals_rows_form_and_numpy_router(one_origin):
     tracer = Tracer(enabled=True)
     got = route_online_batch(lg, state, reqs, sizes=sizes, fast=True, device="cpu",
                              tables=tables, tracer=tracer)
-    rows_form = route_online_batch(lg, state, reqs, sizes=sizes, fast=True, device="cpu",
-                                   tracer=tracer)
     _same_results(got, want)
-    _same_results(rows_form, want)
-    devs = [r for r in tracer.records if r.name == "route.device"]
-    assert [r.tags["inputs"] for r in devs] == ["ids", "rows"]
-    assert devs[0].tags["variant"] == "ragged_plain" and devs[0].tags["slots"] == len(items)
+    (dev,) = [r for r in tracer.records if r.name == "route.device"]
+    assert dev.tags == {"layout": "ragged", "variant": "ragged_plain", "slots": len(items),
+                        "reads": len(reqs), "layers": lg.n_layers}
+
+
+def test_fast_without_tables_raises():
+    lg, state, sizes, reqs, tables = _problem(6, False)
+    with pytest.raises(ValueError, match="route tables"):
+        route_online_batch(lg, state, reqs, sizes=sizes, fast=True, device="cpu")
+    with pytest.raises(ValueError, match="route tables"):
+        route_online_batch(lg, state, reqs[:1], sizes=sizes, fast=True, device="cpu")
+    # the numpy router and the gate need none
+    want = route_online_batch(lg, state, reqs, sizes=sizes, fast=False)
+    _same_results(route_online_batch(lg, state, reqs, sizes=sizes, device="cpu"), want)
 
 
 def test_id_form_refuses_ids_outside_the_tables():
@@ -122,9 +128,8 @@ def test_id_form_refuses_ids_outside_the_tables():
 
 
 # ------------------------------------------------------ the tables follow
-def _store(tracer=None, seed=0, cpu_tables=True, **kw):
-    """A store on the CPU; with ``cpu_tables`` its route tables keep a set
-    on the CPU too, for the tests to hold to the placement."""
+def _store(tracer=None, seed=0, **kw):
+    """A store on the CPU, whose route tables keep their set there."""
     g = community_graph(400, n_communities=8, p_in=0.04, p_out=0.001, seed=seed, n_dcs=5)
     env = make_paper_env()
     csr = build_csr(g.n_nodes, g.src, g.dst, symmetrize=True)
@@ -132,9 +137,6 @@ def _store(tracer=None, seed=0, cpu_tables=True, **kw):
     wl = Workload.from_patterns(pats, g.n_items, env.n_dcs)
     store = GeoGraphStore(g, env, wl, config=PlacementConfig(precache=True, dhd_steps=4),
                           device="cpu", tracer=tracer, demand_window_s=6.0, **kw)
-    assert store.route_tables.device_tables == {}  # a store keeps sets on its cards alone
-    if cpu_tables:
-        store.route_tables.add_device("cpu")
     return store
 
 
@@ -250,42 +252,47 @@ def test_host_table_is_the_grown_graphs_item_bytes():
 
 
 # ------------------------------------------------------- who takes which path
-def _device_inputs(store, reqs):
+def _device_variants(store, reqs, monkeypatch):
+    """``serve_batch`` with the item gate open: its results and the
+    ``variant`` of each ``route.device`` span."""
     store.tracer.reset()
-    old = get_route_fast_config()
-    set_route_fast_config(RouteFastConfig(min_items=1))
-    try:
-        got = store.serve_batch(reqs, observe=False)
-    finally:
-        set_route_fast_config(old)
-    return got, [r.tags["inputs"] for r in store.tracer.records if r.name == "route.device"]
+    monkeypatch.setattr(routing, "FUSED_MIN_ITEMS", 1)
+    got = store.serve_batch(reqs, observe=False)
+    return got, [r.tags["variant"] for r in store.tracer.records if r.name == "route.device"]
 
 
-def test_cpu_store_and_store_without_index_take_the_rows_form():
+def test_cpu_store_and_store_without_index_take_the_rows_form(monkeypatch):
+    """A store on the CPU hands its own tables and routes in the fused form
+    over them; without a route index it hands none and routes on numpy (the
+    name keeps the rows form, which the ids form replaced)."""
     tracer = Tracer(enabled=True)
-    store = _store(tracer, cpu_tables=False)
+    store = _store(tracer)
     reqs = _requests(store, False)
     want = route_online_batch(store.lg, store.state, reqs, fast=False)
     host, tables = store.route_tables.handed(store.route_index, store.device)
-    assert host is store.route_tables.host_bytes and tables is None  # the CPU: no id path
-    store.route_tables.add_device("cpu")  # even with a set there, none is handed on the CPU
-    assert store.route_tables.handed(store.route_index, store.device)[1] is None
-    got, inputs = _device_inputs(store, reqs)
+    assert host is store.route_tables.host_bytes
+    assert tables is store.route_tables.device_tables[torch.device("cpu")]
+    got, variants = _device_variants(store, reqs, monkeypatch)
     _same_results(got, want)
-    assert inputs == ["rows"]
+    assert variants == ["ragged_plain"]
 
     store.route_index = None
     assert store.route_tables.handed(None, store.device) == (None, None)
-    got, inputs = _device_inputs(store, reqs)
+    got, variants = _device_variants(store, reqs, monkeypatch)
     _same_results(got, want)
-    assert inputs == ["rows"]
+    assert variants == []
+    (expand,) = [r for r in tracer.records if r.name == "route.expand"]
+    assert expand.tags["path"] == "numpy"
 
 
 def test_tables_are_handed_on_a_card_with_the_current_index():
+    """Tables are handed on any device they are kept on, a card as the
+    CPU, with the current index alone."""
     store = _store()
     rt = store.route_tables
     card = torch.device("cuda", 0)
     cpu_tables = rt.device_tables[torch.device("cpu")]
+    assert rt.handed(store.route_index, "cpu") == (rt.host_bytes, cpu_tables)
     rt.device_tables[card] = cpu_tables  # stands in for a set on the card
     try:
         host, tables = rt.handed(store.route_index, card)
@@ -293,9 +300,13 @@ def test_tables_are_handed_on_a_card_with_the_current_index():
         assert rt.handed(None, card) == (None, None)
     finally:
         del rt.device_tables[card]
+    assert rt.handed(store.route_index, card) == (rt.host_bytes, None)  # none kept there
 
 
-def test_sharded_store_on_the_cpu_routes_its_sub_batches_in_the_rows_form():
+def test_sharded_store_on_the_cpu_routes_its_sub_batches_in_the_rows_form(monkeypatch):
+    """Each sub-batch of a sharded store on the CPU routes in the fused
+    form over the coordinator's tables on the CPU (the name keeps the rows
+    form, which the ids form replaced)."""
     g = community_graph(400, n_communities=8, p_in=0.04, p_out=0.001, seed=0, n_dcs=5)
     env = make_paper_env()
     csr = build_csr(g.n_nodes, g.src, g.dst, symmetrize=True)
@@ -304,12 +315,31 @@ def test_sharded_store_on_the_cpu_routes_its_sub_batches_in_the_rows_form():
     tracer = Tracer(enabled=True)
     store = ShardedGeoGraphStore(g, env, wl, config=PlacementConfig(precache=False, dhd_steps=4),
                                  device="cpu", tracer=tracer)
-    assert store.route_tables.device_tables == {}  # no card: no device tables
-    reqs = [(p.items, 0) for p in pats if len(p.items)]
+    assert list(store.route_tables.device_tables) == [torch.device("cpu")]
+    reqs = [(p.items, o) for o in (0, 3) for p in pats if len(p.items)]
     want = route_online_batch(store.lg, store.state, reqs, fast=False)
-    got, inputs = _device_inputs(store, reqs)
+    got, variants = _device_variants(store, reqs, monkeypatch)
     _same_results(got, want)
-    assert inputs == ["rows"]
+    assert variants == ["ragged_plain"] * 2  # one a sub-batch
+
+
+@pytest.mark.parametrize("n_dcs,n_layers", [(32, 3), (5, 128)], ids=["32 DCs", "128 layers"])
+def test_no_tables_past_the_kernel_limits(n_dcs, n_layers):
+    """A store of more DCs than an int32 bitmask holds, or more layers than
+    the kernel walks, keeps no device tables: its router routes on numpy."""
+    delta = np.random.default_rng(0).random((50, n_dcs)) < 0.5
+    sizes = np.ones(50)
+    rt = RouteTables(lambda: delta, lambda: sizes, lambda: n_layers, devices=["cpu"])
+    late = RouteTables(lambda: delta, lambda: sizes, lambda: n_layers)
+    fit = RouteTables(lambda: delta[:, :5], lambda: sizes, lambda: 3, devices=["cpu"])
+    index = types.SimpleNamespace(subscribe=lambda fn: None)
+    for tables in (rt, late, fit):
+        tables.bind(index)
+    late.add_device("cpu")  # asked for after binding
+    for tables in (rt, late):
+        assert not tables.fits() and tables.device_tables == {}
+        assert tables.handed(index, "cpu") == (sizes, None)
+    assert fit.fits() and list(fit.device_tables) == [torch.device("cpu")]
 
 
 @pytest.mark.parametrize("fault,error", [

@@ -453,13 +453,14 @@ def test_controller_drives_sharded_store_end_to_end():
 # ------------------------------------------------- kernels fast-path parity
 @pytest.mark.parametrize("n_shards", [2, 5])
 def test_single_origin_fast_path_through_the_kernel_wrapper(n_shards, monkeypatch):
-    """The fast path pinned from 1 item up and to the ragged route-expansion
-    kernel's wrapper: every sub-batch of two or more requests goes through
-    it (its plain version on CPU tensors), float-identical to the JAX
-    package's unsharded store on the numpy path."""
+    """The item gate opened from 1 item up: every sub-batch of two or more
+    requests goes through the ragged route-expansion kernel's wrapper over
+    the coordinator's route tables (its plain version on CPU tensors),
+    float-identical to the JAX package's unsharded store on the numpy
+    path."""
     from repro.core.store import GeoGraphStore as JStore
     from repro_torch.core import routing
-    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import ops
 
     env = make_paper_env()
     port, pats = _sharded(PORT, 60, env, n_shards, part_dcs=4)
@@ -467,19 +468,12 @@ def test_single_origin_fast_path_through_the_kernel_wrapper(n_shards, monkeypatc
     ref = JStore(g, j_paper_env(), wl, config=JPlacementConfig(precache=False, dhd_steps=4))
     reqs = _requests(pats, env.n_dcs, 96, seed=61)
     want = ref.serve_batch(reqs)
-    tuner = autotune.Autotuner()
-    monkeypatch.setattr(autotune, "_AUTOTUNER", tuner)
-    monkeypatch.setattr(tuner, "lookup", lambda op, sig, device=None: {"impl": "kernel"})
     calls = []
     wrapper = ops._route_expand_ragged_kernel
     monkeypatch.setattr(ops, "_route_expand_ragged_kernel",
                         lambda *a, **kw: calls.append(a[0].shape) or wrapper(*a, **kw))
-    old = routing.get_route_fast_config()
-    routing.set_route_fast_config(routing.RouteFastConfig(min_items=1))
-    try:
-        got = port.serve_batch(reqs)
-    finally:
-        routing.set_route_fast_config(old)
+    monkeypatch.setattr(routing, "FUSED_MIN_ITEMS", 1)
+    got = port.serve_batch(reqs)
     _same_results(got, want)
     sub_batches = {o for _, o in reqs}
     assert len(calls) == len(sub_batches)  # one ragged launch per origin sub-batch

@@ -3,12 +3,13 @@
 ``PlacementConfig(precache=True, dhd_steps=8)``), all on the CPU.
 
 * the port's own build gives the JAX store's replica sets and routing table;
-* on a ``store_from_numpy`` copy of the JAX store, ``serve_batch`` is
-  request-for-request identical to JAX's on every impl of the fast path
-  (subset histogram; the kernel wrapper pinned through the autotuner; an
-  autotuner entry the port no longer has, which falls back to the subset
-  histogram) and on the numpy path — the contract of
-  ``tests/test_route_kernel.py``;
+* on a ``store_from_numpy`` copy of the JAX store, ``serve_batch`` in the
+  port's one fused form (item ids over the store's own route tables, the
+  kernel's plain version on the CPU) is request-for-request identical to
+  JAX's on each of its impls (subset histogram; tile version pinned through
+  JAX's autotuner; numpy path), and numpy to numpy — the contract of
+  ``tests/test_route_kernel.py``; a batch of mixed origins over the item
+  gate takes the fused form by default;
 * ``maintain()`` leaves identical replica sets.
 
 The competitor strategies and offline planning have their own files
@@ -21,15 +22,11 @@ from repro.core.placement import PlacementConfig as JaxPlacementConfig
 from repro.core.routing import route_online_batch as jax_route_online_batch
 from repro.core.store import GeoGraphStore as JaxStore
 from repro_torch.convert import store_arrays, store_from_numpy
+from repro_torch.core import routing
 from repro_torch.core.placement import PlacementConfig
-from repro_torch.core.routing import (
-    RouteFastConfig,
-    get_route_fast_config,
-    route_online_batch,
-    set_route_fast_config,
-)
+from repro_torch.core.routing import route_online_batch
 from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
-from repro_torch.obs import MetricsRegistry, set_default_registry
+from repro_torch.obs import MetricsRegistry, Tracer, set_default_registry
 
 
 def _requests(store, n, seed):
@@ -93,71 +90,82 @@ def test_cpu_build_matches_jax(small_store):
 
 
 def _pin_route_impl(monkeypatch, impl):
-    """Pin the fast path's impl for every signature through the autotuner."""
+    """Pin the JAX fast path's impl for every signature through its
+    autotuner (the port has none: its fused path has one form)."""
     from repro.kernels import autotune as jtune
-    from repro_torch.kernels import autotune as ttune
 
-    for mod in (jtune, ttune):
-        tuner = mod.Autotuner()
-        monkeypatch.setattr(mod, "_AUTOTUNER", tuner)
-        monkeypatch.setattr(
-            tuner, "lookup", lambda op, sig, device=None, _impl=impl: {"impl": _impl}
-        )
+    tuner = jtune.Autotuner()
+    monkeypatch.setattr(jtune, "_AUTOTUNER", tuner)
+    monkeypatch.setattr(
+        tuner, "lookup", lambda op, sig, device=None, _impl=impl: {"impl": _impl}
+    )
 
 
-@pytest.mark.parametrize("n_req", [64, 200])
-@pytest.mark.parametrize("path", ["subsets", "stale", "kernel", "numpy"])
-def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
-    port = store_from_numpy(
+def _port_copy(jax_store):
+    return store_from_numpy(
         store_arrays(jax_store), config=PlacementConfig(precache=True, dhd_steps=8),
         device="cpu",
     )
-    reqs = _requests(jax_store, n_req, seed=n_req)
-    fast = None
-    if path in ("stale", "kernel"):
-        # the JAX side has no CUDA kernel: it runs its tile version; the
-        # port has none, so "ref" is a stale entry it answers with its
-        # default, the subset histogram, and a "kernel" pin runs the
-        # wrapper's plain version on CPU tensors
-        _pin_route_impl(monkeypatch, "ref")
-        if path == "kernel":
-            from repro_torch.kernels import autotune as ttune
 
-            monkeypatch.setattr(
-                ttune.get_autotuner(), "lookup",
-                lambda op, sig, device=None: {"impl": "kernel"},
-            )
-    elif path == "numpy":
-        fast = False
+
+def _route_dispatch(reg):
+    return {impl: reg.counter("kernels.dispatch", op="route_expand", path=impl).value
+            for impl in ("ref", "kernel")}
+
+
+@pytest.mark.parametrize("n_req", [64, 200])
+@pytest.mark.parametrize("path", ["subsets", "tile", "jax_numpy", "numpy"])
+def test_serve_batch_matches_jax(jax_store, monkeypatch, path, n_req):
+    """The port's fused form against JAX's subset histogram (its CPU
+    default), its tile version (pinned through JAX's autotuner) and its
+    numpy path; and the numpy paths against each other."""
+    port = _port_copy(jax_store)
+    reqs = _requests(jax_store, n_req, seed=n_req)
+    if path == "tile":
+        _pin_route_impl(monkeypatch, "ref")
     reset_launch_counters()
-    if fast is None:
+    if path in ("subsets", "tile"):
         want = jax_store.serve_batch(reqs, observe=False)
     else:
         want = jax_route_online_batch(jax_store.lg, jax_store.state, reqs, fast=False)
+    # the JAX store's gate counts reads (64 up), the port's items: open the
+    # port's so its batch takes the fused form
+    monkeypatch.setattr(routing, "FUSED_MIN_ITEMS", 1)
     reg = MetricsRegistry().enable()
     old = set_default_registry(reg)
-    # the JAX store's gate counts reads (64 up), the port's items: open the
-    # port's so both batches take the fast path
-    old_gate = get_route_fast_config()
-    set_route_fast_config(RouteFastConfig(min_items=1))
     try:
-        if fast is None:
-            got = port.serve_batch(reqs, observe=False)
-        else:
+        if path == "numpy":
             got = route_online_batch(port.lg, port.state, reqs, fast=False, device="cpu")
+        else:
+            got = port.serve_batch(reqs, observe=False)
     finally:
         set_default_registry(old)
-        set_route_fast_config(old_gate)
     _assert_same_results(got, want)
     assert all(c.n == 0 for c in launch_counters().values())
-    # the batch really took the path under test (a "kernel" pin on CPU
-    # tensors runs the kernel wrapper's plain version, booked as "ref")
-    taken = {
-        impl: reg.counter("kernels.dispatch", op="route_expand", path=impl).value
-        for impl in ("subsets", "ref", "kernel")
-    }
-    expect = {"subsets": "subsets", "stale": "subsets", "kernel": "ref"}.get(path)
-    assert taken == {i: float(i == expect) for i in taken}
+    # the port's batch really took its path: the kernel's plain version on
+    # the CPU, booked as "ref", or none on the numpy path
+    assert _route_dispatch(reg) == {"ref": float(path != "numpy"), "kernel": 0.0}
+
+
+def test_mixed_origins_over_the_gate_take_the_fused_form(jax_store):
+    """A flat store on the CPU, a batch of mixed origins over the default
+    item gate: ``route.device`` runs the kernel's plain version over the
+    store's own tables, and every result equals the JAX store's."""
+    port = _port_copy(jax_store)
+    port.tracer = tracer = Tracer(enabled=True)
+    reqs = _requests(jax_store, 1024, seed=7)
+    n_items = sum(len(it) for it, _ in reqs)
+    assert n_items >= routing.FUSED_MIN_ITEMS and len({o for _, o in reqs}) > 1
+    want = jax_store.serve_batch(reqs, observe=False)
+    tracer.reset()
+    got = port.serve_batch(reqs, observe=False)
+    _assert_same_results(got, want)
+    (expand,) = [r for r in tracer.records if r.name == "route.expand"]
+    assert expand.tags == {"path": "fused", "reads": len(reqs), "items": n_items}
+    (dev,) = [r for r in tracer.records if r.name == "route.device"]
+    assert dev.parent == expand.sid
+    assert dev.tags == {"layout": "ragged", "variant": "ragged_plain", "slots": n_items,
+                        "reads": len(reqs), "layers": port.lg.n_layers}
 
 
 def test_maintain_matches_jax(jax_store):
