@@ -22,10 +22,13 @@ Phases, each of which fails the run with a nonzero exit:
    every kernel of that path (batched DHD count + flow, the ragged route
    expansion) must have run.  Each launch must read the store's route
    tables on the card (item ids over tables keyed by item id); its inputs
-   (ids, the tables, offsets, origins) are recorded.
+   (ids, the tables, offsets, origins, the tables' byte shift) are
+   recorded.
 4. Kernels against their plain PyTorch versions on the card: the ragged
    route expansion on the inputs phase 3 recorded (also against a launch
-   over the rows its ids stand for), and on ``SWEEP`` (31
+   over the rows its ids stand for; every output equal, and its int64 byte
+   sums, served-DC masks and unresolved counts equal to the router's host
+   f64 epilogue over its picks), and on ``SWEEP`` (31
    DCs, all-tie reads, reads with no items, and lengths around a warp's 32
    lanes and its share of 256 slots, and past 1,024); DHD on the inputs of the 8th step (or the last) of each kind the
    main path ran (placement arenas with per-field vals, pre-caching,
@@ -98,7 +101,8 @@ Phases, each of which fails the run with a nonzero exit:
     the mirror's, ``route_expand_ragged`` launched by each batch over the
     item gate (over the store's route tables) and both batched DHD kernels
     launched; both held against their plain versions on the inputs RP+SR's
-    own launches took (phase 4's tolerances).
+    own launches took (phase 4's checks, the route sums against the host
+    epilogue too).
 13. Offline routing and layouts at full size (Figs. 13-15): ``plan_offline``
     over all 26,000 vertices of the phase-12 GeoLayer store, the
     consolidated-or-in-place choice of ``bench_offline.py:27-55``, and the
@@ -251,10 +255,11 @@ Phases, each of which fails the run with a nonzero exit:
     layer, 2,000 short reads, 64 long ones), then on a recorded drain of
     256 reads of ``snb3s-nbr-over`` (seed ``RAGGED_SEED``) holding its
     longest read (26,182 items), one launch an origin's sub-batch:
-    picks, layers and missing counts equal, bytes and latencies within
-    phase 4's tolerances, over the store's route tables, and
-    ``route_online_batch`` on the card over the tables request-identical
-    to the numpy router; the store's
+    every output equal (picks, layers, missing counts, the int64 byte sums,
+    served-DC masks and unresolved counts), the sums equal the router's
+    host f64 fold, over the store's route tables, and
+    ``route_online_batch`` on the card over the tables (folding on the
+    card) request-identical to the numpy router; the store's
     ``serve_batch`` of the drain launches the kernel once a sub-batch over
     the item gate.  Prints each launch's graph-replayed time beside its
     bound, and numpy against fused routing over the tables, timed in turns,
@@ -792,13 +797,8 @@ def rand_route_problem(rng, R, k_lo, k_hi, D, L, p_rep=0.35, all_ties=False,
         groups = max(1, D // (layer + 1))
         prev = rng.integers(0, groups, int(prev.max()) + 1)[prev]
         comp[layer] = prev
-    rtt = rng.random((D, D)).astype(np.float32) * 0.2
-    rtt = rtt + rtt.T
-    np.fill_diagonal(rtt, 0.0)
-    ibw = (1.0 / (rng.random((D, D)) * 1e9 + 1e8)).astype(np.float32)
-    np.fill_diagonal(ibw, 0.0)
     return (bits, sizes, lens.astype(np.int32), origin.astype(np.int32),
-            comp.astype(np.int32), rtt, ibw)
+            comp.astype(np.int32))
 
 
 SWEEP_FLAGS = ("all_ties", "single_origin", "empty_layers", "pin_max", "empty_rows")
@@ -834,14 +834,15 @@ SWEEP = [
 
 
 def flat_of_tiles(prob):
-    """A padded ``(bits, sizes, lens, origin, comp, rtt, ibw)`` batch as the
-    flat item stream the ragged kernel takes."""
+    """A padded ``(bits, sizes, lens, origin, comp)`` batch as the flat item
+    stream the ragged kernel takes, ``(bits, sizes, offsets, origin,
+    comp)``."""
     import numpy as np
 
-    bits, sizes, lens, origin, comp, rtt, ibw = prob
+    bits, sizes, lens, origin, comp = prob
     keep = np.arange(bits.shape[1])[None, :] < lens[:, None]
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
-    return bits[keep], sizes[keep], offsets, origin, comp, rtt, ibw
+    return bits[keep], sizes[keep], offsets, origin, comp
 
 
 def check_dhd(name, heat, cols, vals, q, params, timed: bool = True) -> dict:
@@ -2929,36 +2930,66 @@ GATE_READS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 
 
 def flat_route_problem(rng, lens, D, L, p_rep=0.35, all_ties=False):
-    """A random flat batch ``(bits, sizes, offsets, origin, comp, rtt,
-    ibw)`` with reads of the given lengths."""
+    """A random flat batch ``(bits, sizes, offsets, origin, comp)`` with
+    reads of the given lengths."""
     import numpy as np
 
     lens = np.asarray(lens, np.int64)
-    _, _, _, _, comp, rtt, ibw = rand_route_problem(rng, 1, 1, 1, D, L)
+    comp = rand_route_problem(rng, 1, 1, 1, D, L)[4]
     N = int(lens.sum())
     rep = np.ones((N, D), bool) if all_ties else rng.random((N, D)) < p_rep
     bits = (rep * (1 << np.arange(D, dtype=np.int64))).sum(axis=1).astype(np.int32)
     sizes = (rng.random(N) + 0.25).astype(np.float32)
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     origin = rng.integers(0, D, len(lens)).astype(np.int32)
-    return bits, sizes, offsets, origin, comp, rtt, ibw
+    return bits, sizes, offsets, origin, comp
+
+
+def host_fold_of(name, ids, sizes, offsets, got, shift) -> float:
+    """The kernel's int64 sums, served-DC masks and unresolved counts held
+    to the router's host epilogue (``routing._host_fold``) over its picks:
+    ``units * 2**-shift`` equal to the f64 fold bit for bit.  Returns the
+    largest absolute difference of the bytes (0.0, or the run fails)."""
+    import numpy as np
+
+    from repro_torch.core.routing import _card_fold, _host_fold
+
+    served, units, _, _, served_dcs, n_miss = (t.cpu().numpy() for t in got)
+    R, D = units.shape
+    lens = np.diff(np.asarray(offsets, np.int64))
+    req_id = np.repeat(np.arange(R), lens)
+    host = _host_fold(np.take(sizes, ids), req_id, served.astype(np.int64), R, D)
+    card = _card_fold((units, served_dcs, n_miss), shift, lens, D) if R else host
+    if card is None:
+        fail(f"route_expand_ragged {name}: sums past the exact range")
+    err = float(np.abs(card[0] - host[0]).max(initial=0.0))
+    for label, a, b in zip(("bytes", "served DCs", "unresolved"), card, host):
+        if not np.array_equal(a, b):
+            fail(f"route_expand_ragged {name}: the kernel's {label} differ from the host "
+                 f"epilogue's (bytes max abs err {err:.3g})")
+    return err
 
 
 def check_ragged(name, prob, timed: bool) -> dict:
-    """The ragged kernel against its plain version on the card: picks,
-    layers and missing counts equal, bytes and latencies within phase 4's
-    tolerances; timed, its graph-replayed time beside its bound.  ``prob``
-    is ``(ids, table_bits, table_sizes, offsets, origin, comp, rtt, ibw)``,
-    item ids over tables keyed by item id, as a store's router launches
-    it, or the rows form ``(bits, sizes, offsets, origin, comp, rtt,
-    ibw)``, taken as the tables over ids ``0 .. N - 1``.  A launch over a
-    store's tables is also held to the launch over the rows its ids stand
-    for (every output equal).  The bound counts 9 B a slot and 4 B x (7 + L
-    + D) a read (``geobench.roofline.ragged_bytes``) and the 4 B an id."""
+    """The ragged kernel against its plain version on the card, every
+    output equal (picks, layers, missing counts, the int64 byte sums, the
+    served-DC masks, the unresolved counts), and its sums held to the
+    router's host epilogue (:func:`host_fold_of`); timed, its
+    graph-replayed time beside its bound.  ``prob`` is ``(ids, table_bits,
+    table_sizes, offsets, origin, comp, shift)``, item ids over tables keyed
+    by item id and the tables' byte shift, as a store's router launches
+    it, or the rows form ``(bits, sizes, offsets, origin, comp)``, taken as
+    the tables over ids ``0 .. N - 1`` at their own shift.  A shift must be
+    ``fold_shift`` of the tables' bytes.  A launch over a store's tables is
+    also held to the launch over the rows its ids stand for (every output
+    equal).  The bound counts 9 B a slot and 4 B x (7 + L + D) a read
+    (``geobench.roofline.ragged_bytes``), 4 B more a read and DC (the sums
+    are int64) and the 4 B an id."""
     import numpy as np
     import torch
 
     from geobench.roofline import ragged_bytes
+    from repro_torch.core.route_tables import fold_shift
     from repro_torch.kernels.cuda_lib import library, stream_ptr
     from repro_torch.kernels.ref import route_expand_ragged_ids_ref
     from repro_torch.kernels.route_expand import (
@@ -2967,51 +2998,53 @@ def check_ragged(name, prob, timed: bool) -> dict:
         route_expand_ragged,
     )
 
-    inputs = "ids" if len(prob) == 8 else "rows"
+    inputs = "ids" if len(prob) == 7 else "rows"
     if inputs == "rows":
-        prob = (np.arange(len(prob[0]), dtype=np.int32), *prob)
-    args = tuple(torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in prob)
-    got = route_expand_ragged(*args)
-    want = route_expand_ragged_ids_ref(*args)
+        prob = (np.arange(len(prob[0]), dtype=np.int32), *prob, fold_shift(prob[1]))
+    *arrays, shift = prob
+    if shift is None or shift != fold_shift(arrays[2]):
+        fail(f"route_expand_ragged {name}: shift {shift}, the tables' bytes take "
+             f"{fold_shift(arrays[2])}")
+    args = tuple(torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in arrays)
+    got = route_expand_ragged(*args, shift)
+    want = route_expand_ragged_ids_ref(*args, shift)
     rows = None
     if inputs == "ids":
         i = args[0].long()
         rows = route_expand_ragged(torch.arange(len(i), dtype=torch.int32, device="cuda"),
-                                   args[1][i], args[2][i], *args[3:])
+                                   args[1][i], args[2][i], *args[3:], shift)
     torch.cuda.synchronize()
-    for i, label in ((0, "served"), (2, "layers_used"), (3, "miss_after")):
-        if not torch.equal(got[i], want[i]):
+    labels = ("served", "units", "layers_used", "miss_after", "served_dcs", "n_miss")
+    for label, a, b in zip(labels, got, want):
+        if not torch.equal(a, b):
             fail(f"route_expand_ragged {name}: {label} differs from the plain version")
-    err = 0.0
-    for i, (rtol, atol) in ((1, (1e-5, 1e-4)), (4, (1e-5, 1e-7)), (5, (1e-5, 1e-4))):
-        if not torch.allclose(got[i], want[i], rtol=rtol, atol=atol):
-            fail(f"route_expand_ragged {name}: output {i} outside rtol {rtol} / atol {atol}")
-        if got[i].numel():
-            err = max(err, float((got[i] - want[i]).abs().max()))
     if rows is not None and not all(torch.equal(a, b) for a, b in zip(got, rows)):
         fail(f"route_expand_ragged {name}: differs from the launch over the rows its ids "
              "stand for")
-    offsets, origin, comp = prob[3:6]
+    offsets, origin, comp = arrays[3:6]
+    err = host_fold_of(name, np.asarray(arrays[0], np.int64), arrays[2], offsets, got, shift)
     lens = np.diff(offsets)
     order, n_long = ragged_order(lens)
-    R, N, D, L = len(origin), len(prob[0]), comp.shape[1], comp.shape[0] - 1
+    R, N, D, L = len(origin), len(arrays[0]), comp.shape[1], comp.shape[0] - 1
     out = {"case": name, "inputs": inputs, "max_abs_err": err, "reads": R, "items": N,
-           "longest": int(lens.max(initial=0)), "blocks_alone": n_long, "D": D, "L": L}
+           "longest": int(lens.max(initial=0)), "blocks_alone": n_long, "D": D, "L": L,
+           "shift": shift}
     if timed:
         lib = library().get()
         order_t = torch.as_tensor(order, device="cuda")
         bufs = ragged_buffers(N, R, D, L, args[0].device)
         ptrs = ([a.data_ptr() for a in args[:5]] + [order_t.data_ptr(), n_long]
-                + [a.data_ptr() for a in args[5:]] + [b.data_ptr() for b in bufs[2:]])
+                + [args[5].data_ptr(), shift] + [b.data_ptr() for b in bufs[1:]])
 
         # the C entry point straight, into the buffers above
         def launch():
             lib.route_expand_ragged_ids_launch(*ptrs, R, D, L, stream_ptr(args[0].device))
 
-        nbytes = ragged_bytes(N, R, D, L) + 4 * N
+        nbytes = ragged_bytes(N, R, D, L) + 4 * R * D + 4 * N
         out.update(
-            **kernel_ms(launch), wrapper_ms=host_loop_ms(lambda: route_expand_ragged(*args)),
-            plain_ms=host_loop_ms(lambda: route_expand_ragged_ids_ref(*args), warmup=1,
+            **kernel_ms(launch),
+            wrapper_ms=host_loop_ms(lambda: route_expand_ragged(*args, shift)),
+            plain_ms=host_loop_ms(lambda: route_expand_ragged_ids_ref(*args, shift), warmup=1,
                                   iters=3),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         )
@@ -3019,8 +3052,8 @@ def check_ragged(name, prob, timed: bool) -> dict:
 
 
 def _tables_of(store):
-    """``(host bytes, (bits, bytes) on the card)``: the route tables the
-    store hands its router on the card."""
+    """``(host bytes, DeviceTables(bits, bytes, shift) on the card)``: the
+    route tables the store hands its router on the card."""
     import torch
 
     host, tables = store.route_tables.handed(store.route_index, torch.device("cuda"))
@@ -3035,12 +3068,10 @@ def _ids_of(store, sub):
 
     items = np.concatenate([np.asarray(it, np.int64) for it, _ in sub]).astype(np.int32)
     bounds = np.concatenate([[0], np.cumsum([len(it) for it, _ in sub])]).astype(np.int32)
-    _, (tb, tz) = _tables_of(store)
-    lg = store.lg
+    _, (tb, tz, shift) = _tables_of(store)
     return (items, tb.cpu().numpy(), tz.cpu().numpy(), bounds,
-            np.asarray([o for _, o in sub], np.int32), np.asarray(lg.comp_of_dc, np.int32),
-            np.asarray(lg.env.rtt_s, np.float32),
-            np.asarray(1.0 / lg.env.bw_Bps_safe(), np.float32))
+            np.asarray([o for _, o in sub], np.int32),
+            np.asarray(store.lg.comp_of_dc, np.int32), shift)
 
 
 def _cell_store(name: str, seed: int):
@@ -3117,15 +3148,38 @@ def _gate_rows(store, pats, label: str, rng, uniform: bool) -> list:
     return rows
 
 
+def ragged_drain():
+    """``(store, patterns, longest pattern, reads, reads by origin)``: a
+    drain of ``RAGGED_DRAIN`` reads of ``RAGGED_CELL`` as its warm-up draws
+    them (seed ``RAGGED_SEED``), its first read the cell's longest, on the
+    cell's store built on the card."""
+    import numpy as np
+
+    from geobench.traffic import warmup_reads
+
+    cell, inputs, store, home = _cell_store(RAGGED_CELL, RAGGED_SEED)
+    pats = inputs.patterns
+    eligible = np.array([i for i, p in enumerate(pats) if len(p.items)], np.int64)
+    pat, org = warmup_reads(cell.mix["reads"], eligible, home, inputs.env.n_dcs, RAGGED_SEED,
+                            RAGGED_DRAIN)
+    big = int(np.argmax([len(p.items) for p in pats]))
+    pat[0], org[0] = big, home[big]
+    reqs = [(pats[p].items, int(o)) for p, o in zip(pat.tolist(), org.tolist())]
+    subs = {}
+    for it, o in reqs:
+        subs.setdefault(o, []).append((it, o))
+    return store, pats, big, reqs, dict(sorted(subs.items()))
+
+
 def ragged_phase(report: dict) -> dict:
     """Phase 20: the ragged route expansion.  Returns its kernel table row."""
     import numpy as np
     import torch
 
-    from geobench.traffic import warmup_reads
     from repro_torch.core.routing import FUSED_MIN_ITEMS as gate
     from repro_torch.core.routing import route_online_batch
     from repro_torch.kernels.route_expand import RAGGED_LAUNCHES
+    from repro_torch.obs import Tracer
 
     sweep = []
     for i, (name, lens, D, L, p_rep, ties) in enumerate(RAGGED_SWEEP):
@@ -3140,26 +3194,21 @@ def ragged_phase(report: dict) -> dict:
     print(f"  ptxas: {ptxas_of(report, 'route_expand_ragged')}", flush=True)
 
     # a recorded drain of the cell, holding its longest read, split by origin
-    cell, inputs, store, home = _cell_store(RAGGED_CELL, RAGGED_SEED)
-    pats = inputs.patterns
-    eligible = np.array([i for i, p in enumerate(pats) if len(p.items)], np.int64)
-    pat, org = warmup_reads(cell.mix["reads"], eligible, home, inputs.env.n_dcs, RAGGED_SEED,
-                            RAGGED_DRAIN)
-    big = int(np.argmax([len(p.items) for p in pats]))
-    pat[0], org[0] = big, home[big]
-    reqs = [(pats[p].items, int(o)) for p, o in zip(pat.tolist(), org.tolist())]
-    subs = {}
-    for it, o in reqs:
-        subs.setdefault(o, []).append((it, o))
+    store, pats, big, reqs, subs = ragged_drain()
     drain, shapes = [], []
     host, tables = _tables_of(store)
     for o, sub in sorted(subs.items()):
         r = check_ragged(f"drain origin {o}", _ids_of(store, sub), timed=True)
         want = route_online_batch(store.lg, store.state, sub, fast=False)
+        tracer = Tracer(enabled=True)
         got = route_online_batch(store.lg, store.state, sub, sizes=host, fast=True,
-                                 device="cuda", tables=tables)
+                                 device="cuda", tables=tables, tracer=tracer)
         if not same_results(got, want):
             fail(f"route_online_batch on the card differs from the numpy router (origin {o})")
+        folds = {dict(k[1])["where"]: v for k, v in tracer.counters.items()
+                 if k[0] == "route.fold"}
+        if len(sub) > 1 and folds != {"card": 1}:
+            fail(f"route_online_batch on the card folded {folds} (origin {o}), not on the card")
         r.update(origin=o, **_in_turns_ms({
             "numpy_ms": lambda: route_online_batch(store.lg, store.state, sub, sizes=host,
                                                    fast=False),
@@ -3708,7 +3757,7 @@ class RouteRecorder:
     routing fast path calls): passes every call on and keeps, as numpy, the
     inputs of the widest call (most items) and of the last, as
     :func:`check_ragged` takes them: ``(ids, table_bits, table_sizes,
-    offsets, origin, comp, rtt, ibw)``, the tables as they stood."""
+    offsets, origin, comp, shift)``, the tables as they stood."""
 
     def __init__(self, ops) -> None:
         import threading
@@ -3726,19 +3775,18 @@ class RouteRecorder:
         x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
         return np.ascontiguousarray(x, dt)
 
-    def __call__(self, ids, bounds, origin, tables, comp, rtt, ibw, device=None):
+    def __call__(self, ids, bounds, origin, tables, comp, device=None, shift=0):
         import numpy as np
 
         prob = tuple(self._host(x, dt) for x, dt in (
             (ids, np.int32), (tables[0], np.int32), (tables[1], np.float32),
-            (bounds, np.int32), (origin, np.int32), (comp, np.int32), (rtt, np.float32),
-            (ibw, np.float32)))
+            (bounds, np.int32), (origin, np.int32), (comp, np.int32))) + (shift,)
         with self._lock:
             self.calls += 1
             self.last = prob
             if self.widest is None or len(prob[0]) > len(self.widest[0]):
                 self.widest = prob
-        return self.fn(ids, bounds, origin, tables, comp, rtt, ibw, device=device)
+        return self.fn(ids, bounds, origin, tables, comp, device=device, shift=shift)
 
     def __enter__(self) -> "RouteRecorder":
         self.ops.route_expand_flat_ids = self

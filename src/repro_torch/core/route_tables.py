@@ -15,7 +15,12 @@ and every routing call folds bytes from one host table, so no call gathers
     store of more DCs than a bitmask holds
     (:data:`~repro_torch.kernels.route_expand.MAX_DCS`) or more layers than
     the kernel walks (:data:`~repro_torch.kernels.route_expand.MAX_LAYERS`)
-    keeps no device tables, and its router routes on numpy.
+    keeps no device tables, and its router routes on numpy;
+  * ``shift``, the byte format's limit on an exact fold: a power-of-two
+    scale at which every item's bytes is a whole number of units
+    (``bytes * 2**shift``, below :data:`UNITS_LIMIT`), so the kernel folds
+    each read's bytes per DC as int64 units, a sum equal to the host's f64
+    fold bit for bit (:func:`fold_shift`); ``None`` where no scale fits.
 
 The tables follow the store's :class:`~repro_torch.core.route_index.RouteIndex`
 through its change events, as the sharded store's route partitions do:
@@ -29,7 +34,7 @@ holds now are not handed to the router (:meth:`RouteTables.handed`).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +43,50 @@ from ..kernels.route_expand import MAX_DCS, MAX_LAYERS
 from ..obs import Tracer
 from .route_index import RouteIndex
 
-__all__ = ["RouteTables"]
+__all__ = ["DeviceTables", "FOLD_MAX_ITEMS", "RouteTables", "UNITS_LIMIT", "fold_shift"]
 
-DeviceTables = Tuple[torch.Tensor, torch.Tensor]  # ([I] i32 bitmask, [I] f32 bytes)
+# an item's bytes in units stay below this, and a read the card folds holds
+# at most FOLD_MAX_ITEMS items, so a read's int64 sum stays below 2**63
+UNITS_LIMIT = 1 << 40
+FOLD_MAX_ITEMS = 1 << 23
+
+
+class DeviceTables(NamedTuple):
+    """One device's tables: ``bits`` [I] i32 bitmask, ``sizes`` [I] f32
+    bytes and the bytes' ``shift`` (``None``: no exact fold; a caller's
+    ``(bits, sizes)`` pair has none)."""
+    bits: torch.Tensor
+    sizes: torch.Tensor
+    shift: Optional[int] = None
+
+
+def fold_shift(sizes: np.ndarray) -> Optional[int]:
+    """The least ``s`` at which every item's bytes times ``2**s`` is a whole
+    number below :data:`UNITS_LIMIT`, or ``None`` where there is none: a
+    size that is not its own float32 image (the device table's entry), is
+    negative, not finite or subnormal, or sizes too far apart for the limit.
+
+    Where it is an int, an f64 sum of any of these sizes, in any order,
+    never rounds while it stays below ``2**(53 - s)``: every partial sum is
+    a whole number of ``2**-s`` below ``2**53`` of them.  So the kernel's
+    int64 sum of units, times ``2**-s``, is the numpy fold's value."""
+    f = np.asarray(sizes).astype(np.float32)
+    if not np.array_equal(f, sizes):
+        return None
+    if not (np.isfinite(f).all() and (f >= 0).all()):
+        return None
+    f = f[f > 0]
+    if len(f) == 0:
+        return 0
+    if f.min() < np.finfo(np.float32).tiny:
+        return None  # subnormal
+    # each size's lowest set significand bit, as a value: the size less
+    # itself with that bit cleared (exact), or the size where only the
+    # leading bit is set; the least of them is 2**-s
+    u = f.view(np.uint32)
+    low = np.where(u & 0x7FFFFF, f - (u & (u - 1)).view(np.float32), f)
+    s = 1 - int(np.frexp(low.min())[1])
+    return s if float(f.max()) * 2.0 ** s < UNITS_LIMIT else None
 
 
 def _bit_pack(delta: np.ndarray) -> np.ndarray:
@@ -62,8 +108,9 @@ def _device_key(device) -> torch.device:
 
 
 class RouteTables:
-    """Item-keyed route tables of one store: ``host_bytes`` and, per
-    device, ``device_tables[device] = (bits, bytes)``.
+    """Item-keyed route tables of one store: ``host_bytes``, its ``shift``
+    and, per device, ``device_tables[device] = DeviceTables(bits, bytes,
+    shift)``.
 
     ``delta_fn`` and ``sizes_fn`` return the store's *current* placement
     map and item bytes (the store swaps both arrays on growth and
@@ -71,7 +118,8 @@ class RouteTables:
     ``n_layers_fn`` its layered graph's bridge layers.  ``tracer`` counts
     ``route.table_rows``, the rows each event re-derives or moves, tagged
     ``event`` (the event's kind).  A set follows each device it is asked to
-    keep, unless the store exceeds the kernel's limits (:meth:`fits`)."""
+    keep, unless the store exceeds the kernel's limits (:meth:`fits`).
+    ``shift`` is re-derived on every event that changes the bytes."""
 
     def __init__(
         self,
@@ -87,6 +135,7 @@ class RouteTables:
         self._tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.index: Optional[RouteIndex] = None
         self.host_bytes = np.zeros(0, dtype=np.float32)
+        self.shift: Optional[int] = 0
         self._devices: List[torch.device] = []
         self.device_tables: Dict[torch.device, DeviceTables] = {}
         for device in devices:
@@ -135,17 +184,17 @@ class RouteTables:
             if len(rows) == 0:
                 return
             bits = _bit_pack(self._delta_fn()[rows])
-            for dev, (tb, _) in self.device_tables.items():
-                tb[torch.as_tensor(rows, device=dev)] = torch.as_tensor(bits, device=dev)
+            for dev, t in self.device_tables.items():
+                t.bits[torch.as_tensor(rows, device=dev)] = torch.as_tensor(bits, device=dev)
             n = len(rows)
         elif kind == "grow":
             n = self._grow(*payload)
         elif kind == "take":
             order = np.asarray(payload, dtype=np.int64)
-            self.host_bytes = self.host_bytes[order]
-            for dev, (tb, tz) in self.device_tables.items():
+            self._set_bytes(self.host_bytes[order])
+            for dev, (tb, tz, _) in self.device_tables.items():
                 o = torch.as_tensor(order, device=dev)
-                self.device_tables[dev] = (tb[o], tz[o])
+                self.device_tables[dev] = DeviceTables(tb[o], tz[o], self.shift)
             n = len(order)
         elif kind == "rebuild":
             n = self._rebuild()
@@ -163,12 +212,12 @@ class RouteTables:
         sizes = self._sizes_fn()
         if len(sizes) != n:
             raise RuntimeError(f"{len(sizes)} item bytes for {n} placement rows on growth")
-        self.host_bytes = sizes
+        self._set_bytes(sizes)
         a, nv, ne = old_n_nodes, n_new_vertices, n_new_edges
         new_rows = np.concatenate([np.arange(a, a + nv), np.arange(n - ne, n)])
         bits = _bit_pack(delta[new_rows])
         z = sizes[new_rows].astype(np.float32)
-        for dev, (tb, tz) in self.device_tables.items():
+        for dev, (tb, tz, _) in self.device_tables.items():
             grown = []
             for old, fresh in ((tb, bits), (tz, z)):
                 t = torch.empty(n, dtype=old.dtype, device=dev)
@@ -176,11 +225,15 @@ class RouteTables:
                 t[a + nv:n - ne] = old[a:]
                 t[torch.as_tensor(new_rows, device=dev)] = torch.as_tensor(fresh, device=dev)
                 grown.append(t)
-            self.device_tables[dev] = (grown[0], grown[1])
+            self.device_tables[dev] = DeviceTables(grown[0], grown[1], self.shift)
         return len(new_rows)
 
+    def _set_bytes(self, sizes: np.ndarray) -> None:
+        self.host_bytes = sizes
+        self.shift = fold_shift(sizes)
+
     def _rebuild(self) -> int:
-        self.host_bytes = self._sizes_fn()
+        self._set_bytes(self._sizes_fn())
         delta = self._delta_fn()
         if self.fits():
             bits = _bit_pack(delta)
@@ -188,5 +241,6 @@ class RouteTables:
         return delta.shape[0]
 
     def _upload(self, dev: torch.device, bits: np.ndarray) -> DeviceTables:
-        return (torch.tensor(bits, device=dev),
-                torch.tensor(self.host_bytes.astype(np.float32), device=dev))
+        return DeviceTables(torch.tensor(bits, device=dev),
+                            torch.tensor(self.host_bytes.astype(np.float32), device=dev),
+                            self.shift)

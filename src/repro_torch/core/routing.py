@@ -27,6 +27,7 @@ from .cost import PlacementState
 from .graph import Graph
 from .latency import GeoEnvironment
 from .layered_graph import LayeredGraph
+from .route_tables import FOLD_MAX_ITEMS, DeviceTables
 
 __all__ = [
     "FUSED_MIN_ITEMS",
@@ -343,12 +344,12 @@ def _observe_scalar(
         h.grid.add(wan_link)
 
 
-# per-(LayeredGraph, device) copies of the expansion constants (layer
-# components, RTT, 1/bandwidth) as device tensors: a host->device copy per
-# batch would cost a transfer and a sync for arrays that never change.
-# Keyed on id(lg) with the lg kept referenced, so a live entry's key cannot
-# be recycled; one entry suffices (one store per process).
-_FAST_ENV_CACHE: Dict[tuple, Tuple[LayeredGraph, tuple]] = {}
+# per-(LayeredGraph, device) copies of the layer components as a device
+# tensor: a host->device copy per batch would cost a transfer and a sync for
+# an array that never changes.  Keyed on id(lg) with the lg kept referenced,
+# so a live entry's key cannot be recycled; one entry suffices (one store
+# per process).
+_FAST_ENV_CACHE: Dict[tuple, Tuple[LayeredGraph, torch.Tensor]] = {}
 
 
 def reset_routing_caches() -> None:
@@ -359,34 +360,28 @@ def reset_routing_caches() -> None:
     _FAST_ENV_CACHE.clear()
 
 
-def _fast_env_arrays(lg: LayeredGraph, device: torch.device) -> tuple:
+def _fast_comp(lg: LayeredGraph, device: torch.device) -> torch.Tensor:
     key = (id(lg), str(device))
     hit = _FAST_ENV_CACHE.get(key)
     if hit is not None:
         return hit[1]
-    arrs = (
-        torch.as_tensor(lg.comp_of_dc, dtype=torch.int32, device=device),
-        torch.as_tensor(lg.env.rtt_s, dtype=torch.float32, device=device),
-        torch.as_tensor(
-            1.0 / lg.env.bw_Bps_safe(), dtype=torch.float32, device=device
-        ),
-    )
+    comp = torch.as_tensor(lg.comp_of_dc, dtype=torch.int32, device=device)
     _FAST_ENV_CACHE.clear()
-    _FAST_ENV_CACHE[key] = (lg, arrs)
-    return arrs
+    _FAST_ENV_CACHE[key] = (lg, comp)
+    return comp
 
 
 def _route_batch_fast(
     lg: LayeredGraph,
     items_all: np.ndarray,  # [K] item ids, flat
-    tables: tuple,  # ([I] i32 bitmask, [I] f32 bytes) on device
+    tables: DeviceTables,  # on device
     bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
     origin: np.ndarray,  # [R]
     reg,
     obs: bool,
     device: DeviceLike,
     tracer: Tracer,
-) -> Tuple[np.ndarray, np.ndarray]:
+) -> Tuple[np.ndarray, np.ndarray, tuple]:
     """Fused expansion for the whole batch over a store's route tables.
 
     The ragged expansion (``kernels.ops.route_expand_flat_ids``) takes the
@@ -394,14 +389,14 @@ def _route_batch_fast(
     bytes from the tables on the device; no row is gathered or packed here,
     no read is padded or bounded in length.  The card runs the one CUDA
     kernel, the CPU its plain version; both produce the numpy router's
-    exact greedy picks.  ``tracer`` records ``route.device`` (the expansion
+    exact greedy picks and each read's bytes per DC as int64 units at the
+    tables' shift.  ``tracer`` records ``route.device`` (the expansion
     call: upload, launch and readback on the card), tagged ``layout``
     (``"ragged"``), ``variant`` (``"ragged"`` on the card,
     ``"ragged_plain"`` on the CPU), ``slots`` (item slots handed to it),
     ``reads`` and ``layers``, and counts ``route.device_slots`` by
-    ``variant``.  Returns ``(served [K], layers_used [R])``; all
-    byte/latency folds are recomputed exactly on the host by the shared
-    epilogue, so results are bit-identical to the numpy path.
+    ``variant``.  Returns ``(served [K], layers_used [R], (units [R, D],
+    served_dcs [R], n_miss [R]))``; :func:`_card_fold` takes the last.
     """
     from ..kernels import ops  # on the first fused call: the numpy router imports fast
 
@@ -410,13 +405,13 @@ def _route_batch_fast(
     K = len(items_all)
     L = lg.n_layers
     t0 = time.perf_counter() if obs else 0.0
-    comp, rtt, ibw = _fast_env_arrays(lg, dev)
+    comp = _fast_comp(lg, dev)
     variant = "ragged" if dev.type == "cuda" else "ragged_plain"
     tracer.count("route.device_slots", K, variant=variant)
     with tracer.span("route.device", track="route", layout="ragged", variant=variant,
                      slots=K, reads=R, layers=L):
-        served, layers_used, miss_after = ops.route_expand_flat_ids(
-            items_all, bounds, origin, tables, comp, rtt, ibw, device=dev
+        served, layers_used, miss_after, units, served_dcs, n_miss = ops.route_expand_flat_ids(
+            items_all, bounds, origin, tables, comp, device=dev, shift=tables.shift or 0
         )
     served = served.astype(np.int64)
     if obs:
@@ -432,7 +427,42 @@ def _route_batch_fast(
             if hits:
                 h.hits(layer).inc(hits)
         h.unresolved.inc(int(miss_tot[-1]))
-    return served, layers_used[:R].astype(np.int64)
+    return served, layers_used[:R].astype(np.int64), (units, served_dcs, n_miss)
+
+
+def _card_fold(card: tuple, shift: int, lens: np.ndarray, D: int) -> Optional[tuple]:
+    """``(bytes_rd [R, D] f64, served_mask [R, D], n_miss [R])`` from the
+    kernel's sums, or ``None`` where they may not be exact: a read past
+    :data:`~repro_torch.core.route_tables.FOLD_MAX_ITEMS` items could carry
+    an int64 sum past its range, and a sum of ``2**53`` units or more is
+    one the host's f64 fold may round.  Below both, ``units * 2**-shift`` is
+    the host fold's value bit for bit (``route_tables.fold_shift``)."""
+    units, served_dcs, n_miss = card
+    if lens.max() > FOLD_MAX_ITEMS or units.max() >= 1 << 53:
+        return None
+    served_mask = ((served_dcs[:, None] >> np.arange(D)) & 1).astype(bool)
+    return np.ldexp(units.astype(np.float64), -shift), served_mask, n_miss.astype(np.int64)
+
+
+def _host_fold(sz_all: np.ndarray, req_id: np.ndarray, served: np.ndarray, R: int,
+               D: int) -> tuple:
+    """``(bytes_rd [R, D] f64, served_mask [R, D], n_miss [R])`` folded on
+    the host from the flat stream's item bytes and picks."""
+    srv = served >= 0
+    if srv.all():
+        # fully-resolved batch (the common case): skip the three boolean-
+        # indexed copies of the flat stream
+        flat = req_id * D + served
+        weights = sz_all
+        n_miss = np.zeros(R, np.int64)
+    else:
+        flat = req_id[srv] * D + served[srv]  # (request, serving DC) pair
+        weights = sz_all[srv]
+        n_miss = np.bincount(req_id[~srv], minlength=R)
+    bytes_rd = np.bincount(flat, weights=weights, minlength=R * D).reshape(R, D)
+    served_mask = np.zeros(R * D, dtype=bool)
+    served_mask[flat] = True
+    return bytes_rd, served_mask.reshape(R, D), n_miss
 
 
 def route_online_batch(
@@ -460,15 +490,20 @@ def route_online_batch(
     per-shard sub-batches) takes :func:`_expand_single_origin` instead of
     the lockstep loop — same results, less work per pass.
 
-    ``tables`` are a store's current ``(bitmask, bytes)`` tables keyed by
-    item id on ``device`` (``None`` = the card;
-    :class:`~repro_torch.core.route_tables.RouteTables`).  With them a batch
-    of two or more reads takes the fused expansion
-    (:mod:`repro_torch.kernels`) from :data:`FUSED_MIN_ITEMS` items up, or
-    at any size with ``fast=True``; ``fast=False`` forbids it, and
-    ``fast=True`` without tables raises.  The fused path computes the same
-    greedy picks on the device and re-folds bytes/latency on the host in
-    f64, so its results are bit-identical to the numpy path.
+    ``tables`` are a store's current tables keyed by item id on ``device``
+    (``None`` = the card): a
+    :class:`~repro_torch.core.route_tables.DeviceTables` or a ``(bitmask,
+    bytes)`` pair.  With them a batch of two or more reads takes the fused
+    expansion (:mod:`repro_torch.kernels`) from :data:`FUSED_MIN_ITEMS`
+    items up, or at any size with ``fast=True``; ``fast=False`` forbids it,
+    and ``fast=True`` without tables raises.  The fused path computes the
+    same greedy picks on the device.  Where the tables have a ``shift``, the
+    device also folds each read's bytes per DC exactly (int64 units), and
+    the host takes them as they are (:func:`_card_fold`); else, or where a
+    batch's sums could leave the exact range, the host folds them from the
+    item stream in f64 (:func:`_host_fold`).  Both folds give the same f64
+    values, so the fused path's results are bit-identical to the numpy
+    path's.
 
     ``sizes`` is the item bytes (``None``: a fresh ``lg.g.item_size()``,
     which a store's route tables spare it).
@@ -478,10 +513,13 @@ def route_online_batch(
     ``None`` falls back to the process default.
 
     ``tracer`` records the batch's phases under the caller's open span:
-    ``route.prologue`` (flatten, gather the item sizes and, but on the fused
-    path, the replica rows), ``route.expand`` tagged ``path`` (``"scalar"``,
-    ``"numpy"`` or ``"fused"``), ``reads`` and ``items`` — on the fused path
-    with the child ``route.device`` — and ``route.epilogue``.
+    ``route.prologue`` (flatten and, but where the device folds, gather the
+    item sizes and, but on the fused path, the replica rows),
+    ``route.expand`` tagged ``path`` (``"scalar"``, ``"numpy"`` or
+    ``"fused"``), ``reads`` and ``items`` — on the fused path with the child
+    ``route.device`` — and ``route.epilogue`` tagged ``fold`` (``"card"``
+    where it took the device's sums, else ``"host"``); it counts
+    ``route.fold`` by ``where`` (the same two) once a fused batch.
     """
     if fast and tables is None:
         raise ValueError("fast=True needs a store's route tables (tables=)")
@@ -523,17 +561,20 @@ def route_online_batch(
             if lens.sum()
             else np.zeros(0, dtype=np.int64)
         )
-        req_id = np.repeat(np.arange(R, dtype=np.int64), lens)
         D = env.n_dcs
         bounds = np.concatenate([[0], np.cumsum(lens)])
         K = len(items_all)
         fused = (tables is not None and fast is not False and K > 0
                  and (fast is True or K >= FUSED_MIN_ITEMS))
-        # one gather each of the batch's item bytes and (but where the
-        # device reads them from its tables) replica rows; every greedy pass
-        # and the shared epilogue reuse them
+        if fused:
+            tables = DeviceTables(*tables)
+        req_id = sz_all = None
+        if not fused or tables.shift is None:
+            # the host folds: one gather each of the batch's item bytes and
+            # (but where the device reads them from its tables) replica
+            # rows; every greedy pass and the epilogue reuse them
+            req_id, sz_all = _flat_bytes(sizes, items_all, lens)
         delta_all = None if fused else state.delta[items_all]  # [K, D]
-        sz_all = np.take(sizes, items_all)  # [K]; take gathers twice as fast as []
 
         # coverage telemetry: per-layer resolved-item counters + expansion
         # timing, all gated so the disabled path costs one attribute load
@@ -544,18 +585,34 @@ def route_online_batch(
     with tr.span("route.expand", track="route", path="fused" if fused else "numpy",
                  reads=R, items=len(items_all)):
         if fused:
-            served, layers_used = _route_batch_fast(
+            served, layers_used, card = _route_batch_fast(
                 lg, items_all, tables, bounds, origin, reg, obs, device=device, tracer=tr,
             )
         else:
             served, layers_used = _expand_numpy(
                 lg, delta_all, req_id, origin, reg, obs
             )
-    with tr.span("route.epilogue", track="route"):
+    with tr.span("route.epilogue", track="route") as span:
+        fold = None
+        if fused and tables.shift is not None:
+            fold = _card_fold(card, tables.shift, lens, D)
+        where = "host" if fold is None else "card"
+        span.tag(fold=where)
+        if fused:
+            tr.count("route.fold", 1, where=where)
+        if fold is None:
+            if req_id is None:
+                req_id, sz_all = _flat_bytes(sizes, items_all, lens)
+            fold = _host_fold(sz_all, req_id, served, R, D)
         return _materialize_results(
-            env, sz_all, req_id, bounds, origin, served, layers_used,
-            R, D, reg, obs,
+            env, *fold, bounds, origin, served, layers_used, R, D, reg, obs,
         )
+
+
+def _flat_bytes(sizes: np.ndarray, items_all: np.ndarray, lens: np.ndarray) -> tuple:
+    """``(req_id [K], sz_all [K])``: each flat item's request and bytes."""
+    req_id = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    return req_id, np.take(sizes, items_all)  # take gathers twice as fast as []
 
 
 def _expand_numpy(
@@ -644,8 +701,9 @@ def _expand_numpy(
 
 def _materialize_results(
     env: GeoEnvironment,
-    sz_all: np.ndarray,  # [K] item bytes for the flat stream, f64
-    req_id: np.ndarray,  # [K]
+    bytes_rd: np.ndarray,  # [R, D] f64 bytes each DC serves each request
+    served_mask: np.ndarray,  # [R, D] whether it serves any item
+    n_miss: np.ndarray,  # [R] unresolved items
     bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
     origin: np.ndarray,  # [R]
     served: np.ndarray,  # [K] serving DC per flat item (-1 unresolved)
@@ -655,28 +713,14 @@ def _materialize_results(
     reg,
     obs: bool,
 ) -> List[RouteResult]:
-    """Shared exact epilogue: fold served assignments into Eq. 1 latency,
-    WAN bytes and per-request :class:`RouteResult`\\ s, entirely in host
-    f64.  Both the numpy expansion and the device fast path feed this from
-    their (integer, identical) ``served`` picks, which is what makes the
-    fast path bit-identical — f32 device byte sums never leak into results.
+    """Shared exact epilogue: Eq. 1 latency, WAN bytes and per-request
+    :class:`RouteResult`\\ s from a batch's bytes per (request, DC),
+    entirely in host f64.  Both folds give it the same ``bytes_rd``
+    (:func:`_host_fold` from the item stream, :func:`_card_fold` from the
+    device's exact int64 sums), which is what makes the fast path
+    bit-identical to the numpy path.
     """
     ar_R = np.arange(R)
-    srv = served >= 0
-    if srv.all():
-        # fully-resolved batch (the common case): skip the three boolean-
-        # indexed copies of the flat stream
-        flat = req_id * D + served
-        weights = sz_all
-        n_miss = np.zeros(R, np.int64)
-    else:
-        flat = req_id[srv] * D + served[srv]  # (request, serving DC) pair
-        weights = sz_all[srv]
-        n_miss = np.bincount(req_id[~srv], minlength=R)
-    bytes_rd = np.bincount(flat, weights=weights, minlength=R * D).reshape(R, D)
-    served_mask = np.zeros(R * D, dtype=bool)
-    served_mask[flat] = True
-    served_mask = served_mask.reshape(R, D)
     lat_rd = env.rtt_s[:, origin].T + bytes_rd / env.bw_Bps_safe()[:, origin].T
     lat_rd[ar_R, origin] = 0.0  # local serving is free (Eq. 1)
     straggler = np.where(served_mask, lat_rd, -np.inf).max(axis=1)

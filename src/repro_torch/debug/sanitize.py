@@ -12,8 +12,10 @@ deployment can afford to leave on:
   * **route-table integrity** — the store's route tables keyed by item id
     follow the index and equal the live state: on every device the
     bitmask table is the bit-packed placement map and the byte table the
-    item bytes in f32, and the host byte table is ``g.item_size()`` (a
-    stale row would route a read over replicas that moved).
+    item bytes in f32, the host byte table is ``g.item_size()`` (a
+    stale row would route a read over replicas that moved), and every
+    set's byte scale is ``fold_shift(g.item_size())`` (a stale one would
+    fold bytes on the card that are not whole units).
   * **heat-view aliasing** — every ``HeatCache.heat`` row is still a
     shared-storage view of the demand plane's one ``[D, I]`` table (the demand
     plane's exactly-once deposit depends on it; a silent copy would fork the heat).
@@ -102,7 +104,7 @@ class StoreSanitizer:
                 "than the store's (a re-place did not rebind them)"
             )
             return
-        from ..core.route_tables import _bit_pack
+        from ..core.route_tables import _bit_pack, fold_shift
 
         sizes = self.store.g.item_size()
         if tables.host_bytes.dtype != sizes.dtype or not np.array_equal(
@@ -112,8 +114,18 @@ class StoreSanitizer:
                 "route-table divergence: host item bytes != g.item_size() "
                 "(a growth or compaction event was missed)"
             )
+        shift = fold_shift(sizes)
+        if tables.shift != shift:
+            failures.append(
+                f"route-table divergence: byte scale {tables.shift} != {shift}, the "
+                "scale of g.item_size() (a byte change did not re-derive it)"
+            )
         bits = _bit_pack(self.store.state.delta)
-        for dev, (tb, tz) in tables.device_tables.items():
+        for dev, (tb, tz, tshift) in tables.device_tables.items():
+            if tshift != shift:
+                failures.append(
+                    f"route-table divergence: byte scale on {dev} {tshift} != {shift}"
+                )
             if not np.array_equal(tb.cpu().numpy(), bits):
                 failures.append(
                     f"route-table divergence: replica bitmasks on {dev} != the "

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "dhd_count_single": (_P, _P, _P, _P, _I, _I, _P),
     "dhd_flow_single": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     "route_expand_ragged_ids_launch": (
-        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _P,
     ),
     "flash_attention_fwd": (

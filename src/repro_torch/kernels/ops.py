@@ -502,28 +502,28 @@ def route_expand_flat_ids(
     ids: np.ndarray,  # [N] item ids, the flat item stream
     bounds: np.ndarray,  # [R + 1] request offsets into the flat stream
     origin: np.ndarray,  # [R] origin DC per request
-    tables: Tuple[torch.Tensor, torch.Tensor],  # ([I] i32 bitmask, [I] f32 bytes) on device
+    tables,  # ([I] i32 bitmask, [I] f32 bytes, ...) on device
     comp,  # [hier + 1, D] layer component ids (numpy or a device tensor)
-    rtt,  # [D, D] env RTT matrix
-    ibw,  # [D, D] elementwise 1 / bandwidth matrix
     device: DeviceLike = None,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    shift: int = 0,  # a size's units: size * 2**shift
+) -> Tuple[np.ndarray, ...]:
     """Fused stepwise layered expansion of a flat stream of item ids over
     the tables a store keeps on ``device`` (each item's replica bitmask and
     f32 bytes, keyed by item id): the ragged CUDA kernel on the card, its
-    plain version on the CPU; both produce the oracle's exact greedy picks.
+    plain version on the CPU; both produce the oracle's exact greedy picks
+    and each read's bytes per DC as int64 units of ``2**-shift`` bytes.
     On the card the kernel reads each slot's entries by id, so the ids,
     offsets, origins and block order go up in one copy from pinned memory
-    (``N + 3R + 1`` words) and the integer outputs come back in one.
-    Returns numpy ``(served [N] i8, layers_used [R] i32, miss_after [R,
-    L+1] i32)``; the byte and latency fold is left to the caller's exact
-    host epilogue."""
+    (``N + 3R + 1`` words) and all outputs come back in one.  Returns numpy
+    ``(served [N] i8, layers_used [R] i32, miss_after [R, L+1] i32, units
+    [R, D] i64, served_dcs [R] i32, n_miss [R] i32)``; the sums are exact
+    where ``shift`` is the tables' (``core.route_tables.fold_shift``)."""
     dev = resolve_device(device)
     t0 = _obs_t0()
     N, R = len(ids), len(origin)
     D = comp.shape[1]
     L = comp.shape[0] - 1
-    table_bits, table_sizes = tables
+    table_bits, table_sizes = tables[0], tables[1]
     origin = np.asarray(origin)
     if R and not (0 <= origin.min() and origin.max() < D):
         raise ValueError(f"origin DCs must lie in [0, {D})")
@@ -541,25 +541,24 @@ def route_expand_flat_ids(
         n_threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
-            served, _, layers_used, miss_after, _, _ = _route_expand_ragged_kernel(
+            outs = _route_expand_ragged_kernel(
                 _as_device(ids, torch.int32, dev), table_bits, table_sizes,
                 _as_device(bounds, torch.int32, dev), _as_device(origin, torch.int32, dev),
-                _as_device(comp, torch.int32, dev), _as_device(rtt, torch.float32, dev),
-                _as_device(ibw, torch.float32, dev),
+                _as_device(comp, torch.int32, dev), shift,
             )
         finally:
             torch.set_num_threads(n_threads)
         _route_obs("ref", t0)
-        return served.numpy(), layers_used.numpy(), miss_after.numpy()
-    host = torch.empty(N + 3 * R + 1, dtype=torch.int32, pin_memory=True)
-    _, n_long = pack_ragged(ids, bounds, origin, out=host.numpy())
-    i, offsets, org, order = unpack_ragged(host.to(dev, non_blocking=True), N, R)
-    out = ragged_buffers(N, R, D, L, dev)
-    _route_expand_ragged_kernel(
-        i, table_bits, table_sizes, offsets, org, _as_device(comp, torch.int32, dev),
-        _as_device(rtt, torch.float32, dev), _as_device(ibw, torch.float32, dev),
-        order=order, n_long=n_long, out=out,
-    )
-    served, layers_used, miss_after = ragged_int_views(out[0].cpu(), N, R, L)
-    _route_obs("kernel", t0)
-    return served.numpy(), layers_used.numpy(), miss_after.numpy()
+    else:
+        host = torch.empty(N + 3 * R + 1, dtype=torch.int32, pin_memory=True)
+        _, n_long = pack_ragged(ids, bounds, origin, out=host.numpy())
+        i, offsets, org, order = unpack_ragged(host.to(dev, non_blocking=True), N, R)
+        out = ragged_buffers(N, R, D, L, dev)
+        _route_expand_ragged_kernel(
+            i, table_bits, table_sizes, offsets, org, _as_device(comp, torch.int32, dev), shift,
+            order=order, n_long=n_long, out=out,
+        )
+        outs = ragged_int_views(out[0].cpu(), N, R, D, L)
+        _route_obs("kernel", t0)
+    served, units, layers_used, miss_after, served_dcs, n_miss = (o.numpy() for o in outs)
+    return served, layers_used, miss_after, units, served_dcs, n_miss

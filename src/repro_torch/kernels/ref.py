@@ -165,14 +165,14 @@ def route_expand_ragged_ref(
     offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
     origin: torch.Tensor,  # [R] i32 origin DC per request
     comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
-    rtt: torch.Tensor,  # [D, D] f32 env RTT matrix
-    ibw: torch.Tensor,  # [D, D] f32 elementwise 1 / bandwidth matrix
+    shift: int = 0,  # a size's units: size * 2**shift
 ) -> Tuple[torch.Tensor, ...]:
-    """Fused stepwise layered expansion (paper §VI) + Eq. 1 latency fold on
-    the flat item stream: request ``r``'s items are ``[offsets[r],
-    offsets[r + 1])``, with no ``[R, K]`` tile and no bound on a request's
-    length.  The plain version of ``route_expand_ragged``, and the JAX
-    oracle ``route_expand_ref``'s results on the same requests.
+    """Fused stepwise layered expansion (paper §VI) + each request's bytes
+    per DC on the flat item stream: request ``r``'s items are
+    ``[offsets[r], offsets[r + 1])``, with no ``[R, K]`` tile and no bound
+    on a request's length.  The plain version of ``route_expand_ragged``;
+    its picks, layers and missing counts are the JAX oracle
+    ``route_expand_ref``'s on the same requests.
 
     Each request keeps its own layer; a pass moves every request still
     walking one greedy step (pick the cluster DC covering the most missing
@@ -181,9 +181,12 @@ def route_expand_ragged_ref(
     bit with the DCs taken so far (the origin, then each pick), and is
     served by the first of them, in order, that holds it.
 
-    Returns ``(served [N] i8 (-1 unresolved), bytes_rd [R, D] f32,
-    layers_used [R] i32, miss_after [R, L+1] i32, straggler_s [R] f32,
-    wan_bytes [R] f32)``.
+    The bytes are summed as int64 units, each size times ``2**shift``
+    rounded toward zero (exact where the sizes' shift,
+    ``core.route_tables.fold_shift``, makes them whole, as the kernel's
+    are).  Returns ``(served [N] i8 (-1 unresolved), units [R, D] i64,
+    layers_used [R] i32, miss_after [R, L+1] i32, served_dcs [R] i32 (bit d:
+    DC d served an item), n_miss [R] i32 (unresolved items))``.
     """
     R = origin.shape[0]
     L = comp.shape[0] - 1
@@ -233,23 +236,20 @@ def route_expand_ragged_ref(
         walking = (layer < L) & (nmiss > 0)
         it += 1
 
-    # picks: the first DC taken that holds the item; then the Eq. 1 fold
+    # picks: the first DC taken that holds the item; then the byte fold
     first = torch.where(has, rank[req], D).min(dim=1)
     served = torch.where(first.values < D, first.indices, -1)
     at = served >= 0
     cell = req[at] * D + served[at]
-    bytes_rd = torch.zeros(R * D, dtype=sizes.dtype, device=dev).index_add_(
-        0, cell, sizes[at]
-    ).view(R, D)
-    served_d = torch.zeros(R * D, dtype=torch.bool, device=dev)
-    served_d[cell] = True
-    served_d = served_d.view(R, D)
-    at_origin = dcs[None, :] == o[:, None]
-    zero = sizes.new_zeros(())
-    lat_rd = torch.where(at_origin, zero, rtt[:, o].T + bytes_rd * ibw[:, o].T)
-    straggler = torch.where(served_d, lat_rd, zero).max(dim=1).values
-    wan = torch.where(at_origin, zero, bytes_rd).sum(dim=1)
-    return served.to(torch.int8), bytes_rd, layers_used, miss_after, straggler, wan
+    units = (sizes[at].double() * 2.0 ** shift).long()
+    units = torch.zeros(R * D, dtype=torch.int64, device=dev).index_add_(0, cell, units)
+    served_d = torch.zeros(R * D, dtype=torch.int32, device=dev)
+    served_d[cell] = 1
+    served_dcs = (served_d.view(R, D) << dcs.int()).sum(dim=1, dtype=torch.int32)
+    n_miss = torch.zeros(R, dtype=torch.int32, device=dev).index_add_(
+        0, req[~at], torch.ones_like(req[~at], dtype=torch.int32))
+    return (served.to(torch.int8), units.view(R, D), layers_used, miss_after, served_dcs,
+            n_miss)
 
 
 def route_expand_ragged_ids_ref(
@@ -259,8 +259,7 @@ def route_expand_ragged_ids_ref(
     offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
     origin: torch.Tensor,  # [R] i32 origin DC per request
     comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
-    rtt: torch.Tensor,  # [D, D] f32 env RTT matrix
-    ibw: torch.Tensor,  # [D, D] f32 elementwise 1 / bandwidth matrix
+    shift: int = 0,  # a size's units: size * 2**shift
 ) -> Tuple[torch.Tensor, ...]:
     """:func:`route_expand_ragged_ref` on the stream of item ids: slot
     ``k``'s bitmask and bytes are ``table_bits[ids[k]]`` and
@@ -268,4 +267,4 @@ def route_expand_ragged_ids_ref(
     ``route_expand_ragged_ids``; same outputs."""
     ids = ids.long()
     return route_expand_ragged_ref(table_bits[ids], table_sizes[ids], offsets, origin, comp,
-                                   rtt, ibw)
+                                   shift)

@@ -4,8 +4,12 @@ Replaces ``_expand_kernel`` of the JAX package's ``kernels/route_expand.py``
 (Pallas, TPU).  The kernel lives in ``csrc/route_expand.cu``: each request
 walks its own greedy (local items, then per layer the cluster DC covering
 the most missing items, lowest DC id on ties, escalate on no progress) and
-folds Eq. 1.  Requests need no lockstep: extra greedy passes are
-idempotent, so per-request walks equal the block-lockstep oracle.
+folds its bytes per DC, Eq. 1's ``S_d``, exactly: as int64 units of
+``2**-shift`` bytes (``core.route_tables.fold_shift``), with the DCs that
+served it as a bitmask and its unresolved items.  The Eq. 1 latencies and
+WAN bytes are the host's, from those sums.  Requests need no lockstep:
+extra greedy passes are idempotent, so per-request walks equal the
+block-lockstep oracle.
 
 :func:`route_expand_ragged` takes the flat item stream as the router holds
 it (item ids, request offsets, origins) over tables keyed by item id that
@@ -101,37 +105,35 @@ def unpack_ragged(buf: torch.Tensor, N: int, R: int) -> Tuple[torch.Tensor, ...]
     return buf[:N], buf[N:N + R + 1], buf[N + R + 1:N + 2 * R + 1], buf[N + 2 * R + 1:]
 
 
-def ragged_int_views(ints: torch.Tensor, N: int, R: int, L: int) -> Tuple[torch.Tensor, ...]:
-    """``(served [N] i8, layers_used [R] i32, miss_after [R, L+1] i32)`` as
-    views of an int32 buffer laid out ``[layers_used | miss_after |
-    served]``."""
-    return (ints[R * (L + 2):].view(torch.int8)[:N], ints[:R],
-            ints[R:R * (L + 2)].view(R, L + 1))
+def ragged_int_views(ints: torch.Tensor, N: int, R: int, D: int,
+                     L: int) -> Tuple[torch.Tensor, ...]:
+    """The outputs, in :func:`route_expand_ragged`'s order, as views of one
+    int32 buffer laid out ``[units (as int64) | layers_used | miss_after |
+    served_dcs | n_miss | served]``: ``(served [N] i8, units [R, D] i64,
+    layers_used [R] i32, miss_after [R, L+1] i32, served_dcs [R] i32,
+    n_miss [R] i32)``."""
+    u = 2 * R * D  # the int64 sums first, on the buffer's aligned start
+    m = u + R * (L + 2)
+    return (ints[m + 2 * R:].view(torch.int8)[:N], ints[:u].view(torch.int64).view(R, D),
+            ints[u:u + R], ints[u + R:m].view(R, L + 1), ints[m:m + R], ints[m + R:m + 2 * R])
 
 
 def ragged_buffers(N: int, R: int, D: int, L: int, device) -> Tuple[torch.Tensor, ...]:
-    """The ragged outputs as views of two buffers, so a caller reads back
-    all integer outputs in one copy: ``(ints, floats, served [N] i8,
-    bytes_rd [R, D] f32, layers_used [R] i32, miss_after [R, L+1] i32,
-    straggler [R] f32, wan [R] f32)``; :func:`ragged_int_views` lays out
-    ``ints``."""
-    ints = torch.empty(R * (L + 2) + -(-N // 4), dtype=torch.int32, device=device)
-    floats = torch.empty(R * (D + 2), dtype=torch.float32, device=device)
-    served, layers_used, miss_after = ragged_int_views(ints, N, R, L)
-    return (ints, floats, served, floats[:R * D].view(R, D), layers_used, miss_after,
-            floats[R * D:R * (D + 1)], floats[R * (D + 1):])
+    """The ragged outputs as views of one int32 buffer, so a caller reads
+    them all back in one copy: ``(ints, *outputs)``, the outputs as
+    :func:`ragged_int_views` lays them out in ``ints``."""
+    ints = torch.empty(2 * R * D + R * (L + 4) + -(-N // 4), dtype=torch.int32, device=device)
+    return (ints, *ragged_int_views(ints, N, R, D, L))
 
 
-def _check_ragged(ids, table_bits, table_sizes, offsets, origin, order, comp, rtt,
-                  ibw) -> None:
+def _check_ragged(ids, table_bits, table_sizes, offsets, origin, order, comp) -> None:
     _check_comp(comp)
-    N, I, R, D = ids.shape[0], table_bits.shape[0], origin.shape[0], comp.shape[1]
+    N, I, R = ids.shape[0], table_bits.shape[0], origin.shape[0]
     _check_like(ids, (
         ("ids", ids, (N,), torch.int32), ("table_bits", table_bits, (I,), torch.int32),
         ("table_sizes", table_sizes, (I,), torch.float32),
         ("offsets", offsets, (R + 1,), torch.int32), ("origin", origin, (R,), torch.int32),
         ("order", order, (R,), torch.int32), ("comp", comp, tuple(comp.shape), torch.int32),
-        ("rtt", rtt, (D, D), torch.float32), ("ibw", ibw, (D, D), torch.float32),
     ))
 
 
@@ -142,44 +144,42 @@ def route_expand_ragged(
     offsets: torch.Tensor,  # [R + 1] i32 request r's items: [offsets[r], offsets[r + 1])
     origin: torch.Tensor,  # [R] i32 origin DC per request
     comp: torch.Tensor,  # [hier + 1, D] i32 layer component ids
-    rtt: torch.Tensor,  # [D, D] f32 env RTT matrix
-    ibw: torch.Tensor,  # [D, D] f32 elementwise 1 / bandwidth matrix
+    shift: int = 0,  # a size's units: size * 2**shift
     order: Optional[torch.Tensor] = None,  # [R] i32, long requests first
     n_long: Optional[int] = None,
     out: Optional[tuple] = None,  # ragged_buffers(...) to write into
 ) -> Tuple[torch.Tensor, ...]:
     """Same contract as ``ref.route_expand_ragged_ids_ref``: ``(served [N]
-    i8, bytes_rd [R, D] f32, layers_used [R] i32, miss_after [R, L+1] i32,
-    straggler_s [R] f32, wan_bytes [R] f32)``, slot ``k`` reading
+    i8, units [R, D] i64, layers_used [R] i32, miss_after [R, L+1] i32,
+    served_dcs [R] i32, n_miss [R] i32)``, slot ``k`` reading
     ``table_bits[ids[k]]`` and ``table_sizes[ids[k]]``; every id must lie in
     ``[0, I)``.  ``order`` and ``n_long`` come from :func:`ragged_order`
     when not given."""
     if ids.device.type == "cpu":
         return ref.route_expand_ragged_ids_ref(ids, table_bits, table_sizes, offsets, origin,
-                                               comp, rtt, ibw)
+                                               comp, shift)
     if ids.device.type != "cuda":
         raise ValueError(f"route_expand runs on cpu or cuda, not {ids.device}")
     dev = ids.device
     if order is None:
         order_np, n_long = ragged_order(np.diff(offsets.cpu().numpy()))
         order = torch.as_tensor(order_np, device=dev)
-    _check_ragged(ids, table_bits, table_sizes, offsets, origin, order, comp, rtt, ibw)
+    _check_ragged(ids, table_bits, table_sizes, offsets, origin, order, comp)
     N, R = ids.shape[0], origin.shape[0]
     L, D = comp.shape[0] - 1, comp.shape[1]
     if out is None:
         out = ragged_buffers(N, R, D, L, dev)
-    served, bytes_rd, layers_used, miss_after, straggler, wan = out[2:]
+    outputs = out[1:]
     lib = library().get()
     with torch.cuda.device(dev):
         check(
             lib.route_expand_ragged_ids_launch(
                 ids.data_ptr(), table_bits.data_ptr(), table_sizes.data_ptr(),
                 offsets.data_ptr(), origin.data_ptr(), order.data_ptr(), int(n_long),
-                comp.data_ptr(), rtt.data_ptr(), ibw.data_ptr(), served.data_ptr(),
-                bytes_rd.data_ptr(), layers_used.data_ptr(), miss_after.data_ptr(),
-                straggler.data_ptr(), wan.data_ptr(), R, D, L, stream_ptr(dev),
+                comp.data_ptr(), int(shift), *(o.data_ptr() for o in outputs), R, D, L,
+                stream_ptr(dev),
             ),
             "route_expand_ragged_ids_launch",
         )
         RAGGED_LAUNCHES.bump()
-    return served, bytes_rd, layers_used, miss_after, straggler, wan
+    return outputs

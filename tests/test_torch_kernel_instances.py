@@ -6,8 +6,9 @@ point runs; here they are checked against the documented rule, and the
 port's plain versions (what the wrappers run for CPU tensors, and what the
 kernels are held to on the card) against the JAX package's Pallas kernels
 in interpret mode and its oracles at the shapes where one instance hands
-over to the next.  Integer route outputs must be equal; route floats use
-the tolerances of ``tests/test_route_kernel.py``, bags those of
+over to the next.  Integer route outputs must be equal; the JAX oracle's
+route floats are held to the port's exact bytes per DC and Eq. 1 over them
+within the tolerances of ``tests/test_route_kernel.py``, bags to those of
 ``tests/test_kernels.py`` (1e-4 in f32, 3e-2 in bf16).
 """
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.embedding_bag import embedding_bag as jax_bag
 from repro.kernels.route_expand import route_expand as jax_route_kernel
+from repro_torch.core.route_tables import fold_shift
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import route_expand as tre
@@ -78,12 +80,13 @@ def _route_problem(seed, R, K, D, L, p_rep):
 
 
 def _flat(prob):
-    """A padded batch's requests as the flat item stream, as CPU tensors."""
+    """A padded batch's requests as the flat item stream, as CPU tensors
+    ``[bits, sizes, offsets, origin, comp]``."""
     bits, sizes, lens = prob[:3]
     keep = np.arange(bits.shape[1])[None, :] < lens[:, None]
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     return [torch.from_numpy(np.ascontiguousarray(x))
-            for x in (bits[keep], sizes[keep], offsets, *prob[3:])]
+            for x in (bits[keep], sizes[keep], offsets, *prob[3:5])]
 
 
 @pytest.mark.parametrize("K,D,L,p_rep", [(256, 5, 3, 0.35), (257, 5, 3, 0.35),
@@ -93,29 +96,43 @@ def test_route_expand_at_instance_boundary_matches_jax(K, D, L, p_rep):
     walks (257), at the lane's 5 DCs and at 31 (every mask bit)."""
     prob = _route_problem(K + D, 6, K, D, L, p_rep)
     t = _flat(prob)
+    shift = fold_shift(t[1].numpy())
     # the wrapper (on the CPU its plain version) takes item ids over tables:
     # slot k's id perm[k] keys its row
     perm = torch.randperm(len(t[0]), generator=torch.Generator().manual_seed(K))
     tables = (torch.empty_like(t[0]), torch.empty_like(t[1]))
     tables[0][perm], tables[1][perm] = t[0], t[1]
     reset_launch_counters()
-    got = [o.numpy() for o in tre.route_expand_ragged(perm.to(torch.int32), *tables, *t[2:])]
+    got = [o.numpy() for o in tre.route_expand_ragged(perm.to(torch.int32), *tables, *t[2:],
+                                                      shift)]
     assert launch_counters()["route_expand_ragged"].n == 0
-    for o, w in zip(got, tref.route_expand_ragged_ref(*t)):
+    for o, w in zip(got, tref.route_expand_ragged_ref(*t, shift)):
         np.testing.assert_array_equal(o, w.numpy())
+    served_f, units, layers_g, miss_g, served_dcs, n_miss = got
+    # the JAX oracle's floats from the exact sums: bytes, then Eq. 1 over them
+    _, _, _, origin, _, rtt, ibw = prob
+    o = origin.astype(np.int64)
+    b = np.ldexp(units.astype(np.float64), -shift)
+    mask = ((served_dcs[:, None] >> np.arange(D)) & 1).astype(bool)
+    away = np.arange(D)[None, :] != o[:, None]
+    strag_g = np.where(mask & away, rtt[:, o].T + b * ibw[:, o].T, 0.0).max(axis=1)
+    wan_g = np.where(away, b, 0.0).sum(axis=1)
     j = [jnp.asarray(x) for x in prob]
     lens = prob[2]
     bounds = np.concatenate([[0], np.cumsum(lens)])
     for want in (jref.route_expand_ref(*j), jax_route_kernel(*j, block_r=8, interpret=True)):
         served, bytes_rd, layers, miss, strag, wan = (np.asarray(w) for w in want)
         for r, k in enumerate(lens):
-            np.testing.assert_array_equal(got[0][bounds[r]:bounds[r + 1]], served[r, :k])
-        np.testing.assert_array_equal(got[2], layers)
-        np.testing.assert_array_equal(got[3], miss)
-        np.testing.assert_allclose(got[1], bytes_rd, rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(got[4], strag, rtol=1e-5, atol=1e-7)
-        np.testing.assert_allclose(got[5], wan, rtol=1e-5, atol=1e-4)
-    assert lens[1] == 0 and got[3][1].sum() == 0  # the empty read
+            np.testing.assert_array_equal(served_f[bounds[r]:bounds[r + 1]], served[r, :k])
+            picks = served[r, :k]
+            assert served_dcs[r] == sum(1 << int(d) for d in np.unique(picks[picks >= 0]))
+            assert n_miss[r] == (picks < 0).sum()
+        np.testing.assert_array_equal(layers_g, layers)
+        np.testing.assert_array_equal(miss_g, miss)
+        np.testing.assert_allclose(b, bytes_rd, rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(strag_g, strag, rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(wan_g, wan, rtol=1e-5, atol=1e-4)
+    assert lens[1] == 0 and miss_g[1].sum() == 0  # the empty read
 
 
 def _ragged_shaped(N, n_layers, D):
@@ -124,7 +141,7 @@ def _ragged_shaped(N, n_layers, D):
     z = torch.zeros
     i32 = dict(dtype=torch.int32)
     return (z(N, **i32), z(N, **i32), z(N), torch.tensor([0, N], **i32), z(1, **i32),
-            z(1, **i32), z((n_layers + 1, D), **i32), z((D, D)), z((D, D)))
+            z(1, **i32), z((n_layers + 1, D), **i32))
 
 
 @pytest.mark.parametrize("n_layers,D,match", [(tre.MAX_LAYERS + 1, 5, "layers"),

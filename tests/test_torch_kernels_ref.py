@@ -5,7 +5,10 @@ through the JAX oracles and Pallas kernels (interpret mode, as the JAX
 package's own tests run them).  DHD tolerances are those of
 ``tests/test_kernels.py`` (atol 1e-5, rtol 1e-4: summation order differs);
 route expansion integer outputs must be exactly equal, its floats use the
-tolerances of ``tests/test_route_kernel.py``.
+tolerances of ``tests/test_route_kernel.py``.  The port's route expansion
+gives each read's bytes per DC as exact int64 units; the JAX oracle's bytes,
+straggler latency and WAN bytes are held to those bytes and to Eq. 1 over
+them, as the port's host epilogue folds them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels.dhd_spmv import dhd_ell_step as jax_dhd_single_kernel
 from repro.kernels.dhd_spmv import dhd_ell_step_batch as jax_dhd_kernel
 from repro.kernels.route_expand import route_expand as jax_route_kernel
+from repro_torch.core.route_tables import fold_shift
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.cuda_lib import launch_counters, reset_launch_counters
 from repro_torch.kernels.dhd_spmv import dhd_ell_step as torch_dhd_single_wrapper
@@ -149,21 +153,38 @@ SWEEP = [
 
 
 def _flat(prob):
-    """A padded batch's requests as the flat item stream, as CPU tensors."""
+    """A padded batch's requests as the flat item stream, as CPU tensors
+    ``(bits, sizes, offsets, origin, comp)``, and the sizes' shift."""
     bits, sizes, lens = prob[:3]
     keep = np.arange(bits.shape[1])[None, :] < lens[:, None]
     offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
-    return (_t(bits[keep]), _t(sizes[keep]), _t(offsets), *(_t(x) for x in prob[3:]))
+    shift = fold_shift(sizes[keep])
+    assert shift is not None
+    return (_t(bits[keep]), _t(sizes[keep]), _t(offsets), _t(prob[3]), _t(prob[4])), shift
 
 
 def _ragged_on_tiles(fn, prob):
     """``fn`` (the ragged wrapper or its plain version) on a padded batch,
-    its picks laid back out as ``[R, K]`` (-1 past each request's length)."""
-    out = [o.numpy() for o in fn(*_flat(prob))]
-    bits, _, lens = prob[:3]
+    its picks laid back out as ``[R, K]`` (-1 past each request's length),
+    and its exact sums as the JAX oracle's ``(bytes_rd, straggler, wan)``:
+    the bytes ``units * 2**-shift``, Eq. 1 over them.  Its served-DC masks
+    and unresolved counts must be those of its picks."""
+    flat, shift = _flat(prob)
+    served_f, units, layers, miss, served_dcs, n_miss = (o.numpy() for o in fn(*flat, shift))
+    bits, _, lens, origin, _, rtt, ibw = prob
+    D = units.shape[1]
     served = np.full(bits.shape, -1, np.int32)
-    served[np.arange(bits.shape[1])[None, :] < lens[:, None]] = out[0]
-    return (served, *out[1:])
+    served[np.arange(bits.shape[1])[None, :] < lens[:, None]] = served_f
+    for r, k in enumerate(lens):
+        picks = served[r, :k]
+        assert served_dcs[r] == sum(1 << int(d) for d in np.unique(picks[picks >= 0]))
+        assert n_miss[r] == (picks < 0).sum()
+    b = np.ldexp(units.astype(np.float64), -shift)
+    o = np.asarray(origin, np.int64)
+    mask = ((served_dcs[:, None] >> np.arange(D)) & 1).astype(bool)
+    away = np.arange(D)[None, :] != o[:, None]
+    lat = np.where(mask & away, rtt[:, o].T + b * ibw[:, o].T, 0.0)
+    return served, b, layers, miss, lat.max(axis=1), np.where(away, b, 0.0).sum(axis=1)
 
 
 def _route_both(prob):
@@ -203,14 +224,14 @@ def test_wrappers_take_plain_version_on_cpu():
     want = tref.dhd_ell_ref_batch(_t(heat), _t(cols), _t(vals), _t(q))
     assert torch.equal(got, want)
     prob = _rand_problem(np.random.default_rng(3), 8, 1, 24, 5, 3)
-    ragged = _flat(prob)
+    ragged, shift = _flat(prob)
     # the wrapper takes item ids over tables: slot k's id perm[k] keys its row
     bits, sizes, rest = ragged[0], ragged[1], ragged[2:]
     perm = torch.randperm(len(bits), generator=torch.Generator().manual_seed(3))
     tables = (torch.empty_like(bits), torch.empty_like(sizes))
     tables[0][perm], tables[1][perm] = bits, sizes
-    got_r = torch_ragged_wrapper(perm.to(torch.int32), *tables, *rest)
-    for a, b in zip(got_r, tref.route_expand_ragged_ref(*ragged)):
+    got_r = torch_ragged_wrapper(perm.to(torch.int32), *tables, *rest, shift)
+    for a, b in zip(got_r, tref.route_expand_ragged_ref(*ragged, shift)):
         assert torch.equal(a, b)
     got_s = torch_dhd_single_wrapper(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0]))
     assert torch.equal(got_s, tref.dhd_ell_ref(_t(heat[0]), _t(cols), _t(vals[0]), _t(q[0])))

@@ -9,7 +9,8 @@
   (``facade.pool_wait`` tagged with the dispatch that ran), one
   ``shard.route`` per origin sub-batch parented to it, and the router's
   phases under each, with the path the item gate implies; results equal
-  with the tracer on and off;
+  with the tracer on and off; the sub-batch over the gate folds its bytes
+  on the card (``route.epilogue``'s ``fold`` tag, ``route.fold``);
 * the controller's ``controller.*`` counters land in an injected enabled
   registry only, within the steps' wall time, and leave ``history``,
   ``metrics()`` and the sim-clock trace export as they were.
@@ -210,6 +211,43 @@ def test_facade_and_router_spans_of_one_mixed_batch(parallel):
         assert np.array_equal(a.served_by, b.served_by) and a.latency_s == b.latency_s
         assert (a.wan_bytes, a.layers_used, a.n_missing) == (b.wan_bytes, b.layers_used,
                                                               b.n_missing)
+        assert a.per_dc_latency == b.per_dc_latency
+
+
+def test_sub_batch_over_the_gate_folds_its_bytes_on_the_card():
+    """A traced sharded run on the CPU: the sub-batch over the item gate
+    takes the kernel's sums (``route.epilogue`` tagged ``fold="card"``,
+    ``route.fold`` counted once), the numpy sub-batches fold on the host,
+    and the results equal the host fold's."""
+    tracer = Tracer(clock=time.perf_counter, enabled=True)
+    store, pats = _sharded(tracer, None)
+    assert store.route_tables.shift is not None
+    reqs = _mixed_requests(pats)
+    tracer.reset()
+    got = store.serve_batch(reqs)
+    recs = list(tracer.records)
+    expand_of = {r.parent: r.tags["path"] for r in recs if r.name == "route.expand"}
+    folds = {expand_of[r.parent]: r.tags["fold"] for r in recs if r.name == "route.epilogue"}
+    assert folds == {"fused": "card", "numpy": "host"}
+    counts = {k: v for k, v in tracer.counters.items() if k[0] == "route.fold"}
+    assert counts == {("route.fold", (("where", "card"),)): 1}
+
+    # the same batch over the host fold: the tables' shift forgotten
+    rt = store.route_tables
+    shift = rt.shift
+    for dev, t in list(rt.device_tables.items()):
+        rt.device_tables[dev] = t._replace(shift=None)
+    tracer.reset()
+    try:
+        again = store.serve_batch(reqs)
+    finally:
+        for dev, t in list(rt.device_tables.items()):
+            rt.device_tables[dev] = t._replace(shift=shift)
+    counts = {k: v for k, v in tracer.counters.items() if k[0] == "route.fold"}
+    assert counts == {("route.fold", (("where", "host"),)): 1}
+    for a, b in zip(got, again):
+        assert np.array_equal(a.served_by, b.served_by) and a.latency_s == b.latency_s
+        assert (a.wan_bytes, a.n_missing) == (b.wan_bytes, b.n_missing)
         assert a.per_dc_latency == b.per_dc_latency
 
 

@@ -5,8 +5,8 @@ and the router's item gate.
   31-33, 256-257, 25,824, 25,825 and 40,000 items over seeded random
   replica sets: the same picks and layers as the numpy router's
   ``_expand_numpy`` and as the benchmark's reference router
-  (``geobench/reference/route.py``), and bytes and latencies as the
-  reference's;
+  (``geobench/reference/route.py``), and its exact int64 sums the
+  reference's bytes, serving DCs and (Eq. 1 over them) latencies;
 * ``pack_ragged`` / ``unpack_ragged`` (item ids, offsets, origins, block
   order), ``ragged_order`` and ``ragged_buffers``, the one-copy layouts the
   card's call uses, and the id-keyed plain version over the tables;
@@ -25,7 +25,7 @@ from repro_torch.core.graph import Graph
 from repro_torch.core.latency import make_paper_env
 from repro_torch.core.layered_graph import build_layered_graph
 from repro_torch.core import routing
-from repro_torch.core.route_tables import _bit_pack
+from repro_torch.core.route_tables import _bit_pack, fold_shift
 from repro_torch.core.routing import _expand_numpy, route_online_batch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import route_expand_ragged_ids_ref, route_expand_ragged_ref
@@ -82,12 +82,12 @@ def _t(x, dtype):
 def test_ragged_plain_version_matches_the_routers(D, L, one_origin):
     requests, delta, comp, sizes, rtt, bw = _batch(31 + D + one_origin, D, L, one_origin)
     items, bounds, origin, bits, sz = _flat(requests, delta, sizes)
-    ibw = np.where(np.isinf(bw), 0.0, 1.0 / bw)
+    shift = fold_shift(sizes)
     args = (_t(bits, torch.int32), _t(sz, torch.float32), _t(bounds, torch.int32),
-            _t(origin, torch.int32), _t(comp, torch.int32), _t(rtt, torch.float32),
-            _t(ibw, torch.float32))
-    served, bytes_rd, layers, miss, straggler, wan = route_expand_ragged_ref(*args)
+            _t(origin, torch.int32), _t(comp, torch.int32), shift)
+    served, units, layers, miss, served_dcs, n_miss = route_expand_ragged_ref(*args)
     assert served.dtype == torch.int8 and served.shape == (len(items),)
+    assert units.dtype == torch.int64 and units.shape == (len(requests), D)
 
     req_id = np.repeat(np.arange(len(requests)), np.diff(bounds))
     lg = types.SimpleNamespace(comp_of_dc=comp, n_layers=L)
@@ -96,22 +96,23 @@ def test_ragged_plain_version_matches_the_routers(D, L, one_origin):
     np.testing.assert_array_equal(served.numpy(), want_served)
     np.testing.assert_array_equal(layers.numpy(), want_layers)
 
-    # the benchmark's own router, written apart from the port
+    # the benchmark's own router, written apart from the port: its f64 sums
+    # are the exact int64 sums' bytes, bit for bit
+    bytes_rd = np.ldexp(units.numpy().astype(np.float64), -shift)
     for r, (it, o) in enumerate(requests):
         ref_served, dcs, lat = route_one(it, o, delta, comp, sizes, rtt, bw)
         np.testing.assert_array_equal(served[bounds[r]:bounds[r + 1]].numpy(), ref_served)
-        np.testing.assert_array_equal(np.flatnonzero(bytes_rd[r].numpy() > 0), dcs)
+        assert int(served_dcs[r]) == sum(1 << int(d) for d in dcs)
+        assert int(n_miss[r]) == (ref_served < 0).sum()
         at = ref_served >= 0
         want_bytes = np.bincount(ref_served[at], weights=sizes[it][at], minlength=D)
-        np.testing.assert_allclose(bytes_rd[r].numpy(), want_bytes, rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(float(straggler[r]), lat.max(initial=0.0), rtol=1e-5,
-                                   atol=1e-7)
-        np.testing.assert_allclose(float(wan[r]), want_bytes.sum() - want_bytes[o], rtol=1e-5,
-                                   atol=1e-4)
+        np.testing.assert_array_equal(bytes_rd[r], want_bytes)
+        got_lat = [0.0 if d == o else rtt[d, o] + bytes_rd[r, d] / bw[d, o] for d in dcs]
+        np.testing.assert_array_equal(got_lat, lat)
 
 
 def test_ragged_packing_round_trips_and_orders_long_reads_first():
-    requests, delta, comp, sizes, rtt, bw = _batch(5, 5, 3, False)
+    requests, delta, comp, sizes, _, _ = _batch(5, 5, 3, False)
     items, bounds, origin, bits, sz = _flat(requests, delta, sizes)
     lens = np.diff(bounds)
     order, n_long = ragged_order(lens)
@@ -130,38 +131,41 @@ def test_ragged_packing_round_trips_and_orders_long_reads_first():
 
     # the unpacked views route over the tables as the gathered rows do, and
     # ops takes the ids over the tables on the CPU
-    ibw = torch.as_tensor(np.where(np.isinf(bw), 0.0, 1.0 / bw), dtype=torch.float32)
-    env = (_t(comp, torch.int32), _t(rtt, torch.float32), ibw)
-    want = route_expand_ragged_ref(_t(bits, torch.int32), _t(sz, torch.float32), off, org, *env)
+    comp_t, shift = _t(comp, torch.int32), fold_shift(sizes)
+    want = route_expand_ragged_ref(_t(bits, torch.int32), _t(sz, torch.float32), off, org,
+                                   comp_t, shift)
     tables = (_t(_bit_pack(delta), torch.int32), _t(sizes, torch.float32))
-    got = route_expand_ragged_ids_ref(i, *tables, off, org, *env)
+    got = route_expand_ragged_ids_ref(i, *tables, off, org, comp_t, shift)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    served, layers, miss = ops.route_expand_flat_ids(items, bounds, origin, tables, *env,
-                                                     device="cpu")
-    np.testing.assert_array_equal(served, want[0].numpy())
-    np.testing.assert_array_equal(layers, want[2].numpy())
-    np.testing.assert_array_equal(miss, want[3].numpy())
+    served, layers, miss, units, served_dcs, n_miss = ops.route_expand_flat_ids(
+        items, bounds, origin, tables, comp_t, device="cpu", shift=shift)
+    for a, b in zip((served, units, layers, miss, served_dcs, n_miss), want):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 def test_ragged_buffers_are_disjoint_views():
+    """Every output is a view of one int32 buffer, read back in one copy;
+    the int64 sums lie first, on its aligned start."""
     N, R, D, L = 11, 3, 5, 2
-    ints, floats, served, bytes_rd, layers, miss, straggler, wan = ragged_buffers(
-        N, R, D, L, "cpu")
-    assert (served.shape, bytes_rd.shape, layers.shape, miss.shape) == (
+    ints, served, units, layers, miss, served_dcs, n_miss = ragged_buffers(N, R, D, L, "cpu")
+    assert (served.shape, units.shape, layers.shape, miss.shape) == (
         (N,), (R, D), (R,), (R, L + 1))
-    assert straggler.shape == wan.shape == (R,)
+    assert served_dcs.shape == n_miss.shape == (R,) and units.dtype == torch.int64
     served.fill_(-1)
+    units.fill_(-(1 << 40))
     layers.fill_(7)
     miss.fill_(9)
-    bytes_rd.fill_(1.0)
-    straggler.fill_(2.0)
-    wan.fill_(3.0)
+    served_dcs.fill_(11)
+    n_miss.fill_(13)
     host = ints.numpy()
-    np.testing.assert_array_equal(host[:R], 7)
-    np.testing.assert_array_equal(host[R:R * (L + 2)], 9)
-    np.testing.assert_array_equal(host[R * (L + 2):].view(np.int8)[:N], -1)
-    np.testing.assert_array_equal(floats.numpy(), [1.0] * (R * D) + [2.0] * R + [3.0] * R)
+    u = 2 * R * D
+    np.testing.assert_array_equal(host[:u].view(np.int64), -(1 << 40))
+    np.testing.assert_array_equal(host[u:u + R], 7)
+    np.testing.assert_array_equal(host[u + R:u + R * (L + 2)], 9)
+    np.testing.assert_array_equal(host[u + R * (L + 2):u + R * (L + 3)], 11)
+    np.testing.assert_array_equal(host[u + R * (L + 3):u + R * (L + 4)], 13)
+    np.testing.assert_array_equal(host[u + R * (L + 4):].view(np.int8)[:N], -1)
 
 
 def _gate_store():

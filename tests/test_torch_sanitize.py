@@ -194,6 +194,28 @@ def test_planted_stale_route_table_row_fails_the_port():
     assert san.check() is True
 
 
+@pytest.mark.parametrize("where", ["host", "device set"])
+def test_planted_stale_byte_scale_fails_the_port(where):
+    """A byte scale left stale (a byte change that did not re-derive it),
+    on the host tables or on a device set, fails with its message."""
+    store = _store(PORT, seed=5)
+    store.route_tables.add_device("cpu")
+    rt = store.route_tables
+    san = tsan.StoreSanitizer(store)
+    assert san.check() is True and rt.shift is not None
+    shift = rt.shift
+    (dev,) = rt.device_tables
+    if where == "host":
+        rt.shift = shift + 1
+    else:
+        rt.device_tables[dev] = rt.device_tables[dev]._replace(shift=None)
+    with pytest.raises(tsan.SanitizerError, match="route-table divergence: byte scale"):
+        san.check()
+    rt.shift = shift
+    rt.device_tables[dev] = rt.device_tables[dev]._replace(shift=shift)
+    assert san.check() is True
+
+
 # -------------------------------------------------------- attach & cadence
 def _dummy_store():
     calls = []
