@@ -9,10 +9,11 @@ both, the step that would tempt a later change: the reference's placement
 with every diffusion step's heat rounded to bfloat16, and its router with
 every byte sum in float32.  For each seed it serves the cell's warm-up and
 window reads (those of ``--seconds`` at the mix's rate, in drains of the
-controller's ``max_batch``) from the control, logs them as a run logs the
-program's, and hands the log to ``reference.check.check_run``, which has to
-come out not correct.  It runs on the host's CPU; the benchmark's runs
-never call it.
+controller's ``max_batch``) from the control, applies the mix's batches of
+inserts to it (the reference's replay, on the control's replica sets)
+between them, logs them as a run logs the program's, and hands the log to
+``reference.check.check_run``, which has to come out not correct.  It runs
+on the host's CPU; the benchmark's runs never call it.
 """
 import argparse
 import json
@@ -38,8 +39,9 @@ def control_run(cell, seed: int, seconds: float):
     from geobench.inputs import make_inputs
     from geobench.reference.check import _lone, check_run, payload_rows
     from geobench.reference.placement import PlacementParams, place
-    from geobench.reference.route import Router, layer_components
-    from geobench.traffic import make_reads, warmup_reads
+    from geobench.reference.replay import Replay
+    from geobench.reference.route import Router
+    from geobench.traffic import make_reads, make_writes, warmup_reads
 
     config, mix = cell.config, cell.mix
     inputs = make_inputs(config, seed)
@@ -52,30 +54,56 @@ def control_run(cell, seed: int, seconds: float):
     pattern = np.concatenate([w_pat, stream.pattern])
     origin = np.concatenate([w_org, stream.origin])
     N = len(pattern)
+    writes = mix.get("writes")
+    batches = [] if writes is None else make_writes(
+        writes, config["graph"], g, inputs.wiring, env.n_dcs, seed, seconds)
+    # the warm-up's batches come before every read; a window read is sent
+    # after every batch due by then
+    dues = np.array([b.due for b in batches])
+    due = np.concatenate([np.full(n_warm, 0.0), stream.due])
+    version = np.searchsorted(dues, due, side="right") if batches else np.zeros(N, np.int64)
     delta = place(g, env, pats, PlacementParams(**config.get("placement", {}),
                                                 round_step=to_bfloat16))
-    router = Router([p.items for p in pats], g.item_size(), env.rtt_s, env.bw_Bps,
-                    layer_components(env.rtt_s, g.partition, g.src, g.dst), np.float32)
-    router.set_replicas(delta)
+    state = Replay(g, delta, pats, env.rtt_s)  # the control's store
+    router = Router(state.sizes(), env.rtt_s, env.bw_Bps, state.comp(), np.float32)
+    router.set_replicas(state.delta)
     log = RunLog(pattern=pattern, origin=origin, drains=[], kept={},
-                 latency_eq1=np.full(N, np.nan), answered=np.ones(N, bool), delta=delta)
+                 latency_eq1=np.full(N, np.nan), answered=np.ones(N, bool),
+                 batches=batches, version=version if batches else None,
+                 drain_epoch=[] if batches else None)
     drain_rng = np.random.default_rng([seed, 3])
     batch = int(config["admission"]["max_batch"])
     sharded = config["store"]["kind"] == "sharded"
-    for a in range(0, N, batch):
-        ids = np.arange(a, min(a + batch, N))
-        org = origin[ids].tolist()
-        answers = [router.route(int(pattern[i]), o, lo)
-                   for i, o, lo in zip(ids.tolist(), org, _lone(org, sharded))]
-        log.latency_eq1[ids] = [r[3] for r in answers]
-        if drain_rng.random() < SAMPLE_SHARE:
-            log.kept[len(log.drains)] = [(int(i), r[0], r[1], r[2])
-                                         for i, r in zip(ids.tolist(), answers)]
-        log.drains.append(ids)
+    starts = np.flatnonzero(np.diff(version, prepend=-1)).tolist() + [N]
+    for lo_v, hi_v in zip(starts[:-1], starts[1:]):
+        epoch = int(version[lo_v])
+        while state.epoch < epoch:
+            state.apply(batches[state.epoch])
+            router.set_replicas(state.delta, state.sizes(), state.comp())
+        for a in range(lo_v, hi_v, batch):
+            ids = np.arange(a, min(a + batch, hi_v))
+            org = origin[ids].tolist()
+            answers = [router.route_items((int(pattern[i]), o, lo),
+                                          lambda i=i: state.items_at(int(pattern[i]), epoch),
+                                          o, lo)
+                       for i, o, lo in zip(ids.tolist(), org, _lone(org, sharded))]
+            log.latency_eq1[ids] = [r[3] for r in answers]
+            if drain_rng.random() < SAMPLE_SHARE:
+                log.kept[len(log.drains)] = [(int(i), r[0], r[1], r[2])
+                                             for i, r in zip(ids.tolist(), answers)]
+            if batches:
+                log.drain_epoch.append(epoch)
+            log.drains.append(ids)
+    while state.epoch < len(batches):
+        state.apply(batches[state.epoch])
+    log.delta = state.delta
+    if batches:
+        log.graph = (state.n, state.src, state.dst, state.node_size, state.edge_size,
+                     state.partition, state.uid)
     if sharded:
         n_shards = config["store"]["n_shards"]
-        base = payload_rows(np.arange(g.n_items), config["store"]["payload_width"])
-        log.payload = [base * delta[:, [d for d in range(env.n_dcs) if d % n_shards == s]]
+        base = payload_rows(state.uid, config["store"]["payload_width"])
+        log.payload = [base * state.delta[:, [d for d in range(env.n_dcs) if d % n_shards == s]]
                        .any(axis=1)[:, None] for s in range(n_shards)]
     checks = check_run(config, inputs, log)
     return all(v <= lim for _, v, lim in checks), checks

@@ -10,6 +10,20 @@ that waits at its client, its time running from when it was due.  The
 harness logs every drain, hands the log to the reference once the window
 has closed, and returns the result line.
 
+A mix with a ``"writes"`` block also hands the store each sealed batch of
+inserts when it falls due, between controller steps, through the store's
+own ``apply_updates`` (the controller has no write queue); a write is
+acknowledged when that call returns.  The warm-up's batches are applied
+before the warm-up's reads.  After each batch the harness moves its
+catalog of patterns to the new ids and grows each neighbourhood the
+batch's edges reach (``catalog.py``), so reads due from then on read the
+new friends; reads already in the store are re-keyed by the program's
+remap listener.  The
+log keeps each batch, its acknowledgement, the batches applied when each
+read was sent and when each drain was served, and the store's final graph
+and item uids.  A mix without the block runs as it did before writes
+existed.
+
 ``device`` is ``"cuda"`` for a measured run; the CPU tests call it with
 ``"cpu"`` and a small configuration.
 """
@@ -29,10 +43,10 @@ import numpy as np
 
 from . import stats
 from .clock import WallClock
-from .inputs import make_inputs, to_port
-from .traffic import load_mix, make_reads, warmup_reads
+from .inputs import make_inputs, to_port, to_port_batch
+from .traffic import load_mix, make_reads, make_writes, warmup_reads
 
-__all__ = ["Cell", "resolve_cell", "run_cell", "banned_modules", "BANNED"]
+__all__ = ["Cell", "resolve_cell", "run_cell", "window_mask", "banned_modules", "BANNED"]
 
 GEOBENCH = pathlib.Path(__file__).resolve().parent
 ROOT = GEOBENCH.parent
@@ -43,6 +57,12 @@ BANNED = ("jax", "jaxlib", "flax", "repro", "benchmarks")
 SAMPLE_SHARE = 0.25
 POST_WINDOW_S = 60.0  # how long unanswered window reads are waited for
 PROFILE_S = 2.0  # length of the profiled sub-window in a traced run
+
+
+def window_mask(due_abs: np.ndarray, end: float) -> np.ndarray:
+    """Reads due in the window: before its end, and not the warm-up's
+    (due at ``-inf``), which the tail would count as infinitely late."""
+    return np.isfinite(due_abs) & (due_abs < end)
 
 
 def banned_modules() -> List[str]:
@@ -154,6 +174,11 @@ class RunLog:
     answered: np.ndarray  # [N] bool
     delta: Optional[np.ndarray] = None  # the program's replica sets
     payload: Optional[list] = None  # sharded: each shard's block at the end
+    batches: list = dataclasses.field(default_factory=list)  # applied, in order
+    acks: list = dataclasses.field(default_factory=list)  # clock s each apply returned
+    version: Optional[np.ndarray] = None  # [N] batches applied when each read was sent
+    drain_epoch: Optional[list] = None  # batches applied when each drain was served
+    graph: Optional[tuple] = None  # the program's final graph rows (graph_rows' args)
 
 
 class _Timeline:
@@ -204,6 +229,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     pattern = np.concatenate([w_pat, stream.pattern])
     origin = np.concatenate([w_org, stream.origin])
     items = [p.items for p in pats]
+    writes = mix.get("writes")
+    batches = [] if writes is None else make_writes(
+        writes, config["graph"], inputs.g, inputs.wiring, D, seed, seconds)
+    n_batches = len(batches)
+    if batches:
+        from .catalog import Catalog
+
+        catalog = Catalog(inputs.g, pats)
+        items = catalog.items  # the catalog replaces its entries after each batch
+    applies: List[dict] = []  # each batch applied: its times and mutations
+    cuts: List[int] = []  # reads sent before each batch
+    drain_cuts: List[int] = []  # drains served before each batch
     t_ret = np.full(N, np.nan)
     failed = np.zeros(N, bool)
     lat_eq1 = np.full(N, np.nan)
@@ -229,7 +266,30 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
             ]
         log.drains.append(ids)
 
+    def apply(b: int, next_read: int) -> None:
+        """Hand batch ``b`` to the store; acknowledged when the call returns."""
+        batch = batches[b]
+        port = to_port_batch(batch)
+        t0 = time.perf_counter()
+        store.apply_updates(port)
+        _sync(device)
+        t1 = time.perf_counter()
+        catalog.apply(batch)
+        t2 = time.perf_counter()
+        applies.append(dict(t0=t0, t1=t1, ops=batch.n_ops))
+        log.batches.append(batch)
+        log.acks.append(t1 - clock.origin)
+        cuts.append(next_read)
+        drain_cuts.append(len(log.drains))
+        if timeline is not None:
+            timeline.add("apply", t0, t1)
+            timeline.add("catalog", t1, t2)
+
     # ------------------------------------------------------------------ warm-up
+    nb = 0  # batches applied
+    while nb < n_batches and batches[nb].due <= 0.0:
+        apply(nb, 0)
+        nb += 1
     rid = 0
     for size in sizes_w:
         now = clock.now()
@@ -255,7 +315,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     setup_s = time.perf_counter() - t_process
     end = T0 + seconds
     due_abs = np.concatenate([np.full(n_warm, -np.inf), T0 + stream.due])
-    clock.horizon = end
+    # the controller never waits past the window's end or the next batch
+    clock.horizon = min(end, T0 + batches[nb].due) if nb < n_batches else end
     wait = np.zeros(N)  # how long each read waited at its client
     prof_at = T0 + 2.0 * math.floor(seconds / 4.0) if trace and device == "cuda" else math.inf
     prof = None
@@ -275,6 +336,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
             if prof is not None and not prof.stopped and time.perf_counter() >= (
                     prof.t_start + PROFILE_S):
                 prof.stop()
+            if nb < n_batches and now >= T0 + batches[nb].due:
+                apply(nb, i)
+                nb += 1
+                clock.horizon = min(end, T0 + batches[nb].due) if nb < n_batches else end
+                continue
             t0 = time.perf_counter()
             while i < N and due_abs[i] <= now and ctl.pending < cap:
                 ctl.submit(items[pattern[i]], int(origin[i]), at=float(due_abs[i]))
@@ -298,7 +364,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     _sync(device)
     if prof is not None and not prof.stopped:
         prof.stop()
-    in_window = due_abs < end
+    in_window = window_mask(due_abs, end)
     if window_failed is not None:
         failed[in_window & np.isnan(t_ret)] = True
     lat = stats.read_latencies(due_abs[in_window], t_ret[in_window],
@@ -357,6 +423,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
           f"{np.quantile(wait_w, 0.99) * 1e3:.4f} ms, max {wait_w.max() * 1e3:.4f} ms "
           f"over {len(wait_w)} reads; due but not answered at close {pending_at_close}; "
           f"drains in window {len(window_steps)}", flush=True)
+    lat_f = lat[np.isfinite(lat)]
+    if len(lat_f):
+        q50, q95, q99 = np.quantile(lat_f, [0.5, 0.95, 0.99]) * 1e3
+        print(f"read time of window reads: p50 {q50:.4f} ms, p95 {q95:.4f} ms, p99 "
+              f"{q99:.4f} ms, max {lat_f.max() * 1e3:.4f} ms", flush=True)
+    if batches:
+        win = [a for a in applies if a["t0"] >= clock.origin + T0]
+        print(f"inserts: {len(log.batches)} batches acknowledged ({len(win)} in the window, "
+              f"{sum(a['ops'] for a in win)} mutations), apply_updates "
+              f"{np.mean([a['t1'] - a['t0'] for a in win] or [0.0]) * 1e3:.4f} ms a batch",
+              flush=True)
+        log.version = np.searchsorted(np.asarray(cuts), np.arange(N), side="right")
+        log.drain_epoch = np.searchsorted(np.asarray(drain_cuts), np.arange(len(log.drains)),
+                                          side="right").tolist()
     eq1 = lat_eq1[n_warm:][log.answered[n_warm:]]
     if len(eq1):
         print(f"Eq. 1 WAN latency of answered reads: mean {eq1.mean() * 1e3:.4f} ms, "
@@ -365,6 +445,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
 
     # ------------------------------------------- the program's state, then free
     log.delta = store.state.delta.copy()
+    if batches:
+        pg = store.g
+        log.graph = (int(pg.n_nodes), pg.src.copy(), pg.dst.copy(), pg.node_size.copy(),
+                     pg.edge_size.copy(), pg.partition.copy(), store._item_uid.copy())
     if sharded:
         log.payload = [s.payload.detach().cpu().numpy() for s in store.shards]
         if store._pool is not None:

@@ -16,12 +16,12 @@ program copies of them, and the reference builds from the originals.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["Graph", "Env", "Pattern", "Inputs", "knows_graph", "khop_patterns",
-           "make_env", "make_inputs", "to_port"]
+__all__ = ["Graph", "Env", "Pattern", "Wiring", "Inputs", "knows_graph", "khop_patterns",
+           "make_env", "make_inputs", "to_port", "to_port_batch"]
 
 # Table I of the paper: five Alibaba Cloud DCs, RTT in ms and available
 # bandwidth in Mbps between each pair; Table II's Alibaba prices (storage
@@ -87,6 +87,21 @@ class Pattern:
     r_py: np.ndarray  # [D] reads from each origin DC
     w_py: np.ndarray  # [D] writes from each origin DC
     eta: float  # latency requirement coefficient
+    start: int = -1  # the start person
+    hops: int = 0  # knows hops walked from it
+
+
+@dataclasses.dataclass
+class Wiring:
+    """What the knows generator drew each person from, for inserts drawn
+    like it: the person's community, each community's home DC, the
+    person's Chung-Lu weight (target degree, capped) and the scale that
+    took the raw lognormal draws to the configured mean degree."""
+
+    community: np.ndarray  # [n] int64
+    home_dc: np.ndarray  # [k] int64
+    weight: np.ndarray  # [n] float64
+    weight_scale: float
 
 
 @dataclasses.dataclass
@@ -94,6 +109,7 @@ class Inputs:
     g: Graph
     env: Env
     patterns: List[Pattern]
+    wiring: Optional[Wiring] = None
 
 
 def make_env() -> Env:
@@ -108,8 +124,8 @@ def make_env() -> Env:
     )
 
 
-def knows_graph(gc: dict, n_dcs: int) -> Graph:
-    """An undirected Person-knows-Person graph with heavy-tailed degrees.
+def knows_graph(gc: dict, n_dcs: int):
+    """``(Graph, Wiring)``: an undirected Person-knows-Person graph with heavy-tailed degrees.
 
     Each person gets a target degree from a lognormal (``degree_sigma``)
     scaled to ``mean_degree`` and capped at ``max_degree``; edges join
@@ -123,7 +139,8 @@ def knows_graph(gc: dict, n_dcs: int) -> Graph:
     n, k = int(gc["n_nodes"]), int(gc["n_communities"])
     comm = np.sort(rng.integers(0, k, size=n))
     w = rng.lognormal(0.0, float(gc["degree_sigma"]), size=n)
-    w = np.minimum(w * (gc["mean_degree"] / w.mean()), float(gc["max_degree"]))
+    scale = gc["mean_degree"] / w.mean()
+    w = np.minimum(w * scale, float(gc["max_degree"]))
     half = 0.5 * float(w.sum())
     m_in = rng.poisson(gc["intra_share"] * half)
     m_out = rng.poisson((1.0 - gc["intra_share"]) * half)
@@ -154,9 +171,10 @@ def knows_graph(gc: dict, n_dcs: int) -> Graph:
                          rng.integers(0, n_dcs, size=n))
     node_size = rng.lognormal(np.log(gc["person_bytes"]), 0.5, size=n).astype(np.float32)
     edge_size = rng.lognormal(np.log(gc["knows_bytes"]), 0.4, size=len(src)).astype(np.float32)
-    return Graph(n_nodes=n, src=src.astype(np.int32), dst=dst.astype(np.int32),
-                 node_size=node_size, edge_size=edge_size,
-                 partition=partition.astype(np.int32))
+    g = Graph(n_nodes=n, src=src.astype(np.int32), dst=dst.astype(np.int32),
+              node_size=node_size, edge_size=edge_size, partition=partition.astype(np.int32))
+    return g, Wiring(community=comm.astype(np.int64), home_dc=home_dc.astype(np.int64),
+                     weight=w, weight_scale=float(scale))
 
 
 def khop_patterns(g: Graph, pc: dict, n_dcs: int) -> List[Pattern]:
@@ -216,13 +234,14 @@ def khop_patterns(g: Graph, pc: dict, n_dcs: int) -> List[Pattern]:
         if rng.random() < 0.3:
             w_py[origin] = base * rng.uniform(0.05, 0.3)
         eta = float(rng.choice([0.25, 0.5, 0.75, 1.0]))
-        out.append(Pattern(pid=pid, items=items, r_py=r_py, w_py=w_py, eta=eta))
+        out.append(Pattern(pid=pid, items=items, r_py=r_py, w_py=w_py, eta=eta,
+                           start=v0, hops=hops))
     return out
 
 
-def _relabel(g: Graph, patterns: List[Pattern], seed: int):
-    """The same graph and patterns under a seeded permutation of the vertex
-    ids; edges are re-sorted by (src, dst)."""
+def _relabel(g: Graph, patterns: List[Pattern], seed: int, wiring: Wiring):
+    """The same graph, patterns and wiring under a seeded permutation of the
+    vertex ids; edges are re-sorted by (src, dst)."""
     rng = np.random.default_rng(seed)
     n = g.n_nodes
     pv = rng.permutation(n)  # old vertex -> new vertex
@@ -239,17 +258,23 @@ def _relabel(g: Graph, patterns: List[Pattern], seed: int):
                node_size=node_size, edge_size=g.edge_size[order].copy(), partition=partition)
     imap = np.concatenate([pv, n + pe])
     pats = [Pattern(pid=p.pid, items=np.sort(imap[p.items]), r_py=p.r_py.copy(),
-                    w_py=p.w_py.copy(), eta=p.eta) for p in patterns]
-    return g2, pats
+                    w_py=p.w_py.copy(), eta=p.eta, start=int(pv[p.start]), hops=p.hops)
+            for p in patterns]
+    community = np.empty_like(wiring.community)
+    community[pv] = wiring.community
+    weight = np.empty_like(wiring.weight)
+    weight[pv] = wiring.weight
+    return g2, pats, Wiring(community=community, home_dc=wiring.home_dc.copy(),
+                            weight=weight, weight_scale=wiring.weight_scale)
 
 
 def make_inputs(config: dict, seed: int) -> Inputs:
     """The configuration's graph and workload, relabelled by ``seed``."""
     env = make_env()
-    g = knows_graph(config["graph"], env.n_dcs)
+    g, wiring = knows_graph(config["graph"], env.n_dcs)
     pats = khop_patterns(g, config["patterns"], env.n_dcs)
-    g, pats = _relabel(g, pats, seed)
-    return Inputs(g=g, env=env, patterns=pats)
+    g, pats, wiring = _relabel(g, pats, seed, wiring)
+    return Inputs(g=g, env=env, patterns=pats, wiring=wiring)
 
 
 def to_port(inputs: Inputs):
@@ -277,3 +302,20 @@ def to_port(inputs: Inputs):
         for p in inputs.patterns
     ]
     return pg, penv, PWorkload.from_patterns(pats, pg.n_items, penv.n_dcs)
+
+
+def to_port_batch(batch):
+    """The port's ``MutationBatch`` of one sealed batch of inserts, built
+    from copies of the benchmark's arrays."""
+    from repro_torch.streaming.mutation_log import MutationBatch
+
+    none = np.zeros(0, np.int64)
+    return MutationBatch(
+        add_vertex_size=batch.vertex_size.copy(),
+        add_vertex_partition=batch.vertex_partition.copy(),
+        del_vertex_ids=none.copy(),
+        add_edge_src=batch.edge_src.copy(),
+        add_edge_dst=batch.edge_dst.copy(),
+        add_edge_size=batch.edge_size.copy(),
+        del_edge_ids=none.copy(),
+    )

@@ -11,9 +11,9 @@ bound.  Each serving DC's latency is Eq. 1, ``RTT + bytes / bandwidth``
 routed alone, as the store's scalar router does); a read's latency is the
 slowest.
 
-A read's answer depends only on its pattern, its origin and the replica
-sets, so :class:`Router` routes each distinct ``(pattern, origin)`` once
-per replica-set epoch.
+A read's answer depends only on its items, its origin and the replica
+sets, so :class:`Router` routes each distinct read once per replica-set
+epoch.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-__all__ = ["layer_components", "route_one", "Router"]
+__all__ = ["cross_pairs", "components_of_pairs", "layer_components", "route_one", "Router"]
 
 
 def _components(n: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -40,6 +40,34 @@ def _components(n: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.array([find(x) for x in range(n)], dtype=np.int64)
 
 
+def cross_pairs(partition: np.ndarray, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``[P, 2]`` the distinct DC pairs ``(lo, hi)`` that some edge joins."""
+    a = partition[src].astype(np.int64)
+    b = partition[dst].astype(np.int64)
+    cross = a != b
+    return np.unique(
+        np.stack([np.minimum(a[cross], b[cross]), np.maximum(a[cross], b[cross])], 1), axis=0
+    )
+
+
+def components_of_pairs(rtt_s: np.ndarray, pairs: np.ndarray,
+                        interval_s: float = 0.100) -> np.ndarray:
+    """:func:`layer_components` from the DC pairs that edges join."""
+    D = rtt_s.shape[0]
+    h = max(1, int(np.ceil(float(rtt_s.max()) / interval_s + 1e-9)))
+    bounds = np.array([interval_s * k for k in range(h + 1)] + [np.inf])
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    pair_layer = np.clip(
+        np.searchsorted(bounds, rtt_s[pairs[:, 0], pairs[:, 1]], side="right"), 1, h
+    )
+    comp = np.zeros((h + 1, D), np.int64)
+    comp[0] = np.arange(D)
+    for layer in range(1, h + 1):
+        m = pair_layer <= layer
+        comp[layer] = _components(D, pairs[m, 0], pairs[m, 1])
+    return comp
+
+
 def layer_components(
     rtt_s: np.ndarray,
     partition: np.ndarray,
@@ -50,24 +78,7 @@ def layer_components(
     """``[h + 1, D]`` cluster label of each DC at each layer (layer 0: each
     DC alone).  Layer bounds are ``interval_s`` steps up to the largest RTT;
     a DC pair joins at the layer of its RTT if any edge crosses it."""
-    D = rtt_s.shape[0]
-    h = max(1, int(np.ceil(float(rtt_s.max()) / interval_s + 1e-9)))
-    bounds = np.array([interval_s * k for k in range(h + 1)] + [np.inf])
-    a = partition[src].astype(np.int64)
-    b = partition[dst].astype(np.int64)
-    cross = a != b
-    pairs = np.unique(
-        np.stack([np.minimum(a[cross], b[cross]), np.maximum(a[cross], b[cross])], 1), axis=0
-    )
-    pair_layer = np.clip(
-        np.searchsorted(bounds, rtt_s[pairs[:, 0], pairs[:, 1]], side="right"), 1, h
-    )
-    comp = np.zeros((h + 1, D), np.int64)
-    comp[0] = np.arange(D)
-    for layer in range(1, h + 1):
-        m = pair_layer <= layer
-        comp[layer] = _components(D, pairs[m, 0], pairs[m, 1])
-    return comp
+    return components_of_pairs(rtt_s, cross_pairs(partition, src, dst), interval_s)
 
 
 def route_one(
@@ -118,29 +129,36 @@ def route_one(
 
 
 class Router:
-    """Routes reads of a fixed pattern set over replica sets that change
-    by epochs; memoises each ``(pattern, origin)`` within an epoch."""
+    """Routes reads over replica sets that change by epochs; memoises each
+    read's answer within an epoch by a key that fixes its items, origin
+    and way of summing."""
 
-    def __init__(self, pattern_items, sizes, rtt_s, bw_Bps, comp, sum_dtype=None) -> None:
-        self.pattern_items = pattern_items
+    def __init__(self, sizes, rtt_s, bw_Bps, comp, sum_dtype=None) -> None:
         self.sizes = np.asarray(sizes, np.float32)
         self.rtt_s = rtt_s
         self.bw_Bps = bw_Bps
         self.comp = comp
         self.sum_dtype = sum_dtype
         self.delta = None
-        self._memo: Dict[Tuple[int, int], tuple] = {}
+        self._memo: Dict[tuple, tuple] = {}
 
-    def set_replicas(self, delta: np.ndarray) -> None:
+    def set_replicas(self, delta: np.ndarray, sizes=None, comp=None) -> None:
+        """A new epoch: replica sets, and where given the item bytes and
+        the layers' clusters."""
         self.delta = delta
+        if sizes is not None:
+            self.sizes = np.asarray(sizes, np.float32)
+        if comp is not None:
+            self.comp = comp
         self._memo.clear()
 
-    def route(self, pattern: int, origin: int, lone: bool = False) -> tuple:
-        key = (pattern, origin, lone)
+    def route_items(self, key, items_fn, origin: int, lone: bool = False) -> tuple:
+        """``(served_by, dcs, per-DC latencies, read latency)`` of the read
+        of ``items_fn()``; ``key`` names it within the epoch."""
         hit = self._memo.get(key)
         if hit is None:
             served, dcs, lat = route_one(
-                self.pattern_items[pattern], origin, self.delta, self.comp,
+                items_fn(), origin, self.delta, self.comp,
                 self.sizes, self.rtt_s, self.bw_Bps, lone, self.sum_dtype,
             )
             hit = (served, dcs, lat, float(lat.max()) if len(lat) else 0.0)

@@ -70,13 +70,14 @@ def _label(t: float, ctx: dict) -> str:
     for a, b, _ in ctx["probe"]:
         if a <= t <= b:
             return "store.serve_batch"
-    order = {"step": 0, "submit": 1}
+    order = {"step": 0, "submit": 1, "apply": 2, "catalog": 3}
     best = None
     for label, a, b in ctx["timeline"].spans:
         if a <= t <= b and (best is None or order[label] < order[best]):
             best = label
     return {None: "harness.wait", "step": "controller.step outside serve_batch",
-            "submit": "harness.submit"}[best]
+            "submit": "harness.submit", "apply": "harness.apply",
+            "catalog": "harness.catalog"}[best]
 
 
 def device_summary(ctx: dict) -> Optional[dict]:
