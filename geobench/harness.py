@@ -201,6 +201,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     from repro_torch.serve.scheduler import AdmissionConfig, AdmissionController
 
     config, mix = cell.config, cell.mix
+    if "writes" in mix and config["patterns"].get("direction", "both") != "both":
+        raise ValueError("a mix with writes needs reads walked both ways: the catalog and "
+                         "the reference grow whole undirected neighbourhoods")
     sharded = config["store"]["kind"] == "sharded"
     inputs = make_inputs(config, seed)
     pats = inputs.patterns

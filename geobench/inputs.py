@@ -1,9 +1,12 @@
 """The benchmark's inputs: graph, environment and k-hop workload from a seed.
 
-A configuration file names a Person-knows-Person graph with a heavy-tailed
-degree distribution and planted communities (the stand-in for LDBC
-Datagen's knows graph), Table I's five data centres and a workload of k-hop
-patterns shaped like SNB's interactive reads (1 to 3 hops).  The graph and
+A configuration file names its graph's generator (``graph.generator``):
+``"knows_graph"``, a Person-knows-Person graph with a heavy-tailed degree
+distribution and planted communities (the stand-in for LDBC Datagen's knows
+graph), or ``"kronecker"``, Graph500's Kronecker graph (the stand-in for a
+follower graph such as the paper's Twitter-2010).  Beside it come Table
+I's five data centres and a workload of k-hop patterns shaped like SNB's
+interactive reads (1 to 3 hops).  The graph and
 the patterns are drawn once from the configuration's own ``base_seed``;
 ``--seed`` then relabels every vertex and edge by a random permutation.  So
 each seed hands the store a different input with exactly the same sizes,
@@ -20,8 +23,8 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["Graph", "Env", "Pattern", "Wiring", "Inputs", "knows_graph", "khop_patterns",
-           "make_env", "make_inputs", "to_port", "to_port_batch"]
+__all__ = ["Graph", "Env", "Pattern", "Wiring", "Inputs", "knows_graph", "kronecker_graph",
+           "khop_patterns", "make_env", "make_inputs", "to_port", "to_port_batch"]
 
 # Table I of the paper: five Alibaba Cloud DCs, RTT in ms and available
 # bandwidth in Mbps between each pair; Table II's Alibaba prices (storage
@@ -177,26 +180,91 @@ def knows_graph(gc: dict, n_dcs: int):
                      weight=w, weight_scale=float(scale))
 
 
+def kronecker_graph(gc: dict, n_dcs: int):
+    """``(Graph, None)``: Graph500's Kronecker graph, directed, follower -> followee.
+
+    The Graph500 specification's generator (its reference code,
+    ``kronecker_generator``): ``2**scale`` vertices and
+    ``edge_factor * 2**scale`` edges, each edge placing one bit of its
+    endpoints a level, the row bit 1 with probability ``1 - (a + b)``, then
+    the column bit 1 with probability ``1 - c / (1 - a - b)`` under a row
+    bit of 1 and ``1 - a / (a + b)`` under 0; then a random permutation of
+    the vertex labels.  The paper's Table III runs Twitter-2010 (Kwak et
+    al., WWW 2010), whose stand-in here is this graph at Graph500's
+    initiator (0.57, 0.19, 0.19).  Self loops and repeated directed pairs
+    are dropped; an edge ``u -> v`` is kept as drawn, with no reverse added,
+    and edges are sorted by (source, destination).  Each vertex's home DC is
+    drawn uniformly; vertex records are lognormal about ``node_bytes``, edge
+    records about ``edge_bytes``.  The generator draws no communities or
+    weights, so it hands out no ``Wiring`` and a mix with inserts cannot run
+    on it."""
+    rng = np.random.default_rng(gc["base_seed"])
+    scale = int(gc["scale"])
+    n = 1 << scale
+    m = int(gc["edge_factor"]) * n
+    a, b, c = float(gc["a"]), float(gc["b"]), float(gc["c"])
+    ab = a + b
+    c_norm, a_norm = c / (1.0 - ab), a / ab
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        row = rng.random(m) > ab
+        col = rng.random(m) > np.where(row, c_norm, a_norm)
+        src |= row.astype(np.int64) << bit
+        dst |= col.astype(np.int64) << bit
+    label = rng.permutation(n)
+    src, dst = label[src], label[dst]
+    keep = src != dst
+    pairs = np.unique(src[keep] * n + dst[keep])
+    src, dst = pairs // n, pairs % n
+    partition = rng.choice(n_dcs, size=n, p=np.full(n_dcs, 1.0 / n_dcs))
+    node_size = rng.lognormal(np.log(gc["node_bytes"]), 0.5, size=n).astype(np.float32)
+    edge_size = rng.lognormal(np.log(gc["edge_bytes"]), 0.4, size=len(src)).astype(np.float32)
+    g = Graph(n_nodes=n, src=src.astype(np.int32), dst=dst.astype(np.int32),
+              node_size=node_size, edge_size=edge_size, partition=partition.astype(np.int32))
+    return g, None
+
+
+GENERATORS = {"knows_graph": knows_graph, "kronecker": kronecker_graph}
+
+
+def _walk_lists(g: Graph, direction: str):
+    """``(indptr, neighbour, edge id)`` of the edges a walk may take from
+    each vertex: ``"both"`` ways or ``"out"`` (source to destination)."""
+    s, d = g.src.astype(np.int64), g.dst.astype(np.int64)
+    eid = np.arange(g.n_edges)
+    if direction == "both":
+        s, d, eid = np.concatenate([s, d]), np.concatenate([d, s]), np.concatenate([eid] * 2)
+    elif direction != "out":
+        raise ValueError(f"unknown walk direction {direction!r}")
+    order = np.argsort(s, kind="stable")
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(s, minlength=g.n_nodes))])
+    return indptr, d[order], eid[order]
+
+
 def khop_patterns(g: Graph, pc: dict, n_dcs: int) -> List[Pattern]:
     """Patterns shaped like SNB's interactive reads: a start person and the
     persons and knows edges met walking ``hops`` steps out from it (1 to 3,
     drawn with ``hop_weights``), taking ``branch`` random friends of each
-    person reached.  Start persons are Zipf-popular over a hot core of
-    ``n_hot_sources``.  A pattern is read from its start person's DC, from
-    a second DC with probability 0.35, written with probability 0.3, and
-    gets a latency coefficient from (0.25, 0.5, 0.75, 1.0)."""
+    person reached, along the edges ``direction`` names (``"both"``, the
+    default, or ``"out"``: a follow list is directed).  Start
+    persons are Zipf-popular over a hot core of ``n_hot_sources``, taken
+    among the vertices with at least ``start_min_degree`` edges in that
+    direction (default 0: every vertex).  A pattern is read from its start
+    person's DC, from a second DC with probability 0.35, written with
+    probability 0.3, and gets a latency coefficient from (0.25, 0.5, 0.75,
+    1.0)."""
     rng = np.random.default_rng(pc["base_seed"])
     n = g.n_nodes
-    src = np.concatenate([g.src, g.dst]).astype(np.int64)
-    dst = np.concatenate([g.dst, g.src]).astype(np.int64)
-    eid = np.concatenate([np.arange(g.n_edges)] * 2)
-    order = np.argsort(src, kind="stable")
-    nbr, nbr_e = dst[order], eid[order]
-    indptr = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=n))])
+    indptr, nbr, nbr_e = _walk_lists(g, pc.get("direction", "both"))
     ranks = rng.permutation(n) + 1
+    # the Zipf rank of each vertex among those of the least degree
+    by_rank = np.argsort(ranks)
+    ok = np.diff(indptr)[by_rank] >= int(pc.get("start_min_degree", 0))
+    ranks[by_rank] = np.where(ok, np.cumsum(ok), n + 1)
     popularity = 1.0 / ranks.astype(np.float64) ** 1.4
     mask = np.zeros(n)
-    mask[np.argsort(ranks)[: pc["n_hot_sources"]]] = 1.0
+    mask[by_rank[ok][: pc["n_hot_sources"]]] = 1.0
     popularity *= mask
     popularity /= popularity.sum()
     hop_choices = np.arange(1, len(pc["hop_weights"]) + 1)
@@ -239,9 +307,9 @@ def khop_patterns(g: Graph, pc: dict, n_dcs: int) -> List[Pattern]:
     return out
 
 
-def _relabel(g: Graph, patterns: List[Pattern], seed: int, wiring: Wiring):
-    """The same graph, patterns and wiring under a seeded permutation of the
-    vertex ids; edges are re-sorted by (src, dst)."""
+def _relabel(g: Graph, patterns: List[Pattern], seed: int, wiring: Optional[Wiring]):
+    """The same graph, patterns and wiring (if any) under a seeded
+    permutation of the vertex ids; edges are re-sorted by (src, dst)."""
     rng = np.random.default_rng(seed)
     n = g.n_nodes
     pv = rng.permutation(n)  # old vertex -> new vertex
@@ -260,6 +328,8 @@ def _relabel(g: Graph, patterns: List[Pattern], seed: int, wiring: Wiring):
     pats = [Pattern(pid=p.pid, items=np.sort(imap[p.items]), r_py=p.r_py.copy(),
                     w_py=p.w_py.copy(), eta=p.eta, start=int(pv[p.start]), hops=p.hops)
             for p in patterns]
+    if wiring is None:
+        return g2, pats, None
     community = np.empty_like(wiring.community)
     community[pv] = wiring.community
     weight = np.empty_like(wiring.weight)
@@ -271,7 +341,10 @@ def _relabel(g: Graph, patterns: List[Pattern], seed: int, wiring: Wiring):
 def make_inputs(config: dict, seed: int) -> Inputs:
     """The configuration's graph and workload, relabelled by ``seed``."""
     env = make_env()
-    g, wiring = knows_graph(config["graph"], env.n_dcs)
+    gc = config["graph"]
+    if gc["generator"] not in GENERATORS:
+        raise ValueError(f"unknown graph generator {gc['generator']!r}")
+    g, wiring = GENERATORS[gc["generator"]](gc, env.n_dcs)
     pats = khop_patterns(g, config["patterns"], env.n_dcs)
     g, pats, wiring = _relabel(g, pats, seed, wiring)
     return Inputs(g=g, env=env, patterns=pats, wiring=wiring)

@@ -134,7 +134,11 @@ def make_writes(writes: dict, gc: dict, g, wiring, n_dcs: int, seed: int,
     community (drawn by its weight), both endpoints by weight; the rest by
     weight over everyone; new persons take part from their insert on; a self
     loop or a pair already joined is drawn again; oriented at random; bytes
-    lognormal about ``knows_bytes``."""
+    lognormal about ``knows_bytes``.  A graph drawn with no ``Wiring`` (a
+    Kronecker graph) has nothing to draw inserts like, and is refused."""
+    if wiring is None:
+        raise ValueError(f"a mix with writes needs a graph drawn with communities and weights; "
+                         f"the {gc.get('generator')!r} graph has none")
     rng = np.random.default_rng([seed, 4])
     rate = float(writes["rate_ops"])
     seal = float(writes["seal_s"])
